@@ -3,10 +3,13 @@
     python3 chip_smoke.py
 
 Builds the CUDA kernels from `neo_mpc_planner2_tpu_torch/csrc/`, checks each
-against its plain PyTorch version on the card, drives the fleet closed loop
-(4096 lanes, 64x64 maps, control_steps=3, 20 ticks) through
-`batch_simulate`, and compares one controller step on the card with the same
+against its plain PyTorch version on the card, and drives both slices of the
+port through `batch_simulate` (4096 lanes, 64x64 maps, control_steps=3,
+20 ticks each): the fleet closed loop (parity objective) and the product
+closed loop (smooth objective, candidate-wave line search, patch sampler).
+For each slice it compares one controller step on the card with the same
 step on the CPU. Every phase prints a line; any failure exits non-zero. The
+`kernels` line lists every kernel with its launches on the two slices; the
 second-to-last line is the card's name and power limit, the last line
 `{"ok": true, "device": {...}}`. Needs a CUDA device: without one it exits
 non-zero and prints no result. Imports no JAX.
@@ -19,6 +22,29 @@ import statistics
 import subprocess
 import sys
 import time
+
+# Every hand-written kernel: its source, the TPU kernel it replaces
+# (file:line of its `def`) and its launcher in kernels/binding.py.
+KERNELS = [
+    dict(name="qp_admm", route="cuda",
+         source="neo_mpc_planner2_tpu_torch/csrc/qp_admm.cu",
+         replaces="neo_mpc_planner2_tpu/sqp.py:318",
+         launcher="launch_qp_admm"),
+    dict(name="spd_inv", route="cuda",
+         source="neo_mpc_planner2_tpu_torch/csrc/spd_inv.cu",
+         replaces="neo_mpc_planner2_tpu/sqp.py:144",
+         launcher="launch_spd_inv"),
+    dict(name="footprint_cost", route="cuda",
+         source="neo_mpc_planner2_tpu_torch/csrc/footprint_cost.cu",
+         replaces="neo_mpc_planner2_tpu/ops/pallas_kernels.py:44",
+         launcher="launch_footprint_cost"),
+]
+
+
+# How the phase lines time each kernel; the `kernels` line's "ms" is the
+# first of these, its "plain_ms" the last.
+TIMING = ("*_ms: the kernel's device time (torch.profiler); *_wrapper_ms "
+          "and *_plain_ms: one call between CUDA events; medians of 20")
 
 
 def _nvidia_smi() -> str:
@@ -38,8 +64,11 @@ def _ptxas_report(log: str) -> dict:
     for line in log.splitlines():
         hit = re.search(r"Compiling entry function '\w*?(qp_admm|spd_inv)"
                         r"_kernelILi(\d+)E", line)
-        if hit:
-            name = f"{hit.group(1)}_m{hit.group(2)}"
+        plain = re.search(r"Compiling entry function '\w*?(footprint_cost)"
+                          r"_kernel", line)
+        if hit or plain:
+            name = (f"{hit.group(1)}_m{hit.group(2)}" if hit
+                    else plain.group(1))
             report[name] = {}
         elif name and "spill stores" in line:
             nums = [int(v) for v in re.findall(r"(\d+) bytes", line)]
@@ -52,7 +81,9 @@ def _ptxas_report(log: str) -> dict:
 
 
 def _time_ms(fn, reps: int = 20) -> float:
-    """Median of `reps` CUDA-event timings of fn(), after one warm-up."""
+    """Median of `reps` CUDA-event timings of fn(), after one warm-up: what
+    one call costs on the card, the host's enqueue of its launches
+    included."""
     import torch
 
     fn()
@@ -65,6 +96,30 @@ def _time_ms(fn, reps: int = 20) -> float:
         b.record()
         b.synchronize()
         times.append(a.elapsed_time(b))
+    return statistics.median(times)
+
+
+def _device_ms(fn, kernel: str, reps: int = 20) -> float:
+    """Median device time of the `kernel` launches in `reps` calls of fn(),
+    after one warm-up, from torch.profiler's CUDA trace: the kernel alone on
+    the card, without the host's enqueue (which a single short launch
+    between two CUDA events also times)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    times = [e.time_range.elapsed_us() / 1e3 for e in prof.events()
+             if e.device_type == DeviceType.CUDA and kernel in e.name]
+    if len(times) != reps:
+        raise AssertionError(f"the profiler saw {len(times)} launches of "
+                             f"{kernel}, expected {reps}")
     return statistics.median(times)
 
 
@@ -127,13 +182,15 @@ def phase_kernels(device):
                             f"version by {ex:.3g} past rtol/atol")
                     worst = max(worst, float((gt - w).abs().max()))
                 if B == 4096 and iters == 60:
-                    report[f"qp_admm_m{m}_ms"] = _time_ms(
+                    report[f"qp_admm_m{m}_ms"] = _device_ms(
+                        lambda: sqp.qp_admm(*args, **kw), "qp_admm_kernel")
+                    report[f"qp_admm_wrapper_m{m}_ms"] = _time_ms(
                         lambda: sqp.qp_admm(*args, **kw))
                     report[f"qp_admm_plain_m{m}_ms"] = _time_ms(
                         lambda: sqp.qp_admm_plain(*plain_args, **kw))
     report["qp_admm_max_abs_err"] = worst
     print(json.dumps({"phase": "K1 qp_admm vs plain", "rtol": rtol,
-                      "atol": atol, **report}), flush=True)
+                      "atol": atol, "timing": TIMING, **report}), flush=True)
 
     inv = {}
     worst_inv, worst_res = 0.0, 0.0
@@ -155,7 +212,9 @@ def phase_kernels(device):
             worst_inv = max(worst_inv, float((got - want).abs().max()))
             worst_res = max(worst_res, res)
             if B == 4096:
-                inv[f"spd_inv_m{m}_ms"] = _time_ms(
+                inv[f"spd_inv_m{m}_ms"] = _device_ms(
+                    lambda: sqp.chol_inverse(M), "spd_inv_kernel")
+                inv[f"spd_inv_wrapper_m{m}_ms"] = _time_ms(
                     lambda: sqp.chol_inverse(M))
                 inv[f"spd_inv_plain_m{m}_ms"] = _time_ms(
                     lambda: sqp.chol_inverse_plain(M))
@@ -163,8 +222,101 @@ def phase_kernels(device):
     inv["spd_inv_max_residual"] = worst_res
     print(json.dumps({"phase": "K2 spd_inv vs plain", "rtol": rtol,
                       "atol": atol, "launches": sqp.chol_inverse.launches,
-                      **inv}), flush=True)
+                      "timing": TIMING, **inv}), flush=True)
     return report, inv
+
+
+def _k3_inputs(rng, B: int, R: int, device):
+    """Maps with a lethal row each and (B, R) polygons of five kinds, in
+    turn: placed rectangles, padded triangles, grid-aligned rectangles
+    (samples on cell boundaries), corners in the (origin - res, origin)
+    band, and polygons off the map. Padded vertex slots hold garbage."""
+    import numpy as np
+    import torch
+
+    H = W = 64
+    f = np.float32
+    res, o = f(0.05), f(-1.6)
+    data = rng.uniform(0, 0.95, (B, H, W)).astype(f)
+    data[np.arange(B), rng.integers(0, H, B), :] = 1.0
+    n = B * R
+    kind = np.arange(n) % 5
+    centre = rng.uniform(-1.2, 1.2, (n, 2)).astype(f)
+    centre[kind == 4] += f(4.0)
+    yaw = rng.uniform(-np.pi, np.pi, n)
+    half = np.asarray([[0.365, 0.275], [-0.365, 0.275], [-0.365, -0.275],
+                       [0.365, -0.275]])
+    c, s = np.cos(yaw)[:, None], np.sin(yaw)[:, None]
+    quad = centre[:, None, :] + np.stack(
+        [half[:, 0] * c - half[:, 1] * s, half[:, 0] * s + half[:, 1] * c],
+        -1)
+    k = rng.integers(-3, 67, (n, 2))
+    lo = o + k.astype(f) * res
+    hi = o + (k + rng.integers(1, 8, (n, 2))).astype(f) * res
+    aligned = np.stack([hi, np.stack([lo[:, 0], hi[:, 1]], -1), lo,
+                        np.stack([hi[:, 0], lo[:, 1]], -1)], 1)
+    quad[kind == 2] = aligned[kind == 2]
+    band = (o - rng.uniform(0.01, 0.99, (n, 4, 2)).astype(f) * res)
+    quad[kind == 3] = np.where(rng.random((n, 4, 2)) < 0.5, band,
+                               o + rng.uniform(0, 0.3, (n, 4, 2)))[kind == 3]
+    verts = rng.uniform(50, 90, (n, 8, 2))
+    verts[:, :4] = quad
+    nv = np.where(kind == 1, 3, 4).astype(np.int32)
+    verts[kind == 1, 3] = rng.uniform(50, 90, (int((kind == 1).sum()), 2))
+    T = lambda a, dt=torch.float32: torch.as_tensor(
+        np.ascontiguousarray(a), dtype=dt, device=device)
+    return (T(data), T(np.full((B, 2), o)), T(np.full((B,), res)),
+            T(verts.reshape(B, R, 8, 2)), T(nv.reshape(B, R), torch.int32))
+
+
+def phase_k3(device):
+    """K3 against its plain version: exact (the outputs are picked map
+    values), at every shape and polygon kind, full-grid and patch bounds."""
+    import numpy as np
+    import torch
+
+    from neo_mpc_planner2_tpu_torch.ops import costmap as cmap
+    from neo_mpc_planner2_tpu_torch.ops import footprint as fpm
+
+    rng = np.random.default_rng(3)
+    worst, cases, report = 0.0, 0, {}
+    for B in (1, 131, 4096):
+        for R in (1, 21):
+            data, origin, res, verts, nv = _k3_inputs(rng, B, R, device)
+            cm = cmap.Costmap(data=data, origin=origin, resolution=res)
+            cx = torch.as_tensor(rng.uniform(-2.0, 2.0, B),
+                                 dtype=torch.float32, device=device)
+            patch = cmap.product_patch_bounds(cm, cx, cx.flip(0), 28)
+            for S in (8, 16, 32):
+                t = fpm.edge_parameters(S, device)
+                for bounds in (None, patch):
+                    args = (data, origin, res, bounds, verts, nv, t)
+                    got = fpm.footprint_cost_batch(*args)
+                    want = fpm.footprint_cost_batch_plain(*args)
+                    torch.cuda.synchronize()
+                    if not torch.equal(got, want):
+                        raise AssertionError(
+                            f"K3 B={B} R={R} S={S} bounds="
+                            f"{bounds is not None}: differs from its plain "
+                            f"version by {float((got - want).abs().max())}")
+                    worst = max(worst, float((got - want).abs().max()))
+                    cases += 1
+                if B == 4096 and R == 21 and S == 16:
+                    args = (data, origin, res, None, verts, nv, t)
+                    report["footprint_cost_ms"] = _device_ms(
+                        lambda: fpm.footprint_cost_batch(*args),
+                        "footprint_cost_kernel")
+                    report["footprint_cost_wrapper_ms"] = _time_ms(
+                        lambda: fpm.footprint_cost_batch(*args))
+                    report["footprint_cost_plain_ms"] = _time_ms(
+                        lambda: fpm.footprint_cost_batch_plain(*args))
+    report["footprint_cost_max_abs_err"] = worst
+    print(json.dumps({"phase": "K3 footprint_cost vs plain",
+                      "tolerance": "exact (torch.equal)", "cases": cases,
+                      "timed_at": "B=4096 R=21 S=16 full grid",
+                      "timing": TIMING, **report}),
+          flush=True)
+    return report
 
 
 def fleet_cfg():
@@ -184,37 +336,77 @@ def fleet_cfg():
         lookahead_dist_close_to_goal=0.4)
 
 
-def phase_slice(device, smi: str, batch: int = 4096, ticks: int = 20):
+def product_cfg():
+    """The product-SQP point of the benchmark (bench.py) on the fleet
+    overrides: quirks off, the candidate-wave line search, no quadratic
+    interpolation, and the patch sampler sized for the MPO-700 footprint
+    (0.46 m circumradius; 28 cells at 0.05 m)."""
+    import dataclasses
+
+    from neo_mpc_planner2_tpu_torch.ops.costmap import (
+        required_product_patch_halfwidth)
+
+    cfg = fleet_cfg()
+    cfg = cfg.replace(
+        parallel_line_search=True, solver_ls_quad_interp=False,
+        solver_patch_exact_picks=False,
+        compat=dataclasses.replace(
+            cfg.compat, buggy_odom_yaw=False, footprint_alias_noop=False,
+            lethal_1000x=False, unsquared_control_cost=False,
+            no_angle_wrap=False))
+    return cfg.replace(solver_costmap_patch=required_product_patch_halfwidth(
+        cfg, 0.05, 0.46))
+
+
+def _launch_counts():
+    from neo_mpc_planner2_tpu_torch import sqp
+    from neo_mpc_planner2_tpu_torch.ops import footprint
+
+    return {"qp_admm": sqp.qp_admm.launches,
+            "spd_inv": sqp.chol_inverse.launches,
+            "footprint_cost": footprint.footprint_cost_batch.launches}
+
+
+def _reset_launch_counts():
+    from neo_mpc_planner2_tpu_torch import sqp
+    from neo_mpc_planner2_tpu_torch.ops import footprint
+
+    sqp.qp_admm.launches = 0
+    sqp.chol_inverse.launches = 0
+    footprint.footprint_cost_batch.launches = 0
+
+
+def phase_slice(device, smi: str, name: str, cfg, parity: bool,
+                batch: int = 4096, ticks: int = 20):
+    """One slice's closed loop: a warm-up run, then a timed run with the
+    launch counts set to 0 just before it and read just after."""
     import torch
 
-    from neo_mpc_planner2_tpu_torch import sqp
     from neo_mpc_planner2_tpu_torch.scenarios import make_scenario_batch
     from neo_mpc_planner2_tpu_torch.simulation import batch_simulate
 
-    cfg = fleet_cfg()
     sb = make_scenario_batch(cfg, batch, seed=0, map_size=64,
                              plan_points=64, device=device)
-    batch_simulate(cfg, sb, ticks)             # warm-up
+    batch_simulate(cfg, sb, ticks, parity=parity)          # warm-up
     torch.cuda.synchronize()
-    sqp.qp_admm.launches = 0
-    sqp.chol_inverse.launches = 0
+    _reset_launch_counts()
     t0 = time.perf_counter()
-    res = batch_simulate(cfg, sb, ticks)
+    res = batch_simulate(cfg, sb, ticks, parity=parity)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {"qp_admm": sqp.qp_admm.launches,
-                "spd_inv": sqp.chol_inverse.launches}
+    launches = _launch_counts()
 
     cmds = res.cmds
     if not bool(torch.isfinite(cmds).all()):
-        raise AssertionError("slice: non-finite commands")
+        raise AssertionError(f"{name}: non-finite commands")
     speed = torch.linalg.vector_norm(cmds[..., :2], dim=-1)
     if float(speed.max()) > cfg.max_vel_trans + 1e-5:
-        raise AssertionError(f"slice: |cmd_xy| {float(speed.max())} above "
+        raise AssertionError(f"{name}: |cmd_xy| {float(speed.max())} above "
                              f"max_vel_trans {cfg.max_vel_trans}")
-    if launches["qp_admm"] <= 0:
-        raise AssertionError("slice: the QP kernel was never launched")
-    out = {"phase": "fleet slice", "batch": batch, "ticks": ticks,
+    for kernel in ("qp_admm", "footprint_cost"):
+        if launches[kernel] <= 0:
+            raise AssertionError(f"{name}: {kernel} was never launched")
+    out = {"phase": name, "batch": batch, "ticks": ticks,
            "map": 64, "control_steps": cfg.control_steps,
            "wall_s": wall, "solves_per_s": batch * ticks / wall,
            "launches": launches,
@@ -228,28 +420,29 @@ def phase_slice(device, smi: str, batch: int = 4096, ticks: int = 20):
     return out
 
 
-def phase_card_vs_cpu(device):
-    import torch
-
+def phase_card_vs_cpu(device, name: str, cfg, parity: bool,
+                      lanes: int = 256):
+    """One controller step on the card against the same step on the CPU
+    (plain versions): at least 99 % of lanes within 1e-3 (a 1-ulp tie in f
+    may move a lane's termination by one iteration)."""
     from neo_mpc_planner2_tpu_torch.engine import make_batched_controller_step
     from neo_mpc_planner2_tpu_torch.scenarios import make_scenario_batch
     from neo_mpc_planner2_tpu_torch.tree import tree_map
 
-    cfg = fleet_cfg()
-    sb = make_scenario_batch(cfg, 256, seed=1, map_size=64, plan_points=64)
-    step = make_batched_controller_step(cfg)
+    sb = make_scenario_batch(cfg, lanes, seed=1, map_size=64, plan_points=64)
+    step = make_batched_controller_step(cfg, parity=parity)
     args = (sb.state, sb.plan, sb.robot_pose, sb.current_vel, sb.costmap,
             sb.footprint, sb.delta_t)
     cpu = step(*args).cmd_vel
     gpu = step(*tree_map(lambda t: t.to(device), args)).cmd_vel.cpu()
     diff = (gpu - cpu).abs().amax(-1)
     frac = float((diff <= 1e-3).float().mean())
-    out = {"phase": "card vs cpu, one step", "lanes": 256,
+    out = {"phase": f"{name}: card vs cpu, one step", "lanes": lanes,
            "max_cmd_diff": float(diff.max()), "frac_within_1e-3": frac}
     print(json.dumps(out), flush=True)
     if frac < 0.99:
-        raise AssertionError(f"card vs CPU: only {frac:.4f} of lanes within "
-                             "1e-3")
+        raise AssertionError(f"{name} card vs CPU: only {frac:.4f} of lanes "
+                             "within 1e-3")
     return out
 
 
@@ -275,17 +468,33 @@ def main() -> int:
                       "ptxas": _ptxas_report(build.last_build["log"])}),
           flush=True)
 
-    k1, _ = phase_kernels(device)
-    sl = phase_slice(device, smi)
-    phase_card_vs_cpu(device)
+    k1, k2 = phase_kernels(device)
+    k3 = phase_k3(device)
+    fleet = phase_slice(device, smi, "fleet slice", fleet_cfg(), parity=True)
+    phase_card_vs_cpu(device, "fleet slice", fleet_cfg(), parity=True)
+    product = phase_slice(device, smi, "product slice", product_cfg(),
+                          parity=False)
+    phase_card_vs_cpu(device, "product slice", product_cfg(), parity=False)
 
-    kernels = [{
-        "name": "qp_admm", "route": "cuda",
-        "source": "neo_mpc_planner2_tpu_torch/csrc/qp_admm.cu",
-        "replaces": "neo_mpc_planner2_tpu/sqp.py:318",
-        "launches": sl["launches"]["qp_admm"],
-        "max_abs_err": k1["qp_admm_max_abs_err"],
-        "ms": k1["qp_admm_m9_ms"], "plain_ms": k1["qp_admm_plain_m9_ms"]}]
+    measured = {
+        "qp_admm": (k1["qp_admm_max_abs_err"], k1["qp_admm_m9_ms"],
+                    k1["qp_admm_plain_m9_ms"]),
+        "spd_inv": (k2["spd_inv_max_abs_err"], k2["spd_inv_m9_ms"],
+                    k2["spd_inv_plain_m9_ms"]),
+        "footprint_cost": (k3["footprint_cost_max_abs_err"],
+                           k3["footprint_cost_ms"],
+                           k3["footprint_cost_plain_ms"]),
+    }
+    kernels = []
+    for k in KERNELS:
+        err, ms, plain_ms = measured[k["name"]]
+        kernels.append({
+            "name": k["name"], "route": k["route"], "source": k["source"],
+            "replaces": k["replaces"],
+            # Launches on the two slices' timed runs (fleet + product).
+            "launches": (fleet["launches"][k["name"]]
+                         + product["launches"][k["name"]]),
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(_nvidia_smi(), flush=True)
     print(json.dumps({"ok": True, "device": {

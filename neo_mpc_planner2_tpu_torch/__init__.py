@@ -2,10 +2,13 @@
 CUDA kernels for NVIDIA Hopper (H100).
 
 A port of `neo_mpc_planner2_tpu` (JAX/Pallas), which stays the reference.
-This package imports no JAX. Its first slice is the fleet closed-loop tick:
-`simulation.batch_simulate` on a static map through
-`engine.make_batched_controller_step` and the parity SQP solver, whose QP
-runs in the CUDA kernel `csrc/qp_admm.cu` on the card.
+This package imports no JAX. It runs the closed loop
+(`simulation.batch_simulate` on a static map through
+`engine.make_batched_controller_step` and the batched SQP solver) in both
+modes: the parity objective (`fleet_config`) and the smooth product
+objective with the candidate-wave line search (`product_config`,
+parity=False). On the card the QP runs in the CUDA kernel
+`csrc/qp_admm.cu` and every footprint cost in `csrc/footprint_cost.cu`.
 """
 
 import torch as _torch
@@ -20,7 +23,8 @@ from .engine import (ControlState, MpcEngine, StepResult, init_state,
                      make_batched_controller_step)
 from .ops.costmap import Costmap, cost_at_world
 from .ops.footprint import Footprint, footprint_cost, transform_footprint
-from .ops.objective import Scenario, make_objective, objective_parity
+from .ops.objective import (Scenario, make_objective, objective_parity,
+                            objective_product)
 from .ops.pursuit import Plan, PursuitResult, pursuit_tick
 from .ops.rollout import rollout
 from .scenarios import ScenarioBatch, make_scenario_batch
@@ -36,6 +40,7 @@ __all__ = [
     "make_batched_controller_step",
     "Costmap", "cost_at_world", "Footprint", "footprint_cost",
     "transform_footprint", "Scenario", "make_objective", "objective_parity",
+    "objective_product",
     "Plan", "PursuitResult", "pursuit_tick", "rollout",
     "ScenarioBatch", "make_scenario_batch", "SimResult", "batch_simulate",
     "SolveResult", "chol_inverse", "make_sqp_solver",

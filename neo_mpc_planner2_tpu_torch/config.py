@@ -100,6 +100,8 @@ class MpcConfig:
     costmap_sampling: str = "gather"
     footprint_exact: bool = False
     solver_costmap_patch: int = 0
+    # Selects the TPU's pick precision in the JAX package. A gather is
+    # exact, so on the GPU there is nothing to select: kept for round trips.
     solver_patch_exact_picks: bool = True
     solver_costmap_u8: "bool | str" = False
     solver_compact_after: int = 0
@@ -163,9 +165,8 @@ def fleet_config() -> MpcConfig:
 
 def product_config() -> MpcConfig:
     """The product-mode operating point: every reference quirk off, on the
-    fleet preset, with the parallel candidate-wave line search. The port does
-    not run product mode yet (ROADMAP.md); the preset is carried so configs
-    round-trip."""
+    fleet preset, with the parallel candidate-wave line search. Run it with
+    parity=False (MpcEngine, batch_simulate)."""
     base = fleet_config()
     return base.replace(
         parallel_line_search=True,

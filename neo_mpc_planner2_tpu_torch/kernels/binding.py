@@ -1,8 +1,9 @@
-"""Launch the CUDA kernels on lane-minor CUDA tensors.
+"""Launch the CUDA kernels on contiguous CUDA tensors.
 
-Each function takes contiguous float32 CUDA tensors laid out (rows, B),
-allocates its outputs with torch.empty, launches on the current stream
-without synchronising, and raises if the launch reports an error.
+K1 and K2 take float32 operands laid out lane-minor, (rows, B); K3 takes
+its operands batch-major as `footprint_cost_batch` documents them. Each
+function allocates its outputs with torch.empty, launches on the current
+stream without synchronising, and raises if the launch reports an error.
 """
 
 from __future__ import annotations
@@ -13,7 +14,8 @@ import torch
 
 from .build import load_library
 
-__all__ = ["SUPPORTED_M", "launch_qp_admm", "launch_spd_inv"]
+__all__ = ["SUPPORTED_M", "launch_qp_admm", "launch_spd_inv",
+           "launch_footprint_cost"]
 
 SUPPORTED_M = (6, 9, 15)
 
@@ -51,3 +53,21 @@ def launch_spd_inv(A: torch.Tensor, m: int) -> torch.Tensor:
     rc = lib.neo_spd_inv_f32(m, A.shape[1], A.data_ptr(), X.data_ptr(), stream)
     _check(rc, "spd_inv")
     return X
+
+
+def launch_footprint_cost(data, origin, res, bounds, verts, n_valid, t):
+    """data (Bm, H, W), origin (Bm, 2), res (Bm,), bounds (Bm, 4) int32 or
+    None (the whole grid), verts (Bm, R, V, 2), n_valid (Bm, R) int32,
+    t (S,). Returns the (Bm, R) costs."""
+    lib = load_library()
+    Bm, H, W = data.shape
+    R, V = verts.shape[1], verts.shape[2]
+    out = torch.empty((Bm, R), dtype=torch.float32, device=data.device)
+    stream = torch.cuda.current_stream(data.device).cuda_stream
+    rc = lib.neo_footprint_cost_f32(
+        Bm, R, H, W, V, t.shape[0], data.data_ptr(), origin.data_ptr(),
+        res.data_ptr(), None if bounds is None else bounds.data_ptr(),
+        verts.data_ptr(), n_valid.data_ptr(), t.data_ptr(), out.data_ptr(),
+        stream)
+    _check(rc, "footprint_cost")
+    return out

@@ -1,6 +1,7 @@
 """Build the CUDA kernels at first use and bind their C interface with ctypes.
 
-`nvcc` compiles every source under `csrc/` into one shared library with a
+`nvcc` compiles each source under `csrc/` to an object, all sources at once
+in parallel processes, and links the objects into one shared library with a
 plain C interface (no PyTorch headers, so a build takes seconds). The
 library's file name carries a hash of the sources and flags, so an edited
 source rebuilds and an unchanged one is loaded from `build/kernels/`.
@@ -25,8 +26,8 @@ CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 CUDA_HOME = os.environ.get("CUDA_HOME", "/usr/local/cuda")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-SOURCES = ("qp_admm.cu", "spd_inv.cu")
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+SOURCES = ("qp_admm.cu", "spd_inv.cu", "footprint_cost.cu")
 HEADERS = ("spd_inverse.cuh",)
 
 # What the last build_library call did: {"path", "built", "seconds", "log"}.
@@ -70,15 +71,24 @@ def build_library() -> Path:
         return out
     nvcc = find_nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, *(str(CSRC / s) for s in SOURCES)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{log}")
-    os.replace(tmp, out)
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        objs = [os.path.join(tmp, s + ".o") for s in SOURCES]
+        procs = [subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, "-c", str(CSRC / s), "-o", o],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for s, o in zip(SOURCES, objs)]
+        logs = [p.communicate()[0] for p in procs]
+        log = "".join(logs)
+        failed = [s for s, p in zip(SOURCES, procs) if p.returncode != 0]
+        if failed:
+            raise RuntimeError(f"nvcc failed on {failed}:\n{log}")
+        lib = os.path.join(tmp, "lib.so")
+        proc = subprocess.run([nvcc, "-shared", "-o", lib, *objs],
+                              capture_output=True, text=True)
+        log += proc.stdout + proc.stderr
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n{log}")
+        os.replace(lib, out)
     out.with_suffix(".log").write_text(log)
     last_build.update(path=str(out), built=True,
                       seconds=time.perf_counter() - t0, log=log)
@@ -100,5 +110,7 @@ def load_library() -> ctypes.CDLL:
         lib.neo_qp_admm_f32.restype = i
         lib.neo_spd_inv_f32.argtypes = [i, i, vp, vp, vp]
         lib.neo_spd_inv_f32.restype = i
+        lib.neo_footprint_cost_f32.argtypes = [i] * 6 + [vp] * 9
+        lib.neo_footprint_cost_f32.restype = i
         _lib = lib
     return _lib

@@ -1,4 +1,4 @@
-"""Device-resident 2-D costmap, main-path half (port of `ops/costmap.py`).
+"""Device-resident 2-D costmap (port of `ops/costmap.py`).
 
 Costs are normalized to [0, 1] with 1.0 = lethal. Out-of-bounds queries read
 lethal. `world_to_map` divides by the resolution and floors, as nav2's
@@ -10,17 +10,29 @@ Batching is written out: a costmap's `data` is (*lead, H, W) with `origin`
 `lead` dims and may carry any number of sample dims after them. The JAX
 package's one-hot samplers exist because a TPU has no vector gather; on the
 GPU both sampling modes are the same flat gather.
+
+The JAX package's per-solve patches (`extract_patch`, `extract_patch_onehot`)
+copy a window of the map so that its TPU loops contract over the window.
+Their values are the contract: a read inside map ∩ window returns the map
+value, any other read is lethal. Here a patch is that rectangle, per lane,
+as int32 `bounds` (lo_x, lo_y, hi_x, hi_y) with hi exclusive, and a read is
+the gather from the full map masked by it. No window is copied.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 
 import torch
 
 __all__ = ["Costmap", "LETHAL_COST", "U8_AUTO_MIN_CELLS", "u8_source_enabled",
            "grid_bounds", "grid_origin", "world_to_map", "cost_at_cell",
-           "cost_at_world", "cost_at_world_onehot", "make_point_sampler"]
+           "cost_at_world", "cost_at_world_onehot", "patch_bounds",
+           "product_patch_bounds", "make_point_sampler",
+           "cost_at_world_bilinear",
+           "required_patch_halfwidth", "required_product_patch_halfwidth",
+           "ProductPatchSampler"]
 
 LETHAL_COST = 1.0
 # solver_costmap_u8="auto" turns the u8 source on from this many cells up
@@ -136,17 +148,26 @@ def _gather_flat(flat: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return got.reshape(idx.shape)
 
 
-def _in_bounds_clipped(cm: Costmap, mx, my):
+def _in_bounds_clipped(cm: Costmap, mx, my, bounds=None):
+    """In-bounds mask of cells (mx, my) against the grid, or against a
+    bounds rectangle (*lead, 4) inside it, and the cells clamped onto the
+    grid."""
     h, w = cm.data.shape[-2], cm.data.shape[-1]
-    lo_x, lo_y, hi_x, hi_y = grid_bounds(cm)
+    if bounds is None:
+        lo_x, lo_y, hi_x, hi_y = grid_bounds(cm)
+    else:
+        lo_x, lo_y, hi_x, hi_y = (_lane(bounds[..., i], mx) for i in range(4))
     inb = (mx >= lo_x) & (mx < hi_x) & (my >= lo_y) & (my < hi_y)
     return inb, mx.clamp(0, w - 1), my.clamp(0, h - 1)
 
 
-def cost_at_cell(cm: Costmap, mx: torch.Tensor, my: torch.Tensor):
-    """Cell cost with lethal out-of-bounds (Costmap2d.getCost, py:247)."""
+def cost_at_cell(cm: Costmap, mx: torch.Tensor, my: torch.Tensor,
+                 bounds: "torch.Tensor | None" = None):
+    """Cell cost with lethal out-of-bounds (Costmap2d.getCost, py:247).
+    bounds: optional (*lead, 4) rectangle inside the grid (a patch); cells
+    outside it read lethal too."""
     w = cm.data.shape[-1]
-    inb, mxc, myc = _in_bounds_clipped(cm, mx, my)
+    inb, mxc, myc = _in_bounds_clipped(cm, mx, my, bounds)
     val = _gather_flat(cm._flat(), myc * w + mxc)
     return torch.where(inb, val, LETHAL_COST)
 
@@ -162,14 +183,46 @@ def cost_at_world(cm: Costmap, wx: torch.Tensor, wy: torch.Tensor):
 cost_at_world_onehot = cost_at_world
 
 
+def _window_bounds(cm: Costmap, c0x, c0y, size: int) -> torch.Tensor:
+    """map ∩ [c0x, c0x + size) x [c0y, c0y + size), (*lead, 4) int32. An
+    empty intersection has lo >= hi, and every read through it is lethal."""
+    h, w = cm.data.shape[-2], cm.data.shape[-1]
+    return torch.stack([c0x.clamp_min(0), c0y.clamp_min(0),
+                        (c0x + size).clamp_max(w), (c0y + size).clamp_max(h)],
+                       dim=-1).to(torch.int32)
+
+
+def patch_bounds(cm: Costmap, cx, cy, halfwidth: int) -> torch.Tensor:
+    """The parity patch of the JAX package's `extract_patch`: the window
+    [s - h, s + h]² around the centre cell s clamped onto the map."""
+    h, w = cm.data.shape[-2], cm.data.shape[-1]
+    mx0, my0 = world_to_map(cm, cx, cy)
+    return _window_bounds(cm, mx0.clamp(0, w - 1) - halfwidth,
+                          my0.clamp(0, h - 1) - halfwidth, 2 * halfwidth + 1)
+
+
+def product_patch_bounds(cm: Costmap, cx, cy, halfwidth: int) -> torch.Tensor:
+    """The product patch of the JAX package's `extract_patch_onehot`: the
+    window [c - h, c + h]² around the centre cell c, unclamped."""
+    mx0, my0 = world_to_map(cm, cx, cy)
+    return _window_bounds(cm, mx0 - halfwidth, my0 - halfwidth,
+                          2 * halfwidth + 1)
+
+
 def make_point_sampler(cm: Costmap, cx=None, cy=None,
                        patch_halfwidth: int = 0):
     """The solver-loop point sampler: one gather from the cached flat map,
     or from its uint8 companion decoded as u8/255.0 when one is cached.
-    (cx, cy) centre the patch sampler of the JAX package, not ported yet."""
+    patch_halfwidth > 0 reads through the parity patch around (cx, cy)
+    instead, from the float32 map as the JAX package's patch does."""
     if patch_halfwidth > 0:
-        raise NotImplementedError(
-            "solver_costmap_patch is not ported yet (ROADMAP.md)")
+        bounds = patch_bounds(cm, cx, cy, patch_halfwidth)
+
+        def sample_patch(wx, wy):
+            mx, my = world_to_map(cm, wx, wy)
+            return cost_at_cell(cm, mx, my, bounds)
+
+        return sample_patch
     flat = cm._flat()
     flat_q = cm.flat_u8
     w = cm.data.shape[-1]
@@ -188,3 +241,73 @@ def make_point_sampler(cm: Costmap, cx=None, cy=None,
         return torch.where(inb, val, LETHAL_COST)
 
     return sample
+
+
+def _bilinear_setup(cm: Costmap, wx: torch.Tensor, wy: torch.Tensor):
+    """World point -> the int32 cell of its lower-left neighbour and the
+    fractional weights (cell-centre sampling), in the JAX package's float
+    order. floor has a zero gradient; tx and ty carry it."""
+    ox, oy = grid_origin(cm)
+    res = _lane(cm.resolution, wx)
+    fx = (wx - _lane(ox, wx)) / res - 0.5
+    fy = (wy - _lane(oy, wy)) / res - 0.5
+    x0 = torch.floor(fx)
+    y0 = torch.floor(fy)
+    return x0.to(torch.int32), y0.to(torch.int32), fx - x0, fy - y0
+
+
+def cost_at_world_bilinear(cm: Costmap, wx: torch.Tensor, wy: torch.Tensor,
+                           bounds: "torch.Tensor | None" = None):
+    """Bilinear world-coordinate sampling (product mode), smooth in (wx, wy).
+    The four neighbours are one gather; with `bounds`, through that
+    rectangle (ProductPatchSampler)."""
+    x0, y0, tx, ty = _bilinear_setup(cm, wx, wy)
+    mx = torch.stack([x0, x0 + 1, x0, x0 + 1], dim=-1)
+    my = torch.stack([y0, y0, y0 + 1, y0 + 1], dim=-1)
+    c = cost_at_cell(cm, mx, my, bounds)
+    c00, c10, c01, c11 = c.unbind(-1)
+    top = c00 * (1.0 - tx) + c10 * tx
+    bot = c01 * (1.0 - tx) + c11 * tx
+    return top * (1.0 - ty) + bot * ty
+
+
+def required_patch_halfwidth(cfg, resolution: float) -> int:
+    """Cells the rollout can traverse from the start cell: the box-bound
+    translational speed times the horizon, in cells, plus one for the
+    floor-boundary crossing."""
+    vx = max(abs(cfg.min_vel_x), abs(cfg.max_vel_x))
+    vy = max(abs(cfg.min_vel_y), abs(cfg.max_vel_y))
+    v = math.sqrt(vx * vx + vy * vy)
+    return int(math.ceil(v * cfg.prediction_horizon / float(resolution))) + 1
+
+
+def required_product_patch_halfwidth(cfg, resolution: float,
+                                     footprint_radius_m: float) -> int:
+    """Patch halfwidth for the product objective's sampler: the rollout
+    reach, plus the footprint's circumradius in cells, plus one cell for the
+    bilinear +1 neighbour."""
+    return (required_patch_halfwidth(cfg, resolution)
+            + int(math.ceil(footprint_radius_m / float(resolution))) + 1)
+
+
+class ProductPatchSampler:
+    """Per-solve sampler of the product objective: every bilinear point cost
+    and every footprint boundary sample of one solve reads the map through
+    the window of `halfwidth` cells around the lane's centre (cx, cy),
+    lethal outside it. `bounds` (*lead, 4) is that window ∩ the grid, which
+    footprint_cost takes as is."""
+
+    def __init__(self, cm: Costmap, cx, cy, halfwidth: int):
+        if cm.win_cells is not None:
+            raise ValueError(
+                "product patch sampling is not supported on a rolling-window "
+                "view costmap; leave solver_costmap_patch=0 for views")
+        self.cm = cm
+        self.bounds = product_patch_bounds(cm, cx, cy, halfwidth)
+
+    def bilinear(self, wx, wy):
+        return cost_at_world_bilinear(self.cm, wx, wy, self.bounds)
+
+    def nearest(self, wx, wy):
+        mx, my = world_to_map(self.cm, wx, wy)
+        return cost_at_cell(self.cm, mx, my, self.bounds)

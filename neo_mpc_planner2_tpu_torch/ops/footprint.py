@@ -5,18 +5,28 @@ equally spaced points; the max nearest-cell cost over the valid edges is the
 footprint cost (Costmap2d.getFootprintCost / footprintCostAtPose). The
 polygon is padded to a fixed vertex count with a valid count, so footprints
 of different robots batch together. Exact (cell-walk) mode is not ported yet.
+
+The batched cost is `footprint_cost_batch`: the CUDA kernel K3
+(`csrc/footprint_cost.cu`) for CUDA tensors, `footprint_cost_batch_plain`
+for CPU tensors. The cost is piecewise constant in the pose (integer cell
+indices), so its gradient is zero, as in JAX: it is computed on detached
+inputs and never requires grad.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
+import math
 
 import torch
 
-from .costmap import Costmap, cost_at_world
+from ..kernels import binding
+from .costmap import Costmap, cost_at_cell, world_to_map
 from .se2 import se2_apply
 
 __all__ = ["Footprint", "transform_footprint", "edge_parameters",
+           "footprint_cost_batch", "footprint_cost_batch_plain",
            "footprint_cost", "footprint_cost_at_pose"]
 
 
@@ -69,30 +79,133 @@ def edge_parameters(samples: int, device=None) -> torch.Tensor:
     return torch.cat([t, torch.ones(1, **f32)])
 
 
+@functools.lru_cache(maxsize=None)
+def _edge_parameters_on(samples: int, device: torch.device) -> torch.Tensor:
+    """edge_parameters built once on the CPU and kept on `device`, so that
+    a call on the card copies nothing from the host. Read-only."""
+    return edge_parameters(samples).to(device)
+
+
+# The kernel's limits: a warp strides over V*S samples of one polygon.
+K3_MAX_VERTICES = 16
+K3_MAX_SAMPLES = 64
+
+
+def footprint_cost_batch_plain(data, origin, res, bounds, verts, n_valid, t):
+    """Plain PyTorch version of K3, the reference the kernel is held to.
+
+    data (Bm, H, W), origin (Bm, 2), res (Bm,), bounds (Bm, 4) int32
+    (lo_x, lo_y, hi_x, hi_y) inside the grid or None for the whole grid,
+    verts (Bm, R, V, 2) placed polygons, n_valid (Bm, R) int32, t (S,) edge
+    parameters -> (Bm, R): per polygon, the max over the valid edges of the
+    nearest-cell cost at p = s + (e - s)·t, cell floor((p - o) / res),
+    lethal outside the bounds."""
+    V = verts.shape[-2]
+    idx = torch.arange(V, dtype=torch.int32, device=verts.device)
+    nv = n_valid[..., None]                                    # (Bm, R, 1)
+    nxt = torch.remainder(idx + 1, nv).long()                  # (Bm, R, V)
+    ends = torch.gather(verts, -2, nxt[..., None].expand(verts.shape))
+    pts = (verts[..., :, None, :]
+           + (ends - verts)[..., :, None, :] * t[:, None])     # (Bm,R,V,S,2)
+    cm = Costmap(data=data, origin=origin, resolution=res)
+    mx, my = world_to_map(cm, pts[..., 0], pts[..., 1])
+    costs = cost_at_cell(cm, mx, my, bounds)
+    costs = torch.where((idx < nv)[..., None], costs, -torch.inf)
+    return costs.amax(dim=(-2, -1))
+
+
+def _check_kernel_inputs(data, origin, res, bounds, verts, n_valid, t):
+    Bm, H, W = data.shape
+    R, V = verts.shape[1], verts.shape[2]
+    named = dict(data=data, origin=origin, res=res, bounds=bounds,
+                 verts=verts, n_valid=n_valid, t=t)
+    shapes = dict(data=(Bm, H, W), origin=(Bm, 2), res=(Bm,), bounds=(Bm, 4),
+                  verts=(Bm, R, V, 2), n_valid=(Bm, R), t=(t.shape[0],))
+    for name, a in named.items():
+        if a is None:
+            continue
+        want = torch.int32 if name in ("bounds", "n_valid") else torch.float32
+        if a.device != data.device:
+            raise ValueError("footprint_cost_batch: operands on different "
+                             "devices")
+        if a.dtype != want:
+            raise TypeError(f"footprint_cost_batch: {name} must be {want}, "
+                            f"got {a.dtype}")
+        if not a.is_contiguous():
+            raise ValueError(f"footprint_cost_batch: {name} must be "
+                             "contiguous")
+        if tuple(a.shape) != shapes[name]:
+            raise ValueError(f"footprint_cost_batch: {name} has shape "
+                             f"{tuple(a.shape)}, expected {shapes[name]}")
+    if V > K3_MAX_VERTICES or t.shape[0] > K3_MAX_SAMPLES:
+        raise ValueError(f"footprint_cost_batch: the kernel takes at most "
+                         f"{K3_MAX_VERTICES} vertices and {K3_MAX_SAMPLES} "
+                         f"samples, got {V} and {t.shape[0]}")
+    if H * W >= 2 ** 31:
+        raise ValueError("footprint_cost_batch: map too large for int32 "
+                         "cell indices")
+
+
+def footprint_cost_batch(data, origin, res, bounds, verts, n_valid, t):
+    """Batched footprint boundary max-cost (arguments as in
+    footprint_cost_batch_plain): kernel K3 for CUDA tensors, the plain
+    version for CPU tensors; anything else raises. R polygons of a lane
+    share its map, which is read in place."""
+    if data.device.type == "cpu":
+        return footprint_cost_batch_plain(data, origin, res, bounds, verts,
+                                          n_valid, t)
+    if data.device.type != "cuda":
+        raise ValueError(f"footprint_cost_batch: unsupported device "
+                         f"{data.device}")
+    _check_kernel_inputs(data, origin, res, bounds, verts, n_valid, t)
+    if verts.shape[0] * verts.shape[1] == 0:
+        return verts.new_empty(verts.shape[:2])
+    out = binding.launch_footprint_cost(data, origin, res, bounds, verts,
+                                        n_valid, t)
+    footprint_cost_batch.launches += 1
+    return out
+
+
+footprint_cost_batch.launches = 0
+
+
 def footprint_cost(cm: Costmap, fp: Footprint, samples: int = 32,
-                   mode: str = "gather", sample_fn=None) -> torch.Tensor:
-    """Max cost along the polygon boundary, (*lead,). Edges run
-    i -> (i + 1) mod n_valid; padded vertices start no edge."""
+                   mode: str = "gather",
+                   bounds: "torch.Tensor | None" = None) -> torch.Tensor:
+    """Max cost along the polygon boundary. Edges run i -> (i + 1) mod
+    n_valid; padded vertices start no edge.
+
+    The polygons' leading dims start with the map's (*lead) and may carry
+    more after them (a wave's candidates and steps): each polygon reads its
+    lane's map. bounds: optional (*lead, 4) int32 rectangle inside the grid
+    (a ProductPatchSampler's); samples outside it read lethal. Returns the
+    polygons' leading shape, without gradient."""
     if mode == "exact":
         raise NotImplementedError(
             "footprint_exact (cell walk) is not ported yet (ROADMAP.md)")
     if mode not in ("gather", "onehot"):
         raise ValueError(f"unknown footprint sampling mode {mode!r}")
-    verts = fp.vertices
-    V = verts.shape[-2]
-    idx = torch.arange(V, dtype=torch.int32, device=verts.device)
-    nv = fp.n_valid[..., None]
-    nxt = torch.remainder(idx + 1, nv).long()                 # (*lead, V)
-    ends = torch.gather(verts, -2, nxt[..., None].expand(verts.shape))
-    edge_valid = idx < nv                                     # (*lead, V)
-    t = edge_parameters(samples, verts.device)
-    pts = (verts[..., :, None, :]
-           + (ends - verts)[..., :, None, :] * t[:, None])    # (*lead, V, S, 2)
-    sample = sample_fn if sample_fn is not None else (
-        lambda wx, wy: cost_at_world(cm, wx, wy))
-    costs = sample(pts[..., 0], pts[..., 1])                  # (*lead, V, S)
-    costs = torch.where(edge_valid[..., None], costs, -torch.inf)
-    return costs.amax(dim=(-2, -1))
+    if cm.win_cells is not None:
+        raise NotImplementedError(
+            "rolling-window views are not ported yet (ROADMAP.md)")
+    lead = cm.data.shape[:-2]
+    verts = fp.vertices.detach()
+    poly = verts.shape[:-2]
+    if poly[:len(lead)] != lead:
+        raise ValueError(f"footprint_cost: polygons {tuple(poly)} do not "
+                         f"start with the map's lead dims {tuple(lead)}")
+    Bm = math.prod(lead)
+    H, W, V = cm.data.shape[-2], cm.data.shape[-1], verts.shape[-2]
+    out = footprint_cost_batch(
+        cm.data.reshape(Bm, H, W),
+        cm.origin.expand(lead + (2,)).reshape(Bm, 2).contiguous(),
+        cm.resolution.expand(lead).reshape(Bm).contiguous(),
+        None if bounds is None else bounds.reshape(Bm, 4).contiguous(),
+        verts.reshape(Bm, -1, V, 2).contiguous(),
+        torch.broadcast_to(fp.n_valid, poly).reshape(Bm, -1).to(
+            torch.int32).contiguous(),
+        _edge_parameters_on(samples, verts.device))
+    return out.reshape(poly)
 
 
 def footprint_cost_at_pose(cm: Costmap, fp: Footprint, pose: torch.Tensor,

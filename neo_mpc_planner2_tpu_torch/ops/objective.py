@@ -1,14 +1,20 @@
-"""The MPC objective, parity half (port of `ops/objective.py`).
+"""The MPC objective (port of `ops/objective.py`).
 
-Reproduces mpc_optimization_server.py:204-269 with the reference's quirks:
-buggy odom yaw (py:213), the footprint-aliasing no-op (py:227/238-244), the
-exactly-lethal x1000 branch (py:257-260), the un-squared control cost
-(py:253-254), un-wrapped angle errors and nearest-cell costmap sampling.
+Parity mode reproduces mpc_optimization_server.py:204-269 with the
+reference's quirks: buggy odom yaw (py:213), the footprint-aliasing no-op
+(py:227/238-244), the exactly-lethal x1000 branch (py:257-260), the
+un-squared control cost (py:253-254), un-wrapped angle errors and
+nearest-cell costmap sampling. Product mode is the smooth objective:
+bilinear costmap sampling, the footprint cost at every predicted pose,
+wrapped angle errors.
 
 Every function takes a leading batch dim of lanes: the decision vector is
-(B, 3N) and the objective (B,). Lanes are independent, so the gradient of the
-sum over lanes is the per-lane gradient. The costmap term reads the map
-through integer indices, so its gradient is zero, as in JAX.
+(B, 3N) and the objective (B,). The decision vector may carry candidate dims
+after the lane dim, (B, *cand, 3N) -> (B, *cand), against the same (B, ...)
+scenario: the line search's wave evaluates its K candidates so. Lanes are
+independent, so the gradient of the sum over lanes is the per-lane gradient.
+Nearest-cell reads go through integer indices, so their gradient is zero, as
+in JAX.
 """
 
 from __future__ import annotations
@@ -18,14 +24,15 @@ import dataclasses
 import torch
 
 from ..config import MpcConfig
-from .costmap import Costmap, cost_at_world
+from .costmap import Costmap, cost_at_world, cost_at_world_bilinear
 from .footprint import Footprint, footprint_cost, transform_footprint
 from .rollout import rollout
-from .se2 import wrap_angle
+from .se2 import se2_apply, wrap_angle
 
 __all__ = ["Scenario", "Weights", "Limits", "resolve_weights",
            "resolve_limits", "buggy_odom_yaw", "control_cost",
-           "parity_footprint_term", "objective_parity", "make_objective"]
+           "parity_footprint_term", "objective_parity", "objective_product",
+           "make_objective"]
 
 _WEIGHT_NAMES = ("w_trans", "w_orient", "w_control", "w_terminal",
                  "w_costmap", "w_footprint")
@@ -104,10 +111,33 @@ def buggy_odom_yaw(current_yaw: torch.Tensor, goal_yaw: torch.Tensor):
 
 
 def resolve_weights(scen: Scenario, cfg: MpcConfig):
-    """Per-lane weights as (B, 1) tensors, or the config's floats."""
+    """Per-lane weights as the scenario holds them ((B,), or (B, *cand)
+    after _with_candidates), or the config's floats."""
     if scen.weights is None:
         return {n: getattr(cfg, n) for n in _WEIGHT_NAMES}
-    return {n: getattr(scen.weights, n)[:, None] for n in _WEIGHT_NAMES}
+    return {n: getattr(scen.weights, n) for n in _WEIGHT_NAMES}
+
+
+def _with_candidates(scen: Scenario, extra: int) -> Scenario:
+    """The scenario's per-lane poses, velocity and weights with `extra`
+    singleton candidate axes after the lane axis, so that they broadcast
+    against (B, *cand, ...) terms. The costmap and footprint keep their lane
+    shape: they are read per lane, never copied per candidate."""
+    if extra == 0:
+        return scen
+    c = lambda v: v.reshape(v.shape[:1] + (1,) * extra + v.shape[1:])
+    weights = scen.weights
+    if weights is not None:
+        weights = Weights(*(c(getattr(weights, n)) for n in _WEIGHT_NAMES))
+    return scen.replace(current_pose=c(scen.current_pose),
+                        carrot_pose=c(scen.carrot_pose),
+                        goal_pose=c(scen.goal_pose),
+                        current_vel=c(scen.current_vel), weights=weights)
+
+
+def _step(v):
+    """A per-lane value broadcast over the trailing per-step axis."""
+    return v[..., None] if torch.is_tensor(v) else v
 
 
 def resolve_limits(scen: Scenario, cfg: MpcConfig) -> Limits:
@@ -121,7 +151,8 @@ def control_cost(cmd_flat: torch.Tensor, current_vel: torch.Tensor,
                  cfg: MpcConfig, w_control=None) -> torch.Tensor:
     """w_control · Σ_i ‖current_vel − u_i‖ / N (py:253-254), or the squared
     norm with the quirk off. The sqrt is guarded so its gradient at a zero
-    difference is 0, not NaN."""
+    difference is 0, not NaN. w_control: a float, or per-lane values shaped
+    like the result."""
     cmd = cmd_flat.reshape(cmd_flat.shape[:-1] + (cfg.control_steps, 3))
     diff = current_vel[..., None, :] - cmd
     d2 = (diff * diff).sum(-1)
@@ -129,8 +160,8 @@ def control_cost(cmd_flat: torch.Tensor, current_vel: torch.Tensor,
     if cfg.compat.unsquared_control_cost:
         zero = d2 == 0.0
         dv = torch.where(zero, 0.0, torch.sqrt(torch.where(zero, 1.0, d2)))
-        return (wc * dv.sum(-1, keepdim=True))[..., 0] / cfg.control_steps
-    return (wc * d2.sum(-1, keepdim=True))[..., 0] / cfg.control_steps
+        return wc * dv.sum(-1) / cfg.control_steps
+    return wc * d2.sum(-1) / cfg.control_steps
 
 
 def _sq(v):
@@ -140,13 +171,16 @@ def _sq(v):
 def _stage_and_terminal(cfg, scen, cmd, body_traj, odom_traj,
                         costmap_point_cost, fp_term_per_step, orient_err_fn,
                         include_control=True):
-    """Shared cost accumulation (py:250-268). Per-step terms are (B, N)."""
+    """Shared cost accumulation (py:250-268). `scen` is already shaped
+    against the (B, *cand) lead dims (_with_candidates); per-step terms are
+    (B, *cand, N)."""
     n = cfg.control_steps
     w = resolve_weights(scen, cfg)
     carrot_xy = scen.carrot_pose[..., :2]
     d2 = _sq(carrot_xy[..., None, :] - body_traj[..., :2]).sum(-1)
     oerr = orient_err_fn(scen.carrot_pose[..., 2:3] - body_traj[..., 2])
-    cost = (w["w_trans"] * d2 + w["w_orient"] * _sq(oerr)).sum(-1) / n
+    cost = (_step(w["w_trans"]) * d2
+            + _step(w["w_orient"]) * _sq(oerr)).sum(-1) / n
 
     if include_control:
         cost = cost + control_cost(cmd.flatten(-2), scen.current_vel, cfg,
@@ -154,12 +188,12 @@ def _stage_and_terminal(cfg, scen, cmd, body_traj, odom_traj,
 
     sq = _sq(costmap_point_cost)
     if cfg.compat.lethal_1000x:
-        wcm = w["w_costmap"]
+        wcm = _step(w["w_costmap"])
         if not torch.is_tensor(wcm):
             wcm = torch.full_like(sq, wcm)
         scale = torch.where(costmap_point_cost == 1.0, 1000.0, wcm)
     else:
-        scale = w["w_costmap"]
+        scale = _step(w["w_costmap"])
     cost = cost + (scale * sq).sum(-1) / n
     cost = cost + fp_term_per_step.sum(-1) / n
 
@@ -168,9 +202,8 @@ def _stage_and_terminal(cfg, scen, cmd, body_traj, odom_traj,
         term_d2 = _sq(carrot_xy - scen.goal_pose[..., :2]).sum(-1)
     else:
         term_d2 = _sq(odom_traj[..., -1, :2] - scen.goal_pose[..., :2]).sum(-1)
-    sq1 = lambda v: v if not torch.is_tensor(v) else v[..., 0]
-    cost = cost + (sq1(w["w_trans"]) * term_d2
-                   + sq1(w["w_orient"]) * _sq(term_o)) * sq1(w["w_terminal"])
+    cost = cost + (w["w_trans"] * term_d2
+                   + w["w_orient"] * _sq(term_o)) * w["w_terminal"]
     return cost
 
 
@@ -181,7 +214,6 @@ def parity_footprint_term(scen: Scenario, cfg: MpcConfig) -> torch.Tensor:
     fp_cost = footprint_cost(scen.costmap, fp_world,
                              cfg.footprint_edge_samples, cfg.footprint_mode)
     wf = resolve_weights(scen, cfg)["w_footprint"]
-    wf = wf[..., 0] if torch.is_tensor(wf) else wf
     return torch.where(fp_cost == 1.0, fp_cost * fp_cost * wf, 0.0)
 
 
@@ -189,7 +221,8 @@ def objective_parity(cmd_flat: torch.Tensor, scen: Scenario, cfg: MpcConfig,
                      fp_term: "torch.Tensor | None" = None,
                      include_control: bool = True,
                      point_sampler=None) -> torch.Tensor:
-    """Quirk-faithful objective. cmd_flat: (B, 3N) [vx0, vy0, w0, vx1, ...].
+    """Quirk-faithful objective. cmd_flat: (B, *cand, 3N) [vx0, vy0, w0,
+    vx1, ...].
 
     fp_term: optional precomputed parity_footprint_term (B,).
     point_sampler: optional (wx, wy) -> costs for the per-step costmap read
@@ -197,6 +230,11 @@ def objective_parity(cmd_flat: torch.Tensor, scen: Scenario, cfg: MpcConfig,
     n = cfg.control_steps
     cmd = cmd_flat.reshape(cmd_flat.shape[:-1] + (n, 3))
     dt = cfg.dt
+    if fp_term is None:
+        fp_term = parity_footprint_term(scen, cfg)
+    extra = cmd_flat.dim() - 2
+    scen = _with_candidates(scen, extra)
+    fp_term = fp_term.reshape(fp_term.shape[:1] + (1,) * extra)
 
     # Body-frame rollout from the origin (py:230-232).
     body_traj = rollout(cmd, dt, torch.zeros_like(scen.current_pose))
@@ -212,10 +250,7 @@ def objective_parity(cmd_flat: torch.Tensor, scen: Scenario, cfg: MpcConfig,
 
     sample = point_sampler if point_sampler is not None else (
         lambda wx, wy: cost_at_world(scen.costmap, wx, wy))
-    pc = sample(odom_traj[..., 0], odom_traj[..., 1])          # (B, N)
-
-    if fp_term is None:
-        fp_term = parity_footprint_term(scen, cfg)
+    pc = sample(odom_traj[..., 0], odom_traj[..., 1])     # (B, *cand, N)
     fp_per_step = fp_term[..., None].expand(pc.shape)
 
     err_fn = (lambda e: e) if cfg.compat.no_angle_wrap else wrap_angle
@@ -224,19 +259,67 @@ def objective_parity(cmd_flat: torch.Tensor, scen: Scenario, cfg: MpcConfig,
                                include_control=include_control)
 
 
+def objective_product(cmd_flat: torch.Tensor, scen: Scenario, cfg: MpcConfig,
+                      include_control: bool = True,
+                      point_sampler=None) -> torch.Tensor:
+    """Smooth product-mode objective: bilinear costmap sampling, the
+    footprint cost at each predicted pose, wrapped angle errors; the same
+    weights and structure as parity. cmd_flat: (B, *cand, 3N).
+
+    point_sampler: optional per-solve ProductPatchSampler; the bilinear
+    point costs and the footprint samples then read through its window
+    (the same values inside its coverage guarantee). The footprint costs of
+    all (B, *cand, N) predicted poses are one footprint_cost call; they
+    carry no gradient, as in JAX."""
+    n = cfg.control_steps
+    cmd = cmd_flat.reshape(cmd_flat.shape[:-1] + (n, 3))
+    fp, cm = scen.footprint, scen.costmap
+    scen = _with_candidates(scen, cmd_flat.dim() - 2)
+
+    body_traj = rollout(cmd, cfg.dt, torch.zeros_like(scen.current_pose))
+    odom_traj = rollout(cmd, cfg.dt, scen.current_pose)   # (B, *cand, N, 3)
+
+    if point_sampler is None:
+        pc = cost_at_world_bilinear(cm, odom_traj[..., 0], odom_traj[..., 1])
+        bounds = None
+    else:
+        pc = point_sampler.bilinear(odom_traj[..., 0], odom_traj[..., 1])
+        bounds = point_sampler.bounds
+
+    lanes = lambda v, tail: v.reshape(
+        v.shape[:1] + (1,) * (odom_traj.dim() - 2) + tail)
+    placed = Footprint(
+        vertices=se2_apply(odom_traj[..., None, :],
+                           lanes(fp.vertices, fp.vertices.shape[1:])),
+        n_valid=lanes(fp.n_valid, ()))
+    fp_costs = footprint_cost(cm, placed, cfg.footprint_edge_samples,
+                              cfg.footprint_mode, bounds=bounds)
+    fp_per_step = _sq(fp_costs) * _step(resolve_weights(scen,
+                                                        cfg)["w_footprint"])
+
+    return _stage_and_terminal(cfg, scen, cmd, body_traj, odom_traj, pc,
+                               fp_per_step, orient_err_fn=wrap_angle,
+                               include_control=include_control)
+
+
 def make_objective(cfg: MpcConfig, parity: bool = True):
-    """Close the config over the objective: f(cmd_flat, scen, fp_term=None,
-    include_control=True, point_sampler=None) -> (B,) cost."""
-    if not parity:
-        raise NotImplementedError(
-            "product mode (objective_product) is not ported yet (ROADMAP.md)")
+    """Close the config over the chosen objective: f(cmd_flat, scen,
+    fp_term=None, include_control=True, point_sampler=None) -> (B, *cand)
+    cost. Product mode takes no fp_term."""
+    if parity:
+        def f(cmd_flat, scen, fp_term=None, include_control=True,
+              point_sampler=None):
+            return objective_parity(cmd_flat, scen, cfg, fp_term=fp_term,
+                                    include_control=include_control,
+                                    point_sampler=point_sampler)
+    else:
+        def f(cmd_flat, scen, fp_term=None, include_control=True,
+              point_sampler=None):
+            del fp_term
+            return objective_product(cmd_flat, scen, cfg,
+                                     include_control=include_control,
+                                     point_sampler=point_sampler)
 
-    def f(cmd_flat, scen, fp_term=None, include_control=True,
-          point_sampler=None):
-        return objective_parity(cmd_flat, scen, cfg, fp_term=fp_term,
-                                include_control=include_control,
-                                point_sampler=point_sampler)
-
-    f.parity = True
+    f.parity = parity
     f.cfg = cfg
     return f

@@ -9,7 +9,9 @@ JAX runs the lanes under `vmap` of `lax.while_loop`s. Here both loops (the
 outer SQP iteration and the inner line search) are written out as masked
 loops over the batch: each runs while any lane is alive, every carry update
 is `torch.where(alive, new, old)` (what vmap's while batching rule does), and
-a lane's result does not depend on when the other lanes finish.
+a lane's result does not depend on when the other lanes finish. With
+`parallel_line_search` the inner loop is one merit evaluation of all its
+candidates at once (the wave), which takes the same alpha.
 
 The QP goes through `qp_admm`, which launches the CUDA kernel K1 for CUDA
 tensors and runs `qp_admm_plain` for CPU tensors. `chol_inverse` does the
@@ -27,7 +29,7 @@ import torch
 
 from .config import MpcConfig
 from .kernels import binding
-from .ops.costmap import make_point_sampler
+from .ops.costmap import ProductPatchSampler, _lane, make_point_sampler
 from .ops.objective import parity_footprint_term
 from .solver import SolveResult
 
@@ -36,17 +38,18 @@ __all__ = ["qp_admm", "qp_admm_plain", "chol_inverse", "chol_inverse_plain",
 
 
 def _cone_constraints(x: torch.Tensor, cfg: MpcConfig, max_vel_trans=None):
-    """c_k(x) = max_vel_trans − ‖(vx, vy)_k‖ ≥ 0, (B, N), and the two
-    nonzeros of each Jacobian row, dxy (B, 2N) = (dx_0, dy_0, dx_1, ...).
-    At xy = 0 the row is zero (the constraint is inactive there)."""
+    """c_k(x) = max_vel_trans − ‖(vx, vy)_k‖ ≥ 0, (B, *cand, N), and the
+    two nonzeros of each Jacobian row, dxy (B, *cand, 2N) = (dx_0, dy_0,
+    dx_1, ...). At xy = 0 the row is zero (the constraint is inactive)."""
     n = cfg.control_steps
-    r = cfg.max_vel_trans if max_vel_trans is None else max_vel_trans[:, None]
-    xy = x.reshape(x.shape[0], n, 3)[..., :2]
+    xy = x.reshape(x.shape[:-1] + (n, 3))[..., :2]
     nrm = torch.sqrt((xy * xy).sum(-1))
+    r = (cfg.max_vel_trans if max_vel_trans is None
+         else _lane(max_vel_trans, nrm))
     c = r - nrm
     safe = nrm.clamp_min(1e-12)
     dxy = torch.where(nrm[..., None] > 1e-12, -xy / safe[..., None], 0.0)
-    return c, dxy.reshape(x.shape[0], 2 * n)
+    return c, dxy.reshape(x.shape[:-1] + (2 * n,))
 
 
 def _cone_jacobian(dxy: torch.Tensor, m: int) -> torch.Tensor:
@@ -244,11 +247,11 @@ def _make_sqp(f: Callable[[torch.Tensor], torch.Tensor], cfg: MpcConfig,
     """Build the SQP machinery for a batched objective f: (B, m) -> (B,).
     Returns (init, run, body): init(x0) evaluates the warm start,
     run(state, upto_k) iterates while any lane is not done and below upto_k,
-    body(state, active) is one SQP iteration for the active lanes."""
-    if parallel_ls or ls_wave > 1:
-        raise NotImplementedError(
-            "parallel_line_search / solver_ls_wave are not ported yet "
-            "(ROADMAP.md)")
+    body(state, active) is one SQP iteration for the active lanes.
+
+    parallel_ls: the fused candidate wave instead of sequential
+    backtracking; f must then take (B, K, m) candidates, K the backtrack
+    budget."""
     ftol = cfg.opt_tolerance if ftol is None else ftol
     qp_iters = cfg.qp_iters if qp_iters is None else qp_iters
     max_backtracks = (cfg.solver_max_backtracks if max_backtracks is None
@@ -259,6 +262,15 @@ def _make_sqp(f: Callable[[torch.Tensor], torch.Tensor], cfg: MpcConfig,
     coarse = float(cfg.solver_ls_coarse_factor)
     warm_ls = bool(cfg.solver_ls_warm_alpha)
     quad_ls = bool(cfg.solver_ls_quad_interp)
+    if quad_ls and (parallel_ls or ls_wave > 1):
+        # Only the sequential branch interpolates; a candidate grid would
+        # silently drop it (the JAX package refuses the same pair).
+        raise ValueError(
+            "solver_ls_quad_interp is only implemented for the sequential "
+            "line search; disable it to use parallel_line_search/ls_wave")
+    if ls_wave > 1:
+        raise NotImplementedError(
+            "solver_ls_wave > 1 is not ported yet (ROADMAP.md)")
 
     n = cfg.control_steps
     m = 3 * n
@@ -285,14 +297,23 @@ def _make_sqp(f: Callable[[torch.Tensor], torch.Tensor], cfg: MpcConfig,
         return fv.detach(), g.contiguous()
 
     def merit(x, mu):
+        """(phi, f) at x (B, *cand, m): the L1 merit and the objective."""
         c, _ = _cone_constraints(x, cfg, max_trans)
         fv = f(x)
-        return fv + mu * torch.clamp_min(-c, 0.0).sum(-1), fv
+        return fv + _lane(mu, fv) * torch.clamp_min(-c, 0.0).sum(-1), fv
 
     def ls_factor(j):
         if coarse_after <= 0:
             return bt
         return torch.where(j < coarse_after, bt, coarse)
+
+    # The wave's schedule: candidate j is bt^min(j, F) · coarse^max(j−F, 0)
+    # (single-phase when F = coarse_after is 0), as float32 powers like the
+    # JAX package's; at the product schedule (0.5, 0.0625) they are exact.
+    jf = torch.arange(max_backtracks, **f32)
+    fine = jf if coarse_after <= 0 else jf.clamp(max=float(coarse_after))
+    ls_alphas = (torch.pow(torch.tensor(bt, **f32), fine)
+                 * torch.pow(torch.tensor(coarse, **f32), jf - fine))
 
     def body(s: _SqpState, active: torch.Tensor) -> _SqpState:
         c, dxy = _cone_constraints(s.x, cfg, max_trans)
@@ -310,32 +331,49 @@ def _make_sqp(f: Callable[[torch.Tensor], torch.Tensor], cfg: MpcConfig,
         else:
             alpha = torch.ones_like(s.f)
 
-        # Sequential Armijo backtracking, masked per lane. Done (and
-        # inactive) lanes accept at once, so they cost no merit evaluation.
-        j = torch.zeros_like(s.k)
-        ok = s.done | ~active
-        f_ls = s.f
-        while True:
-            go = ~ok & (j < max_backtracks)
-            if not bool(go.any()):
-                break
-            phi, fv = merit(s.x + alpha[:, None] * d, mu)
-            ok_new = phi <= phi0 + 1e-4 * alpha * dphi + 1e-12
-            if quad_ls:
-                # Minimizer of the quadratic through phi(0), phi'(0) and
-                # phi(alpha), safeguarded to [0.1, 0.5]·alpha (N&W §3.5).
-                denom = 2.0 * (phi - phi0 - dphi * alpha)
-                a_q = -dphi * alpha * alpha / torch.where(
-                    denom.abs() > 1e-20, denom, 1e-20)
-                a_next = torch.minimum(torch.maximum(a_q, 0.1 * alpha),
-                                       0.5 * alpha)
-            else:
-                a_next = alpha * ls_factor(j)
-            alpha = torch.where(go & ~ok_new, a_next, alpha)
-            f_ls = torch.where(go & ok_new, fv, f_ls)
-            j = torch.where(go, j + 1, j)
-            ok = torch.where(go, ok_new, ok)
-        ls_ok = ok
+        if parallel_ls:
+            # The fused wave: every candidate of the schedule in one merit
+            # evaluation of (B, K, m); the first accepted one in schedule
+            # order is the alpha sequential backtracking would take.
+            alphas = alpha[:, None] * ls_alphas                   # (B, K)
+            cands = s.x[:, None, :] + alphas[..., None] * d[:, None, :]
+            phis, fs = merit(cands, mu)
+            ok_mask = (phis <= phi0[:, None] + 1e-4 * alphas * dphi[:, None]
+                       + 1e-12)
+            ls_ok = ok_mask.any(-1)
+            # argmax returns the first maximum; it takes no bool.
+            sel = torch.argmax(ok_mask.to(torch.int32), dim=-1, keepdim=True)
+            alpha = alphas.gather(-1, sel)[:, 0]
+            f_ls = fs.gather(-1, sel)[:, 0]
+        else:
+            # Sequential Armijo backtracking, masked per lane. Done (and
+            # inactive) lanes accept at once, so they cost no merit
+            # evaluation.
+            j = torch.zeros_like(s.k)
+            ok = s.done | ~active
+            f_ls = s.f
+            while True:
+                go = ~ok & (j < max_backtracks)
+                if not bool(go.any()):
+                    break
+                phi, fv = merit(s.x + alpha[:, None] * d, mu)
+                ok_new = phi <= phi0 + 1e-4 * alpha * dphi + 1e-12
+                if quad_ls:
+                    # Minimizer of the quadratic through phi(0), phi'(0)
+                    # and phi(alpha), safeguarded to [0.1, 0.5]·alpha
+                    # (N&W §3.5).
+                    denom = 2.0 * (phi - phi0 - dphi * alpha)
+                    a_q = -dphi * alpha * alpha / torch.where(
+                        denom.abs() > 1e-20, denom, 1e-20)
+                    a_next = torch.minimum(torch.maximum(a_q, 0.1 * alpha),
+                                           0.5 * alpha)
+                else:
+                    a_next = alpha * ls_factor(j)
+                alpha = torch.where(go & ~ok_new, a_next, alpha)
+                f_ls = torch.where(go & ok_new, fv, f_ls)
+                j = torch.where(go, j + 1, j)
+                ok = torch.where(go, ok_new, ok)
+            ls_ok = ok
 
         step_vec = torch.where(ls_ok[:, None], alpha[:, None] * d, 0.0)
         x_new = s.x + step_vec
@@ -416,15 +454,21 @@ def sqp_solve(f, x0: torch.Tensor, cfg: MpcConfig, ftol: float | None = None,
 
 def _batch_fobj(cfg: MpcConfig, objective, scens):
     """The per-solve objective over all lanes, with the per-solve constants
-    (the parity footprint term and the flat-map sampler) hoisted."""
-    if not getattr(objective, "parity", True):
-        raise NotImplementedError("product mode is not ported yet "
-                                  "(ROADMAP.md)")
-    with torch.no_grad():
-        fp_term = parity_footprint_term(scens, cfg)
-    sampler = make_point_sampler(scens.costmap, None, None,
-                                 cfg.solver_costmap_patch)
-    return lambda u: objective(u, scens, fp_term, point_sampler=sampler)
+    hoisted: in parity mode the footprint term and the point sampler; in
+    product mode, with solver_costmap_patch > 0, the patch sampler around
+    each lane's pose."""
+    cx, cy = scens.current_pose[:, 0], scens.current_pose[:, 1]
+    if getattr(objective, "parity", True):
+        with torch.no_grad():
+            fp_term = parity_footprint_term(scens, cfg)
+        sampler = make_point_sampler(scens.costmap, cx, cy,
+                                     cfg.solver_costmap_patch)
+        return lambda u: objective(u, scens, fp_term, point_sampler=sampler)
+    if cfg.solver_costmap_patch > 0:
+        sampler = ProductPatchSampler(scens.costmap, cx, cy,
+                                      cfg.solver_costmap_patch)
+        return lambda u: objective(u, scens, point_sampler=sampler)
+    return lambda u: objective(u, scens)
 
 
 def make_sqp_solver_batched(cfg: MpcConfig, objective,

@@ -1,4 +1,5 @@
-"""The CUDA kernels K1 (qp_admm) and K2 (chol_inverse) on the card.
+"""The CUDA kernels K1 (qp_admm), K2 (chol_inverse) and K3
+(footprint_cost_batch) on the card.
 
 Every test here needs an NVIDIA GPU: it carries the `cuda` marker and skips
 where `torch.cuda.is_available()` is false. The file imports no JAX, so it
@@ -7,14 +8,22 @@ runs on a machine with a card and without JAX:
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
 
 (`--noconftest`: tests/conftest.py sets up JAX). Kernel against plain
-version: rtol 2e-4 / atol 2e-5, the gate of tests/test_pallas.py.
+version: K1 and K2 at rtol 2e-4 / atol 2e-5, the gate of
+tests/test_pallas.py; K3 exactly, since it returns picked map values.
 """
+
+import pathlib
+import sys
 
 import numpy as np
 import pytest
 import torch
 
 from neo_mpc_planner2_tpu_torch import sqp
+from neo_mpc_planner2_tpu_torch.ops import costmap as cmap
+from neo_mpc_planner2_tpu_torch.ops import footprint as fpm
+
+ROOT = pathlib.Path(__file__).resolve().parent.parent
 
 RTOL, ATOL = 2e-4, 2e-5
 pytestmark = pytest.mark.cuda
@@ -116,5 +125,76 @@ def test_controller_step_on_the_card_matches_the_cpu(dev):
     before = sqp.qp_admm.launches
     gpu = step(*tree_map(lambda t: t.to(dev), args))
     assert sqp.qp_admm.launches > before
+    diff = (gpu.cmd_vel.cpu() - step(*args).cmd_vel).abs().amax(-1)
+    assert float((diff <= 1e-3).float().mean()) >= 0.99
+
+
+def _chip_smoke():
+    sys.path.insert(0, str(ROOT))
+    import chip_smoke
+
+    return chip_smoke
+
+
+@pytest.mark.parametrize("S", [8, 16, 32])
+@pytest.mark.parametrize("R", [1, 21])
+@pytest.mark.parametrize("B", [1, 131, 4096])
+def test_footprint_cost_kernel_matches_plain(dev, B, R, S):
+    """Rectangles, padded triangles, samples on cell boundaries and in the
+    band below the origin, polygons off the map; the whole grid and a patch
+    rectangle."""
+    rng = np.random.default_rng(B + 10 * R + S)
+    data, origin, res, verts, nv = _chip_smoke()._k3_inputs(rng, B, R, dev)
+    cm = cmap.Costmap(data=data, origin=origin, resolution=res)
+    cx = torch.as_tensor(rng.uniform(-2.0, 2.0, B), dtype=torch.float32,
+                         device=dev)
+    t = fpm.edge_parameters(S, dev)
+    for bounds in (None, cmap.product_patch_bounds(cm, cx, cx, 28)):
+        args = (data, origin, res, bounds, verts, nv, t)
+        before = fpm.footprint_cost_batch.launches
+        got = fpm.footprint_cost_batch(*args)
+        torch.cuda.synchronize()
+        assert fpm.footprint_cost_batch.launches == before + 1
+        assert got.is_cuda and got.shape == (B, R)
+        assert torch.equal(got, fpm.footprint_cost_batch_plain(*args))
+
+
+def test_footprint_cost_wrapper_raises_on_what_the_kernel_does_not_take(dev):
+    rng = np.random.default_rng(5)
+    data, origin, res, verts, nv = _chip_smoke()._k3_inputs(rng, 4, 3, dev)
+    t = fpm.edge_parameters(16, dev)
+    ok = (data, origin, res, None, verts, nv, t)
+    bad = [
+        (TypeError, dict(data=data.double())),
+        (TypeError, dict(n_valid=nv.long())),
+        (ValueError, dict(verts=verts.transpose(0, 1))),     # not contiguous
+        (ValueError, dict(n_valid=nv.cpu())),                # mixed devices
+        (ValueError, dict(t=fpm.edge_parameters(65, dev))),  # S > 64
+        (ValueError, dict(verts=torch.zeros(4, 3, 17, 2, device=dev))),
+        (ValueError, dict(bounds=torch.zeros(4, 3, dtype=torch.int32,
+                                             device=dev))),  # wrong shape
+    ]
+    names = ("data", "origin", "res", "bounds", "verts", "n_valid", "t")
+    for err, over in bad:
+        args = dict(zip(names, ok), **over)
+        with pytest.raises(err):
+            fpm.footprint_cost_batch(**args)
+
+
+def test_product_step_on_the_card_matches_the_cpu(dev):
+    """One product-mode controller step on the card against the CPU: the
+    wave line search and the patch sampler, with K1 and K3 launched."""
+    import neo_mpc_planner2_tpu_torch as tp
+    from neo_mpc_planner2_tpu_torch.tree import tree_map
+
+    cfg = _chip_smoke().product_cfg()
+    sb = tp.make_scenario_batch(cfg, 64, seed=3, map_size=48, plan_points=32)
+    step = tp.make_batched_controller_step(cfg, parity=False)
+    args = (sb.state, sb.plan, sb.robot_pose, sb.current_vel, sb.costmap,
+            sb.footprint, sb.delta_t)
+    qp0, fp0 = sqp.qp_admm.launches, fpm.footprint_cost_batch.launches
+    gpu = step(*tree_map(lambda t: t.to(dev), args))
+    assert sqp.qp_admm.launches > qp0
+    assert fpm.footprint_cost_batch.launches > fp0
     diff = (gpu.cmd_vel.cpu() - step(*args).cmd_vel).abs().amax(-1)
     assert float((diff <= 1e-3).float().mean()) >= 0.99

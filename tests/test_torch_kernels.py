@@ -1,12 +1,16 @@
-"""The port's QP (K1) and SPD-inverse (K2) paths against the JAX package.
+"""The port's QP (K1), SPD-inverse (K2) and footprint-cost (K3) paths
+against the JAX package.
 
 On the CPU the wrappers run their plain PyTorch versions; these are held
-against JAX's plain path and its Pallas kernels in interpret mode at
-rtol 2e-4 / atol 2e-5, the gate of tests/test_pallas.py. The CUDA kernels
-themselves run only on a card: their tests are in test_torch_cuda.py, which
-imports no JAX so that it runs on a machine with a card and no JAX."""
+against JAX's plain path and its Pallas kernels in interpret mode: K1 and K2
+at rtol 2e-4 / atol 2e-5, the gate of tests/test_pallas.py; K3 exactly (its
+outputs are picked map values). The CUDA kernels themselves run only on a
+card: their tests are in test_torch_cuda.py, which imports no JAX so that it
+runs on a machine with a card and no JAX."""
 
 import functools
+import pathlib
+import sys
 from functools import partial
 
 import jax
@@ -15,11 +19,18 @@ import numpy as np
 import pytest
 import torch
 
+import neo_mpc_planner2_tpu as mpc
 from neo_mpc_planner2_tpu import sqp as jsqp
+from neo_mpc_planner2_tpu.ops import costmap as jcm
+from neo_mpc_planner2_tpu.ops import footprint as jfp
+from neo_mpc_planner2_tpu.ops.pallas_kernels import footprint_cost_batch_pallas
 
 from neo_mpc_planner2_tpu_torch import sqp as tsqp
-from neo_mpc_planner2_tpu_torch.kernels import build
+from neo_mpc_planner2_tpu_torch.kernels import binding, build
+from neo_mpc_planner2_tpu_torch.ops import costmap as tcm
+from neo_mpc_planner2_tpu_torch.ops import footprint as tfp
 
+ROOT = pathlib.Path(__file__).resolve().parent.parent
 RTOL, ATOL = 2e-4, 2e-5
 T = lambda a: torch.as_tensor(np.array(a))
 
@@ -168,3 +179,193 @@ def test_build_raises_without_nvcc(monkeypatch, tmp_path):
     with pytest.raises(RuntimeError, match="nvcc not found"):
         build.build_library()
     assert not (tmp_path / "build").exists()
+
+
+# --- K3: footprint cost (exact) ---------------------------------------------
+
+def _cm_pair(data, origin):
+    B = data.shape[0]
+    o = np.tile(np.asarray(origin, np.float32), (B, 1))
+    r = np.full((B,), 0.05, np.float32)
+    return (mpc.Costmap(data=jnp.asarray(data), origin=jnp.asarray(o),
+                        resolution=jnp.asarray(r)),
+            tcm.Costmap(data=T(data), origin=T(o), resolution=T(r)))
+
+
+def _pallas_case(case):
+    """The three cases of tests/test_pallas.py (the first with and without
+    a lethal row): maps, placed polygons."""
+    rng = np.random.default_rng({"plain": 3, "lethal": 4, "triangle": 7,
+                                 "oob": 0}[case])
+    B = {"triangle": 3, "oob": 2}.get(case, 4)
+    data = rng.uniform(0, 0.9 if case == "triangle" else 0.95,
+                       (B, 64, 128)).astype(np.float32)
+    if case == "lethal":
+        data[:, 32, :] = 1.0
+    if case == "oob":
+        data[:] = 0.0
+    jc, tc = _cm_pair(data, (-1.6, -1.6))
+    if case == "triangle":
+        fp1 = mpc.Footprint.create([[0.21, 0.11], [-0.19, 0.11],
+                                    [0.01, -0.16]], max_vertices=8)
+    else:
+        fp1 = mpc.Footprint.rectangle(*((0.6, 0.4) if case == "oob"
+                                        else (0.63, 0.41)))
+    fps = jax.tree.map(lambda x: jnp.broadcast_to(x, (B,) + x.shape), fp1)
+    if case == "triangle":
+        placed = fps
+    else:
+        poses = (np.asarray([[10.0, 10.0, 0.0], [0.0, 0.0, 0.0]], np.float32)
+                 if case == "oob" else rng.uniform(-0.3, 0.3, (B, 3)))
+        placed = jax.vmap(jfp.transform_footprint)(
+            jnp.asarray(poses, jnp.float32), fps)
+    return jc, tc, placed
+
+
+@pytest.mark.parametrize("case", ["plain", "lethal", "triangle", "oob"])
+def test_footprint_cost_plain_matches_pallas_interpret(case):
+    jc, tc, placed = _pallas_case(case)
+    want = footprint_cost_batch_pallas(jc, placed, samples=16, interpret=True)
+    got = tfp.footprint_cost(tc, tfp.Footprint(T(placed.vertices),
+                                               T(placed.n_valid)), 16)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    if case == "oob":
+        assert got.tolist() == [1.0, 0.0]
+
+
+def _polygons(case, rng, B, R, origin, res=0.05):
+    """(B, R, 8, 2) placed polygons and (B, R) valid counts for one of the
+    edge cases of the gather path."""
+    o = np.asarray(origin, np.float32)
+    nv = np.full((B, R), 4, np.int32)
+    verts = np.zeros((B, R, 8, 2), np.float32)
+    for b in range(B):
+        for r in range(R):
+            if case == "boundaries":
+                # Grid-aligned rectangles: every sample of a vertical edge
+                # lies on a cell boundary in x, of a horizontal one in y;
+                # corners from below the grid to past it.
+                k = rng.integers(-3, 36, 2)
+                e = rng.integers(1, 6, 2)
+                lo = o + k.astype(np.float32) * np.float32(res)
+                hi = o + (k + e).astype(np.float32) * np.float32(res)
+                quad = [[hi[0], hi[1]], [lo[0], hi[1]], [lo[0], lo[1]],
+                        [hi[0], lo[1]]]
+            elif case == "band":
+                # Corners in the (origin - res, origin) band, which floors
+                # to cell -1 (lethal), and just inside the grid.
+                u = rng.uniform(0.01, 0.99, 4).astype(np.float32)
+                v = rng.uniform(0.0, 0.3, 4).astype(np.float32)
+                quad = [[o[0] - u[0] * res, o[1] + v[0]],
+                        [o[0] + v[1], o[1] - u[1] * res],
+                        [o[0] + v[2], o[1] + v[3]],
+                        [o[0] - u[2] * res, o[1] - u[3] * res]]
+                if (b + r) % 2:                   # just inside the grid
+                    quad = o + rng.uniform(0.01, 0.15, (4, 2))
+            elif (b + r) % 2:                     # "offmap" / "many"
+                # Inside the grid, clear of the lethal row.
+                quad = (rng.uniform(-0.45, -0.35, 2)
+                        + rng.uniform(-0.25, 0.25, (4, 2)))
+            else:                                 # mostly off the grid
+                c = rng.uniform(-2.2, 2.2, 2).astype(np.float32)
+                quad = c + rng.uniform(-0.4, 0.4, (4, 2))
+            verts[b, r, :4] = np.asarray(quad, np.float32)
+            if case == "many" and r % 3 == 0:
+                nv[b, r] = 3                       # padded triangle
+            # Padded slots hold garbage far off the map: no edge starts
+            # there, and the closing edge wraps to vertex 0.
+            verts[b, r, nv[b, r]:] = rng.uniform(50, 90, (8 - nv[b, r], 2))
+    return verts, nv
+
+
+@pytest.mark.parametrize("case,R,samples", [
+    ("boundaries", 1, 16), ("band", 1, 8), ("offmap", 1, 16),
+    ("many", 21, 16)])
+def test_footprint_cost_plain_matches_jax_gather_path(case, R, samples):
+    rng = np.random.default_rng(11)
+    B = 5
+    data = rng.uniform(0, 0.9, (B, 32, 32)).astype(np.float32)
+    data[:, 20, :] = 1.0
+    origin = (-0.8, -0.8)
+    jc, tc = _cm_pair(data, origin)
+    verts, nv = _polygons(case, rng, B, R, origin)
+    per_map = jax.vmap(lambda c, v, n: jfp.footprint_cost(
+        c, mpc.Footprint(vertices=v, n_valid=n), samples), (None, 0, 0))
+    want = jax.vmap(per_map)(jc, jnp.asarray(verts), jnp.asarray(nv))
+    tfp.footprint_cost_batch.launches = 0
+    got = tfp.footprint_cost(tc, tfp.Footprint(T(verts), T(nv)), samples)
+    assert got.shape == (B, R) and not got.requires_grad
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    assert tfp.footprint_cost_batch.launches == 0     # the CPU dispatch
+    vals = got.numpy()
+    assert (vals == 1.0).any() and (vals < 1.0).any()
+
+
+@pytest.mark.parametrize("extractor", ["extract_patch",
+                                       "extract_patch_onehot"])
+def test_footprint_cost_bounds_match_jax_patch_reads(extractor):
+    """Bounds built from each patch extractor read what JAX reads through
+    the patch (patch_cost_at_cells): map values inside map ∩ window, lethal
+    elsewhere; centres inside, at the edges, in the band and off the map
+    (the robot-off-map case of tests/test_patch.py)."""
+    rng = np.random.default_rng(12)
+    h, R, S = 9, 4, 16
+    centres = np.asarray([[0.0, 0.0], [-0.95, -0.95], [0.97, 0.3],
+                          [5.0, 5.0], [-1.02, 0.1], [0.4, -0.6]], np.float32)
+    B = centres.shape[0]
+    data = rng.uniform(0, 0.9, (B, 40, 40)).astype(np.float32)
+    data[:, 25, :] = 1.0
+    jc, tc = _cm_pair(data, (-1.0, -1.0))
+    verts = np.zeros((B, R, 8, 2), np.float32)
+    for b in range(B):
+        for r in range(R):
+            c = centres[b] + rng.uniform(-0.7, 0.7, 2)
+            verts[b, r] = c + rng.uniform(-0.35, 0.35, (8, 2))
+    nv = np.full((B, R), 5, np.int32)
+    cx, cy = jnp.asarray(centres[:, 0]), jnp.asarray(centres[:, 1])
+    extract = getattr(jcm, extractor)
+    patch = jax.vmap(lambda c, x, y: extract(c, x, y, h))(jc, cx, cy)
+
+    def lane(c, p, vs, ns):
+        read = lambda wx, wy: jcm.patch_cost_at_cells(
+            p, *jcm.world_to_map(c, wx.reshape(-1), wy.reshape(-1))
+        ).reshape(wx.shape)
+        return jax.vmap(lambda v, n: jfp.footprint_cost(
+            c, mpc.Footprint(vertices=v, n_valid=n), S,
+            sample_fn=read))(vs, ns)
+
+    want = jax.vmap(lane)(jc, patch, jnp.asarray(verts), jnp.asarray(nv))
+    make = (tcm.patch_bounds if extractor == "extract_patch"
+            else tcm.product_patch_bounds)
+    bounds = make(tc, T(centres[:, 0]), T(centres[:, 1]), h)
+    got = tfp.footprint_cost(tc, tfp.Footprint(T(verts), T(nv)), S,
+                             bounds=bounds)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    assert (got.numpy()[3] == 1.0).all()          # robot off the map
+
+
+def test_footprint_cost_batch_refuses_other_devices():
+    meta = lambda *s, dt=torch.float32: torch.empty(s, dtype=dt,
+                                                    device="meta")
+    args = (meta(2, 8, 8), meta(2, 2), meta(2), None, meta(2, 1, 8, 2),
+            meta(2, 1, dt=torch.int32), meta(16))
+    with pytest.raises(ValueError, match="unsupported device"):
+        tfp.footprint_cost_batch(*args)
+
+
+def test_chip_smoke_kernels_line_covers_every_kernel():
+    """chip_smoke.py's module-level KERNELS (the entries of its `kernels`
+    line) name every launcher of kernels/binding.py, each with a source that
+    exists and the `def` of the TPU kernel it replaces."""
+    sys.path.insert(0, str(ROOT))
+    import chip_smoke
+
+    launchers = {n for n in binding.__all__ if n.startswith("launch_")}
+    assert launchers <= {k["launcher"] for k in chip_smoke.KERNELS}
+    assert {s for s in build.SOURCES} == {
+        pathlib.Path(k["source"]).name for k in chip_smoke.KERNELS}
+    for k in chip_smoke.KERNELS:
+        assert k["route"] == "cuda" and (ROOT / k["source"]).is_file()
+        path, line = k["replaces"].rsplit(":", 1)
+        text = (ROOT / path).read_text().splitlines()[int(line) - 1]
+        assert text.startswith("def _") and "kernel" in text, text

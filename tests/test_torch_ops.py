@@ -306,3 +306,114 @@ def test_objective_parity_value_and_grad(variant):
     np.testing.assert_allclose(val.detach().numpy(), N(want_v), rtol=1e-5)
     np.testing.assert_allclose(grad.numpy(), N(want_g), rtol=1e-5, atol=1e-6)
     assert np.isfinite(grad.numpy()).all()
+
+
+# --- product half: bilinear, patch samplers, objective_product -------------
+
+def test_bilinear_value_and_grad():
+    rng = np.random.default_rng(13)
+    jc, tc = _maps(rng)
+    wx = rng.uniform(-2.5, 1.0, (4, 40)).astype(np.float32)
+    wy = rng.uniform(-2.5, 1.0, (4, 40)).astype(np.float32)
+    # Cell centres, where a weight is exactly 0.
+    wx[:, :5] = N(jc.origin[:, :1]) + (np.arange(5) + 0.5) * 0.05
+    total = lambda c, x, y: jnp.sum(jcm.cost_at_world_bilinear(c, x, y))
+    want = jax.vmap(jcm.cost_at_world_bilinear)(jc, wx, wy)
+    want_gx, want_gy = jax.vmap(jax.grad(total, argnums=(1, 2)))(jc, wx, wy)
+    xt, yt = T(wx).requires_grad_(True), T(wy).requires_grad_(True)
+    got = tcm.cost_at_world_bilinear(tc, xt, yt)
+    gx, gy = torch.autograd.grad(got.sum(), (xt, yt))
+    np.testing.assert_allclose(got.detach().numpy(), N(want), rtol=1e-6)
+    np.testing.assert_allclose(gx.numpy(), N(want_gx), rtol=1e-6)
+    np.testing.assert_allclose(gy.numpy(), N(want_gy), rtol=1e-6)
+    assert (N(want) == 1.0).any() and (np.abs(N(want_gx)) > 0).any()
+
+
+@pytest.mark.parametrize("exact", [True, False])
+def test_patch_samplers_match_jax(exact):
+    """The product sampler (JAX: extract_patch_onehot, picks at either
+    precision, both exact on the CPU) and the parity patch of
+    make_point_sampler (JAX: extract_patch) against JAX's, exactly: centres
+    inside, at the edge and off the map; points inside and outside the
+    window."""
+    rng = np.random.default_rng(14)
+    jc, tc = _maps(rng, H=40, W=40)
+    org = N(jc.origin)
+    cx = (org[:, 0] + np.asarray([1.0, 0.02, 1.9, 4.0])).astype(np.float32)
+    cy = (org[:, 1] + np.asarray([1.0, 1.2, 1.95, -3.0])).astype(np.float32)
+    px = (cx[:, None] + rng.uniform(-0.8, 0.8, (4, 60))).astype(np.float32)
+    py = (cy[:, None] + rng.uniform(-0.8, 0.8, (4, 60))).astype(np.float32)
+    h = 12
+
+    def jax_reads(c, x, y, qx, qy):
+        s = jcm.ProductPatchSampler(c, x, y, h, exact=exact)
+        return (s.bilinear(qx, qy), s.nearest(qx, qy),
+                jcm.make_point_sampler(c, x, y, h)(qx, qy))
+
+    want = jax.vmap(jax_reads)(jc, cx, cy, px, py)
+    s = tcm.ProductPatchSampler(tc, T(cx), T(cy), h)
+    got = (s.bilinear(T(px), T(py)), s.nearest(T(px), T(py)),
+           tcm.make_point_sampler(tc, T(cx), T(cy), h)(T(px), T(py)))
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g.numpy(), N(w))
+        assert (N(w) == 1.0).any() and (N(w) < 1.0).any()
+
+
+def _product_cfg():
+    import dataclasses
+
+    base = _cfg()
+    return base.replace(compat=dataclasses.replace(
+        base.compat, buggy_odom_yaw=False, footprint_alias_noop=False,
+        lethal_1000x=False, unsquared_control_cost=False,
+        no_angle_wrap=False))
+
+
+@pytest.mark.parametrize("sampler,weights", [
+    (False, False), (True, False), (True, True)],
+    ids=["full_map", "patch", "patch_lane_weights"])
+def test_objective_product_value_and_grad(sampler, weights):
+    cfg = _product_cfg()
+    _, sb, tb = _golden_batch(jitter=0.45)
+    rng = np.random.default_rng(15)
+    js, ts = _scenarios(cfg, sb, tb, rng)
+    if weights:
+        w = rng.uniform(0.05, 2.0, (6, 8)).astype(np.float32)
+        js = js.replace(weights=mpc.Weights(*map(jnp.asarray, w)))
+        ts = ts.replace(weights=tobj.Weights(*map(T, w)))
+    x = rng.uniform(-0.7, 0.7, (8, 9)).astype(np.float32)
+    h = jcm.required_product_patch_halfwidth(cfg, 0.05, 0.46)
+    assert h == tcm.required_product_patch_halfwidth(_tcfg(cfg), 0.05, 0.46)
+    jf = jobj.make_objective(cfg, parity=False)
+
+    def jlane(u, s):
+        ps = (jcm.ProductPatchSampler(s.costmap, s.current_pose[0],
+                                      s.current_pose[1], h)
+              if sampler else None)
+        return jf(u, s, point_sampler=ps)
+
+    want_v, want_g = jax.vmap(jax.value_and_grad(jlane))(jnp.asarray(x), js)
+    tf = tobj.make_objective(_tcfg(cfg), parity=False)
+    ps = (tcm.ProductPatchSampler(ts.costmap, ts.current_pose[:, 0],
+                                  ts.current_pose[:, 1], h)
+          if sampler else None)
+    xt = T(x).requires_grad_(True)
+    val = tf(xt, ts, point_sampler=ps)
+    (grad,) = torch.autograd.grad(val.sum(), xt)
+    np.testing.assert_allclose(val.detach().numpy(), N(want_v), rtol=1e-5)
+    np.testing.assert_allclose(grad.numpy(), N(want_g), rtol=1e-5,
+                               atol=1e-6)
+    # Every lane's predicted footprint touches nonzero cost: the term is in
+    # the value and contributes no gradient, in both frameworks.
+    fp = tfp.transform_footprint(ts.current_pose, ts.footprint)
+    assert (tfp.footprint_cost(ts.costmap, fp, cfg.footprint_edge_samples)
+            > 0).all()
+    # The candidate axis: K candidates against the (B, ...) scenario give
+    # each candidate's own value, bit for bit.
+    cands = T(rng.uniform(-0.7, 0.7, (8, 3, 9)).astype(np.float32))
+    wave = tf(cands, ts, point_sampler=ps)
+    assert wave.shape == (8, 3)
+    for k in range(3):
+        np.testing.assert_array_equal(
+            wave[:, k].numpy(),
+            tf(cands[:, k].contiguous(), ts, point_sampler=ps).numpy())

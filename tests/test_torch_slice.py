@@ -7,7 +7,8 @@
   `interop`, reproduces the JAX package's main-path goldens within their
   gates (tests/test_golden.py: cmds atol 1e-4, goal_dist atol 1e-3).
 - One direct run against JAX `batch_simulate` at the fleet operating point
-  (quadratic-interpolation line search), within the same gates.
+  (quadratic-interpolation line search), and one at the product point
+  (smooth objective, candidate wave, patch sampler), within the same gates.
 - Importing the port never imports JAX.
 """
 
@@ -142,6 +143,56 @@ def test_the_fleet_config_matches_the_chip_smoke():
             == dataclasses.asdict(_tcfg(_fleet_cfg())))
 
 
+def _product_cfg():
+    """bench.py's product-SQP flips on the fleet overrides, on the JAX
+    side: quirks off, the candidate wave, the patch sampler (28 cells)."""
+    from neo_mpc_planner2_tpu.ops.costmap import (
+        required_product_patch_halfwidth)
+
+    cfg = _fleet_cfg()
+    cfg = cfg.replace(
+        parallel_line_search=True, solver_ls_quad_interp=False,
+        solver_patch_exact_picks=False,
+        compat=dataclasses.replace(
+            cfg.compat, buggy_odom_yaw=False, footprint_alias_noop=False,
+            lethal_1000x=False, unsquared_control_cost=False,
+            no_angle_wrap=False))
+    return cfg.replace(solver_costmap_patch=required_product_patch_halfwidth(
+        cfg, 0.05, 0.46))
+
+
+def test_product_slice_matches_jax_batch_simulate():
+    cfg = _product_cfg()
+    assert cfg.solver_costmap_patch == 28
+    sb = jmake(cfg, 16, seed=0, map_size=48, plan_points=64)
+    want = jax.jit(lambda: jsimulate(cfg, sb, 5, parity=False))()
+    got = batch_simulate(_tcfg(cfg), _from_jax(sb), 5, parity=False)
+    np.testing.assert_allclose(got.cmds.numpy(), np.asarray(want.cmds),
+                               atol=1e-4)
+    np.testing.assert_allclose(got.goal_dist.numpy(),
+                               np.asarray(want.goal_dist), atol=1e-3)
+    np.testing.assert_array_equal(got.lethal.numpy(), np.asarray(want.lethal))
+    np.testing.assert_array_equal(got.collisions.numpy(),
+                                  np.asarray(want.collisions))
+    speed = torch.linalg.vector_norm(got.cmds[..., :2], dim=-1)
+    assert float(speed.max()) <= cfg.max_vel_trans + 1e-5
+    # MpcEngine in product mode: its first batched step is the run's first.
+    tb = _from_jax(sb)
+    eng = tp.MpcEngine(_tcfg(cfg), parity=False)
+    out = eng.batch_step(eng.init_batch_state(16), tb.plan, tb.robot_pose,
+                         tb.current_vel, tb.costmap, tb.footprint,
+                         tb.delta_t)
+    np.testing.assert_array_equal(out.cmd_vel.numpy(), got.cmds[:, 0].numpy())
+
+
+def test_the_product_config_matches_the_chip_smoke():
+    sys.path.insert(0, str(ROOT))
+    import chip_smoke
+
+    assert (dataclasses.asdict(chip_smoke.product_cfg())
+            == dataclasses.asdict(_tcfg(_product_cfg())))
+
+
 def test_mpc_engine_matches_jax():
     """MpcEngine.step (one robot, no batch dims) over a few warm-started
     ticks against the JAX engine's, and batch_step against step."""
@@ -176,8 +227,9 @@ def test_unported_regimes_raise():
     sb = make_scenario_batch(cfg, 2, map_size=32, plan_points=8)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         batch_simulate(cfg, sb, 1, window_cells=8)
-    with pytest.raises(NotImplementedError):
-        tp.make_objective(cfg, parity=False)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        batch_simulate(cfg.replace(footprint_exact=True), sb, 1,
+                       parity=False)
 
 
 def test_importing_the_port_leaves_jax_out():

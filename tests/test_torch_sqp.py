@@ -6,7 +6,11 @@ port runs its masked loops with the plain QP. `x` must match at rtol 1e-4 /
 atol 1e-5 (the QP and the inverse sum in another order: float32
 reassociation noise, amplified by the solve) and the iteration counts must
 be equal. Both sequential line-search branches are covered: the fleet
-preset's quadratic interpolation and the two-phase backtracking factor."""
+preset's quadratic interpolation and the two-phase backtracking factor; and
+the product point's candidate wave, on the smooth objective with the patch
+sampler."""
+
+import dataclasses
 
 import jax
 import jax.numpy as jnp
@@ -41,6 +45,23 @@ def _tcfg(jc):
     compat = tp.CompatConfig(**{f: getattr(jc.compat, f)
                                 for f in jc.compat.__dataclass_fields__})
     return tp.MpcConfig(compat=compat, **kw)
+
+
+def _product(cfg, wave=True):
+    """The product point (bench.py's product-SQP flips) on cfg: quirks off,
+    the candidate wave, no quadratic interpolation, the patch sampler."""
+    from neo_mpc_planner2_tpu.ops.costmap import (
+        required_product_patch_halfwidth)
+
+    cfg = cfg.replace(
+        parallel_line_search=wave, solver_ls_quad_interp=False,
+        solver_patch_exact_picks=False,
+        compat=dataclasses.replace(
+            cfg.compat, buggy_odom_yaw=False, footprint_alias_noop=False,
+            lethal_1000x=False, unsquared_control_cost=False,
+            no_angle_wrap=False))
+    return cfg.replace(solver_costmap_patch=required_product_patch_halfwidth(
+        cfg, 0.05, 0.46))
 
 
 def _problem(ls, max_iters, qp_iters, B=8):
@@ -104,10 +125,50 @@ def test_lane_results_do_not_depend_on_other_lanes():
 
 
 def test_unported_solver_options_raise():
+    """solver_ls_wave > 1 is not ported; quadratic interpolation with a
+    candidate grid is refused as in the JAX package."""
     cfg, _, ts, x0 = _problem("two_phase", 3, 8)
-    for over in (dict(parallel_line_search=True),
-                 dict(solver_ls_wave=4)):
+    for over, err in ((dict(solver_ls_wave=4), NotImplementedError),
+                      (dict(parallel_line_search=True,
+                            solver_ls_quad_interp=True), ValueError)):
         tcfg = _tcfg(cfg.replace(**over))
-        with pytest.raises(NotImplementedError):
+        with pytest.raises(err):
             tsqp.make_sqp_solver_batched(tcfg, tobj.make_objective(tcfg))(
                 torch.as_tensor(x0), ts)
+
+
+def test_wave_solve_matches_jax():
+    """The product point's solve (wave line search, smooth objective, patch
+    sampler) against the JAX package's, at the fleet preset's caps."""
+    cfg, js, ts, x0 = _problem("two_phase", 8, 60)
+    cfg = _product(cfg)
+    want = jsqp.make_sqp_solver_batched(
+        cfg, mpc.make_objective(cfg, parity=False))(jnp.asarray(x0), js)
+    tcfg = _tcfg(cfg)
+    got = tsqp.make_sqp_solver_batched(
+        tcfg, tobj.make_objective(tcfg, parity=False))(torch.as_tensor(x0),
+                                                       ts)
+    np.testing.assert_allclose(got.x.numpy(), np.asarray(want.x), rtol=1e-4,
+                               atol=1e-5)
+    np.testing.assert_array_equal(got.iters.numpy(), np.asarray(want.iters))
+    np.testing.assert_array_equal(got.converged.numpy(),
+                                  np.asarray(want.converged))
+    np.testing.assert_allclose(got.fun.numpy(), np.asarray(want.fun),
+                               rtol=1e-4, atol=1e-6)
+
+
+def test_wave_takes_the_sequential_alpha():
+    """The wave accepts the first candidate of the two-phase schedule that
+    sequential backtracking accepts (tests/test_product_mode.py does the
+    same for JAX): the same solves to float noise, the same iterations."""
+    cfg, _, ts, x0 = _problem("two_phase", 8, 60)
+    runs = []
+    for wave in (True, False):
+        tcfg = _tcfg(_product(cfg, wave=wave))
+        runs.append(tsqp.make_sqp_solver_batched(
+            tcfg, tobj.make_objective(tcfg, parity=False))(
+                torch.as_tensor(x0), ts))
+    np.testing.assert_allclose(runs[0].x.numpy(), runs[1].x.numpy(),
+                               rtol=0, atol=2e-5)
+    np.testing.assert_array_equal(runs[0].iters.numpy(),
+                                  runs[1].iters.numpy())
