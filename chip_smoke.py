@@ -8,15 +8,21 @@ port through `batch_simulate` (4096 lanes, 64x64 maps, control_steps=3,
 20 ticks each): the fleet closed loop (parity objective) and the product
 closed loop (smooth objective, candidate-wave line search, patch sampler).
 For each slice it compares one controller step on the card with the same
-step on the CPU. Every phase prints a line; any failure exits non-zero. The
-`kernels` line lists every kernel with its launches on the two slices; the
-second-to-last line is the card's name and power limit, the last line
+step on the CPU, and counts the CUDA launches of a tick with torch.profiler.
+K3 is also held to its plain version, and timed, on the arguments of its
+own calls in the product slice (a gate at R = 1, a gradient call at R = 3
+and a wave at R = 21), captured during the slice's warm-up run. Every phase
+prints a line; any failure exits non-zero. The `kernels` line lists every
+kernel with its launches, its time beside its bound (`kernels/bounds.py`)
+and, where one PyTorch call computes the same function, that call's time;
+the second-to-last line is the card's name and power limit, the last line
 `{"ok": true, "device": {...}}`. Needs a CUDA device: without one it exits
 non-zero and prints no result. Imports no JAX.
 """
 
 from __future__ import annotations
 
+import collections
 import json
 import statistics
 import subprocess
@@ -41,10 +47,19 @@ KERNELS = [
 ]
 
 
+# The keys of each entry of the `kernels` line.
+KERNEL_KEYS = ("name", "route", "source", "replaces", "launches",
+               "launches_per_tick", "max_abs_err", "ms", "plain_ms",
+               "bound_ms", "bound_by", "share_of_bound", "library_ms")
+
 # How the phase lines time each kernel; the `kernels` line's "ms" is the
 # first of these, its "plain_ms" the last.
-TIMING = ("*_ms: the kernel's device time (torch.profiler); *_wrapper_ms "
-          "and *_plain_ms: one call between CUDA events; medians of 20")
+TIMING = ("*_ms: the kernel's device time (torch.profiler, median of 3 x "
+          "20 launches); *_wrapper_ms and *_plain_ms: one call between CUDA "
+          "events, median of 20; *_library_ms: the device time of one "
+          "PyTorch call's kernels, mean of 20")
+
+SLICE_TICKS = 20
 
 
 def _nvidia_smi() -> str:
@@ -57,18 +72,18 @@ def _nvidia_smi() -> str:
 
 def _ptxas_report(log: str) -> dict:
     """Registers, stack and spill bytes per kernel instance from nvcc's
-    `-Xptxas -v` output, keyed like "qp_admm_m15"."""
+    `-Xptxas -v` output, keyed like "qp_admm_m15" or "footprint_cost_S16"."""
     import re
 
     report, name = {}, None
     for line in log.splitlines():
-        hit = re.search(r"Compiling entry function '\w*?(qp_admm|spd_inv)"
-                        r"_kernelILi(\d+)E", line)
-        plain = re.search(r"Compiling entry function '\w*?(footprint_cost)"
-                          r"_kernel", line)
-        if hit or plain:
-            name = (f"{hit.group(1)}_m{hit.group(2)}" if hit
-                    else plain.group(1))
+        hit = re.search(r"Compiling entry function '\w*?"
+                        r"(qp_admm|spd_inv|footprint_cost)_kernelILi(\d+)E",
+                        line)
+        if hit:
+            # K1/K2 instances are keyed by m, K3's by S (S0: any other S).
+            key = "S" if hit.group(1) == "footprint_cost" else "m"
+            name = f"{hit.group(1)}_{key}{hit.group(2)}"
             report[name] = {}
         elif name and "spill stores" in line:
             nums = [int(v) for v in re.findall(r"(\d+) bytes", line)]
@@ -99,11 +114,42 @@ def _time_ms(fn, reps: int = 20) -> float:
     return statistics.median(times)
 
 
-def _device_ms(fn, kernel: str, reps: int = 20) -> float:
-    """Median device time of the `kernel` launches in `reps` calls of fn(),
-    after one warm-up, from torch.profiler's CUDA trace: the kernel alone on
-    the card, without the host's enqueue (which a single short launch
-    between two CUDA events also times)."""
+def _device_ms(fn, kernel: str, reps: int = 20, traces: int = 3) -> float:
+    """Median device time of the `kernel` launches in `traces` profiles of
+    `reps` calls of fn() each, after one warm-up, from torch.profiler's
+    CUDA trace: the kernel alone on the card, without the host's enqueue
+    (which a single short launch between two CUDA events also times). The
+    profiler may drop a record of a short trace, so the records of all
+    traces are pooled; at least a third of the launches must be seen."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(traces):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        seen = [e.time_range.elapsed_us() / 1e3 for e in prof.events()
+                if e.device_type == DeviceType.CUDA and kernel in e.name]
+        if len(seen) > reps:
+            raise AssertionError(f"the profiler saw {len(seen)} launches "
+                                 f"of {kernel} in {reps} calls")
+        times += seen
+    if 3 * len(times) < reps * traces:
+        raise AssertionError(f"the profiler saw {len(times)} of "
+                             f"{reps * traces} launches of {kernel}")
+    return statistics.median(times)
+
+
+def _device_total_ms(fn, reps: int = 20) -> float:
+    """Device time of all the work one call of fn() puts on the card (every
+    kernel, copy and fill, summed), averaged over `reps` calls after one
+    warm-up, from torch.profiler's CUDA trace."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -115,12 +161,32 @@ def _device_ms(fn, kernel: str, reps: int = 20) -> float:
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    times = [e.time_range.elapsed_us() / 1e3 for e in prof.events()
-             if e.device_type == DeviceType.CUDA and kernel in e.name]
-    if len(times) != reps:
-        raise AssertionError(f"the profiler saw {len(times)} launches of "
-                             f"{kernel}, expected {reps}")
-    return statistics.median(times)
+    total = sum(e.time_range.elapsed_us() for e in prof.events()
+                if e.device_type == DeviceType.CUDA)
+    if total <= 0:
+        raise AssertionError("the profiler saw no device time")
+    return total / 1e3 / reps
+
+
+LAUNCH_EVENTS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
+                 "cuLaunchKernelEx")
+
+
+def count_launches(fn) -> dict:
+    """The CUDA launches (host API calls) and the kernels that ran on the
+    card during one call of fn(), from torch.profiler."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    events = prof.events()
+    return {"launches": sum(e.name in LAUNCH_EVENTS for e in events),
+            "kernels": sum(e.device_type == DeviceType.CUDA for e in events)}
 
 
 def _excess(got, want, rtol, atol) -> float:
@@ -153,16 +219,21 @@ def _qp_inputs(rng, B, m, device):
 
 
 def phase_kernels(device):
+    """K1 and K2 against their plain versions at every shape, within rtol
+    2e-4 / atol 2e-5; timed at B = 4096. K1 is also timed without ADMM
+    iterations (the inverse and the operands' traffic alone), and one
+    qp_admm call must be one CUDA launch."""
     import numpy as np
     import torch
 
     from neo_mpc_planner2_tpu_torch import sqp
+    from neo_mpc_planner2_tpu_torch.kernels import bounds
 
     rng = np.random.default_rng(0)
     rtol, atol = 2e-4, 2e-5
     report = {}
     worst = 0.0
-    for m in (9, 15):
+    for m in (6, 9, 15):
         for B in (1, 131, 4096):
             for iters in (6, 60):
                 args = _qp_inputs(rng, B, m, device)
@@ -181,13 +252,24 @@ def phase_kernels(device):
                             f"K1 m={m} B={B} iters={iters}: off its plain "
                             f"version by {ex:.3g} past rtol/atol")
                     worst = max(worst, float((gt - w).abs().max()))
-                if B == 4096 and iters == 60:
+                if B == 4096 and iters == 60 and m in (9, 15):
+                    call = lambda: sqp.qp_admm(*args, **kw)
                     report[f"qp_admm_m{m}_ms"] = _device_ms(
-                        lambda: sqp.qp_admm(*args, **kw), "qp_admm_kernel")
-                    report[f"qp_admm_wrapper_m{m}_ms"] = _time_ms(
-                        lambda: sqp.qp_admm(*args, **kw))
+                        call, "qp_admm_kernel")
+                    report[f"qp_admm_m{m}_iters0_ms"] = _device_ms(
+                        lambda: sqp.qp_admm(*args, iters=0, rho=1.0,
+                                            sigma=1e-6), "qp_admm_kernel")
+                    report[f"qp_admm_wrapper_m{m}_ms"] = _time_ms(call)
                     report[f"qp_admm_plain_m{m}_ms"] = _time_ms(
                         lambda: sqp.qp_admm_plain(*plain_args, **kw))
+                    work = bounds.qp_admm_work(B, m, iters)
+                    report[f"qp_admm_m{m}_bound_ms"] = work["bound_ms"]
+                    report[f"qp_admm_m{m}_bound_by"] = work["bound_by"]
+                    n = count_launches(call)
+                    report[f"qp_admm_m{m}_launches_per_call"] = n
+                    if n != {"launches": 1, "kernels": 1}:
+                        raise AssertionError(f"one qp_admm call made {n}, "
+                                             "expected one launch")
     report["qp_admm_max_abs_err"] = worst
     print(json.dumps({"phase": "K1 qp_admm vs plain", "rtol": rtol,
                       "atol": atol, "timing": TIMING, **report}), flush=True)
@@ -218,6 +300,13 @@ def phase_kernels(device):
                     lambda: sqp.chol_inverse(M))
                 inv[f"spd_inv_plain_m{m}_ms"] = _time_ms(
                     lambda: sqp.chol_inverse_plain(M))
+                # The one PyTorch call for the same function (the port
+                # never calls it).
+                inv[f"spd_inv_library_m{m}_ms"] = _device_total_ms(
+                    lambda: torch.linalg.inv(M))
+                work = bounds.spd_inv_work(B, m)
+                inv[f"spd_inv_m{m}_bound_ms"] = work["bound_ms"]
+                inv[f"spd_inv_m{m}_bound_by"] = work["bound_by"]
     inv["spd_inv_max_abs_err"] = worst_inv
     inv["spd_inv_max_residual"] = worst_res
     print(json.dumps({"phase": "K2 spd_inv vs plain", "rtol": rtol,
@@ -271,7 +360,9 @@ def _k3_inputs(rng, B: int, R: int, device):
 
 def phase_k3(device):
     """K3 against its plain version: exact (the outputs are picked map
-    values), at every shape and polygon kind, full-grid and patch bounds."""
+    values), at every shape and polygon kind, full-grid and patch bounds.
+    Timed on these synthetic polygons at B = 4096, R = 21, S = 16, full
+    grid, the shape the earlier one-warp-a-polygon design was timed at."""
     import numpy as np
     import torch
 
@@ -281,13 +372,13 @@ def phase_k3(device):
     rng = np.random.default_rng(3)
     worst, cases, report = 0.0, 0, {}
     for B in (1, 131, 4096):
-        for R in (1, 21):
+        for R in (1, 3, 21):
             data, origin, res, verts, nv = _k3_inputs(rng, B, R, device)
             cm = cmap.Costmap(data=data, origin=origin, resolution=res)
             cx = torch.as_tensor(rng.uniform(-2.0, 2.0, B),
                                  dtype=torch.float32, device=device)
             patch = cmap.product_patch_bounds(cm, cx, cx.flip(0), 28)
-            for S in (8, 16, 32):
+            for S in (8, 16, 32, 64):
                 t = fpm.edge_parameters(S, device)
                 for bounds in (None, patch):
                     args = (data, origin, res, bounds, verts, nv, t)
@@ -303,19 +394,99 @@ def phase_k3(device):
                     cases += 1
                 if B == 4096 and R == 21 and S == 16:
                     args = (data, origin, res, None, verts, nv, t)
-                    report["footprint_cost_ms"] = _device_ms(
+                    report["footprint_cost_synthetic_ms"] = _device_ms(
                         lambda: fpm.footprint_cost_batch(*args),
                         "footprint_cost_kernel")
-                    report["footprint_cost_wrapper_ms"] = _time_ms(
-                        lambda: fpm.footprint_cost_batch(*args))
-                    report["footprint_cost_plain_ms"] = _time_ms(
-                        lambda: fpm.footprint_cost_batch_plain(*args))
     report["footprint_cost_max_abs_err"] = worst
     print(json.dumps({"phase": "K3 footprint_cost vs plain",
                       "tolerance": "exact (torch.equal)", "cases": cases,
-                      "timed_at": "B=4096 R=21 S=16 full grid",
+                      "timed_at": "B=4096 R=21 S=16 full grid, synthetic",
                       "timing": TIMING, **report}),
           flush=True)
+    return report
+
+
+class K3Recorder:
+    """While active, counts K3's launches by R and keeps a copy of the
+    arguments of the first call for each (R, whole grid or bounds): it
+    wraps `binding.launch_footprint_cost`, which the port looks up at every
+    call, and restores it on exit."""
+
+    def __init__(self):
+        self.by_r = collections.Counter()
+        self.args = {}
+
+    def __enter__(self):
+        from neo_mpc_planner2_tpu_torch.kernels import binding
+
+        self._launch = binding.launch_footprint_cost
+
+        def launch(*args, **kw):
+            R, bounds = args[4].shape[1], args[3]
+            self.by_r[R] += 1
+            key = (R, bounds is None)
+            if key not in self.args:
+                self.args[key] = tuple(
+                    None if a is None else a.clone() for a in args)
+            return self._launch(*args, **kw)
+
+        binding.launch_footprint_cost = launch
+        return self
+
+    def __exit__(self, *exc):
+        from neo_mpc_planner2_tpu_torch.kernels import binding
+
+        binding.launch_footprint_cost = self._launch
+        return False
+
+
+def captured_k3_cases(recorder: K3Recorder) -> dict:
+    """The product slice's K3 calls to hold and time: label -> args."""
+    labels = {}
+    for (R, whole), args in sorted(recorder.args.items()):
+        name = "gate" if whole else ("wave" if R > 3 else "grad")
+        labels[f"{name}_R{R}"] = args
+    if not any(k.startswith("wave") for k in labels) or \
+            not any(k.startswith("gate") for k in labels):
+        raise AssertionError(f"the product slice made no wave or no gate "
+                             f"call of K3: {sorted(recorder.args)}")
+    return labels
+
+
+def phase_k3_captured(recorder: K3Recorder, ticks: int):
+    """K3 on the product slice's own inputs: exactly equal to its plain
+    version, timed, its bound from the cells these samples read."""
+    import torch
+
+    from neo_mpc_planner2_tpu_torch.kernels import bounds
+    from neo_mpc_planner2_tpu_torch.ops import footprint as fpm
+
+    report = {}
+    for label, args in captured_k3_cases(recorder).items():
+        got = fpm.footprint_cost_batch(*args)
+        want = fpm.footprint_cost_batch_plain(*args)
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            raise AssertionError(f"K3 on the captured {label} call differs "
+                                 "from its plain version by "
+                                 f"{float((got - want).abs().max())}")
+        work = bounds.footprint_cost_work(*args)
+        ms = _device_ms(lambda: fpm.footprint_cost_batch(*args),
+                        "footprint_cost_kernel")
+        report[label] = {
+            "shape": list(args[4].shape), "S": int(args[6].shape[0]),
+            "bounds": args[3] is not None, "ms": ms,
+            "plain_ms": _time_ms(
+                lambda: fpm.footprint_cost_batch_plain(*args)),
+            "bound_ms": work["bound_ms"], "bound_by": work["bound_by"],
+            "share_of_bound": work["bound_ms"] / ms,
+            "samples": work["samples"], "cells": work["cells"],
+            "bytes": work["bytes"], "ops": work["ops"]}
+    per_tick = {f"R{R}": n / ticks for R, n in sorted(recorder.by_r.items())}
+    print(json.dumps({"phase": "K3 on the product slice's inputs",
+                      "tolerance": "exact (torch.equal)",
+                      "launches_per_tick_by_R": per_tick,
+                      "timing": TIMING, **report}), flush=True)
     return report
 
 
@@ -377,9 +548,13 @@ def _reset_launch_counts():
 
 
 def phase_slice(device, smi: str, name: str, cfg, parity: bool,
-                batch: int = 4096, ticks: int = 20):
-    """One slice's closed loop: a warm-up run, then a timed run with the
-    launch counts set to 0 just before it and read just after."""
+                batch: int = 4096, ticks: int = SLICE_TICKS,
+                recorder: "K3Recorder | None" = None):
+    """One slice's closed loop: a warm-up run (K3's calls recorded there
+    when a recorder is given), then a timed run with the launch counts set
+    to 0 just before it and read just after."""
+    import contextlib
+
     import torch
 
     from neo_mpc_planner2_tpu_torch.scenarios import make_scenario_batch
@@ -387,7 +562,8 @@ def phase_slice(device, smi: str, name: str, cfg, parity: bool,
 
     sb = make_scenario_batch(cfg, batch, seed=0, map_size=64,
                              plan_points=64, device=device)
-    batch_simulate(cfg, sb, ticks, parity=parity)          # warm-up
+    with recorder if recorder is not None else contextlib.nullcontext():
+        batch_simulate(cfg, sb, ticks, parity=parity)      # warm-up
     torch.cuda.synchronize()
     _reset_launch_counts()
     t0 = time.perf_counter()
@@ -420,6 +596,27 @@ def phase_slice(device, smi: str, name: str, cfg, parity: bool,
     return out
 
 
+def phase_launches_per_tick(device, batch: int = 4096,
+                            ticks: int = SLICE_TICKS) -> dict:
+    """Each slice's run again under torch.profiler: the CUDA launches (host
+    API calls) and device kernels of a tick. Last, because after a trace
+    this long the profiler may drop records of a short one."""
+    from neo_mpc_planner2_tpu_torch.scenarios import make_scenario_batch
+    from neo_mpc_planner2_tpu_torch.simulation import batch_simulate
+
+    out = {"phase": "CUDA launches a tick", "batch": batch, "ticks": ticks}
+    for name, cfg, parity in (("fleet", fleet_cfg(), True),
+                              ("product", product_cfg(), False)):
+        sb = make_scenario_batch(cfg, batch, seed=0, map_size=64,
+                                 plan_points=64, device=device)
+        n = count_launches(lambda: batch_simulate(cfg, sb, ticks,
+                                                  parity=parity))
+        out[name] = {"cuda_launches_per_tick": n["launches"] / ticks,
+                     "device_kernels_per_tick": n["kernels"] / ticks}
+    print(json.dumps(out), flush=True)
+    return out
+
+
 def phase_card_vs_cpu(device, name: str, cfg, parity: bool,
                       lanes: int = 256):
     """One controller step on the card against the same step on the CPU
@@ -429,12 +626,13 @@ def phase_card_vs_cpu(device, name: str, cfg, parity: bool,
     from neo_mpc_planner2_tpu_torch.scenarios import make_scenario_batch
     from neo_mpc_planner2_tpu_torch.tree import tree_map
 
-    sb = make_scenario_batch(cfg, lanes, seed=1, map_size=64, plan_points=64)
+    sb = make_scenario_batch(cfg, lanes, seed=1, map_size=64, plan_points=64,
+                             device=device)
     step = make_batched_controller_step(cfg, parity=parity)
     args = (sb.state, sb.plan, sb.robot_pose, sb.current_vel, sb.costmap,
             sb.footprint, sb.delta_t)
-    cpu = step(*args).cmd_vel
-    gpu = step(*tree_map(lambda t: t.to(device), args)).cmd_vel.cpu()
+    gpu = step(*args).cmd_vel.cpu()
+    cpu = step(*tree_map(lambda t: t.cpu(), args)).cmd_vel
     diff = (gpu - cpu).abs().amax(-1)
     frac = float((diff <= 1e-3).float().mean())
     out = {"phase": f"{name}: card vs cpu, one step", "lanes": lanes,
@@ -444,6 +642,30 @@ def phase_card_vs_cpu(device, name: str, cfg, parity: bool,
         raise AssertionError(f"{name} card vs CPU: only {frac:.4f} of lanes "
                              "within 1e-3")
     return out
+
+
+def kernels_line(fleet: dict, product: dict, measured: dict) -> list:
+    """The `kernels` line's entries, one per KERNELS entry, with the keys
+    of KERNEL_KEYS. fleet/product: the slice phases' outputs; measured:
+    name -> {max_abs_err, ms, plain_ms, bound_ms, bound_by, library_ms}."""
+    entries = []
+    for k in KERNELS:
+        got = measured[k["name"]]
+        fl = fleet["launches"][k["name"]]
+        pr = product["launches"][k["name"]]
+        entries.append({
+            "name": k["name"], "route": k["route"], "source": k["source"],
+            "replaces": k["replaces"],
+            # Launches on the two slices' timed runs (fleet + product).
+            "launches": fl + pr,
+            "launches_per_tick": {"fleet": fl / fleet["ticks"],
+                                  "product": pr / product["ticks"]},
+            "max_abs_err": got["max_abs_err"], "ms": got["ms"],
+            "plain_ms": got["plain_ms"], "bound_ms": got["bound_ms"],
+            "bound_by": got["bound_by"],
+            "share_of_bound": got["bound_ms"] / got["ms"],
+            "library_ms": got["library_ms"]})
+    return entries
 
 
 def main() -> int:
@@ -472,30 +694,34 @@ def main() -> int:
     k3 = phase_k3(device)
     fleet = phase_slice(device, smi, "fleet slice", fleet_cfg(), parity=True)
     phase_card_vs_cpu(device, "fleet slice", fleet_cfg(), parity=True)
+    recorder = K3Recorder()
     product = phase_slice(device, smi, "product slice", product_cfg(),
-                          parity=False)
+                          parity=False, recorder=recorder)
     phase_card_vs_cpu(device, "product slice", product_cfg(), parity=False)
+    captured = phase_k3_captured(recorder, SLICE_TICKS)
+    wave = next(v for k, v in captured.items() if k.startswith("wave"))
+    phase_launches_per_tick(device)
 
     measured = {
-        "qp_admm": (k1["qp_admm_max_abs_err"], k1["qp_admm_m9_ms"],
-                    k1["qp_admm_plain_m9_ms"]),
-        "spd_inv": (k2["spd_inv_max_abs_err"], k2["spd_inv_m9_ms"],
-                    k2["spd_inv_plain_m9_ms"]),
-        "footprint_cost": (k3["footprint_cost_max_abs_err"],
-                           k3["footprint_cost_ms"],
-                           k3["footprint_cost_plain_ms"]),
+        "qp_admm": dict(max_abs_err=k1["qp_admm_max_abs_err"],
+                        ms=k1["qp_admm_m9_ms"],
+                        plain_ms=k1["qp_admm_plain_m9_ms"],
+                        bound_ms=k1["qp_admm_m9_bound_ms"],
+                        bound_by=k1["qp_admm_m9_bound_by"], library_ms=None),
+        "spd_inv": dict(max_abs_err=k2["spd_inv_max_abs_err"],
+                        ms=k2["spd_inv_m9_ms"],
+                        plain_ms=k2["spd_inv_plain_m9_ms"],
+                        bound_ms=k2["spd_inv_m9_bound_ms"],
+                        bound_by=k2["spd_inv_m9_bound_by"],
+                        library_ms=k2["spd_inv_library_m9_ms"]),
+        # On the product slice's own wave (R = 21, patch bounds).
+        "footprint_cost": dict(max_abs_err=k3["footprint_cost_max_abs_err"],
+                               ms=wave["ms"], plain_ms=wave["plain_ms"],
+                               bound_ms=wave["bound_ms"],
+                               bound_by=wave["bound_by"], library_ms=None),
     }
-    kernels = []
-    for k in KERNELS:
-        err, ms, plain_ms = measured[k["name"]]
-        kernels.append({
-            "name": k["name"], "route": k["route"], "source": k["source"],
-            "replaces": k["replaces"],
-            # Launches on the two slices' timed runs (fleet + product).
-            "launches": (fleet["launches"][k["name"]]
-                         + product["launches"][k["name"]]),
-            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms})
-    print(json.dumps({"kernels": kernels}), flush=True)
+    print(json.dumps({"kernels": kernels_line(fleet, product, measured)}),
+          flush=True)
     print(_nvidia_smi(), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -1,4 +1,4 @@
-// K3: batched footprint-boundary max cost, one warp per placed polygon.
+// K3: batched footprint-boundary max cost, all polygons of a map lane on one SM.
 //
 // Replaces the TPU kernel neo_mpc_planner2_tpu/ops/pallas_kernels.py::_kernel
 // (launched by footprint_cost_batch_pallas): per polygon, the max
@@ -11,110 +11,255 @@
 // It computes what the port's plain version (footprint_cost_batch_plain,
 // the JAX package's gather path) computes, bit for bit: p = s + (e - s) * t
 // rounded op by op (no FMA contraction), cell = floor((p - o) / res) with an
-// IEEE division, then the bounds test, a clamp and the gather. (The Pallas
-// kernel multiplies by 1/res and truncates instead; it agrees with the
-// gather path off cell boundaries and above the origin only.)
+// IEEE division, then the bounds test and the gather. (The Pallas kernel
+// multiplies by 1/res and truncates instead; it agrees with the gather path
+// off cell boundaries and above the origin only.) The bounds rectangle lies
+// inside the grid, as the plain version documents, so a cell inside it
+// needs no clamp; it is tested in floats (exact below 2^24 cells a side,
+// and a NaN or infinite cell fails the test as an out-of-range one did).
 //
-// What bounds it on an H100: about V*S scattered 4-byte reads per polygon
-// and no arithmetic to speak of. At 4096 lanes x 21 polygons x 128 samples
-// that is ~11 M reads from 67 MB of 64x64 maps, so it is latency- and
-// L2-bound. The R polygons of a lane read the same map in place (no copy
-// per polygon); the lane's samples cluster within the robot's reach, so the
-// lines they touch stay in L2. A warp takes one polygon and its lanes
-// stride over the V*S samples; reads go through the read-only cache
-// (__ldg); the max is reduced with warp shuffles.
+// What bounds it on an H100: the bytes it must move are the valid vertices,
+// the output and the distinct map cells the samples read (on the product
+// slice's wave, 4096 lanes x 21 polygons x 4 edges x 16 samples: 5.5 MB),
+// ~1.7 us at 3.35 TB/s; its ~17 operations a sample take 1.4 us. The
+// kernel is far from that: each sample is ~40 instructions (two IEEE
+// divisions, floors, the bounds test, the address) and a dependent,
+// scattered read. The design:
+//   - A block holds `lanes_per_block` map lanes with `warps_per_lane`
+//     warps each; warp w of a lane takes its polygons w, w +
+//     warps_per_lane, ... So a lane's polygons run on one SM and share its
+//     L1 lines of the lane's map. Measured: four lanes of one warp for
+//     R <= 3 (the gate, the gradient calls), two lanes of two warps for the
+//     wave (kernels/binding.py::k3_launch_shape).
+//   - The block stages each polygon's valid edges once in shared memory as
+//     (start x, start y, dx, dy), with dx = e - s rounded as the plain
+//     version rounds it, and the S edge parameters beside them; the sample
+//     loop reads no vertex from device memory (the earlier design, a warp
+//     a polygon, read five values from device memory a sample).
+//   - A warp walks kGroup polygons at once, kUnroll samples of each a lane
+//     and step: it computes all their cells, then issues all their reads,
+//     then takes the maxima, so several reads of a lane are in flight.
+//     Larger groups (4, 8 or 16 polygons, 4 samples) were slower: the
+//     registers they hold cost more warps than the reads in flight gain.
+//   - S is a template parameter for 8, 16, 32 and 64 (any other S takes a
+//     general instance): each lane steps its (edge, sample) pair by
+//     (32 / S, 32 % S) with one carry, so no sample divides (for S up to
+//     32 a lane's sample index never changes).
+//   - The map is read in place through the read-only path (__ldg), not
+//     staged: a wave touches fewer cells than its patch holds.
 #include <cuda_runtime.h>
 #include <math.h>
 
 namespace neo_mpc {
 
-constexpr int kWarpsPerBlock = 8;
 constexpr float kLethal = 1.0f;
+constexpr int kGroup = 2;   // polygons a warp walks at once
+constexpr int kUnroll = 2;  // samples of each a lane takes per step
 
-// floor((p - o) / res) as an int; false if it is NaN or beyond int32 (the
-// sample then reads lethal, as an index far off the grid does).
-__device__ __forceinline__ bool cell_of(float p, float o, float res, int* c) {
-  const float f = floorf(__fdiv_rn(__fsub_rn(p, o), res));
-  if (!(f >= -2147483648.0f && f < 2147483648.0f)) return false;
-  *c = static_cast<int>(f);
-  return true;
+// floor((p - o) / res), rounded as the plain version rounds it (an IEEE
+// division, no FMA contraction). NaN stays NaN.
+__device__ __forceinline__ float cell_of(float p, float o, float res) {
+  return floorf(__fdiv_rn(__fsub_rn(p, o), res));
 }
 
+// S: the samples an edge, a compile-time constant for 8, 16, 32 and 64
+// (so a lane's sample index and parameter stay in registers), or 0 for
+// any other count, taken from S_rt.
+//
+// Shared memory: for each of the block's lanes, R * V edges of 4 floats
+// (sx, sy, dx, dy) and R valid counts; then the S edge parameters.
+template <int kS>
 __global__ void footprint_cost_kernel(
     const float* __restrict__ data, const float* __restrict__ origin,
     const float* __restrict__ res, const int* __restrict__ bounds,
     const float* __restrict__ verts, const int* __restrict__ n_valid,
     const float* __restrict__ t, float* __restrict__ out, int Bm, int R,
-    int H, int W, int V, int S) {
+    int H, int W, int V, int S_rt, int lanes_per_block, int warps_per_lane) {
+  const int S = kS ? kS : S_rt;
+  extern __shared__ float4 smem[];
+  const int edges_per_lane = R * V;
+  float4* edges = smem;
+  int* nv_s = reinterpret_cast<int*>(edges + lanes_per_block * edges_per_lane);
+  float* t_s = reinterpret_cast<float*>(nv_s + lanes_per_block * R);
+  const int lane0 = blockIdx.x * lanes_per_block;
+
+  // Stage, a thread a polygon: its valid count and valid edges.
+  for (int k = threadIdx.x; k < S; k += blockDim.x) t_s[k] = __ldg(t + k);
+  for (int q = threadIdx.x; q < lanes_per_block * R; q += blockDim.x) {
+    const int li = q / R;
+    const int b = lane0 + li;
+    const size_t poly = static_cast<size_t>(b) * R + (q - li * R);
+    const int nv = b < Bm ? min(__ldg(n_valid + poly), V) : 0;
+    nv_s[q] = nv;
+    const float* vp = verts + poly * V * 2;
+    float4* ep = edges + static_cast<size_t>(q) * V;
+    for (int v = 0; v < nv; ++v) {
+      const int e = (v + 1 < nv) ? v + 1 : 0;
+      const float sx = __ldg(vp + 2 * v), sy = __ldg(vp + 2 * v + 1);
+      const float ex = __ldg(vp + 2 * e), ey = __ldg(vp + 2 * e + 1);
+      ep[v] = make_float4(sx, sy, __fsub_rn(ex, sx), __fsub_rn(ey, sy));
+    }
+  }
+  __syncthreads();
+
+  const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
-  const long long poly =
-      static_cast<long long>(blockIdx.x) * kWarpsPerBlock + (threadIdx.x >> 5);
+  const int li = warp / warps_per_lane;
+  const int w = warp - li * warps_per_lane;
+  const int b = lane0 + li;
   // Uniform across the warp: the shuffles below see all 32 lanes.
-  if (poly >= static_cast<long long>(Bm) * R) return;
-  const int b = static_cast<int>(poly / R);
+  if (li >= lanes_per_block || b >= Bm) return;
+
   const float ox = __ldg(origin + 2 * b);
   const float oy = __ldg(origin + 2 * b + 1);
   const float rs = __ldg(res + b);
-  int lo_x = 0, lo_y = 0, hi_x = W, hi_y = H;
+  // The bounds rectangle (inside the grid) as floats: a cell in it is on
+  // the grid, so it needs no clamp, and a NaN or infinite cell fails the
+  // test. Exact: the kernel takes grids under 2^24 cells a side.
+  float lo_x = 0.0f, lo_y = 0.0f, hi_x = W, hi_y = H;
   if (bounds != nullptr) {
-    lo_x = __ldg(bounds + 4 * b);
-    lo_y = __ldg(bounds + 4 * b + 1);
-    hi_x = __ldg(bounds + 4 * b + 2);
-    hi_y = __ldg(bounds + 4 * b + 3);
+    lo_x = max(__ldg(bounds + 4 * b), 0);
+    lo_y = max(__ldg(bounds + 4 * b + 1), 0);
+    hi_x = min(__ldg(bounds + 4 * b + 2), W);
+    hi_y = min(__ldg(bounds + 4 * b + 3), H);
   }
-  const int nv = min(__ldg(n_valid + poly), V);
-  const float* vp = verts + poly * V * 2;
   const float* map = data + static_cast<size_t>(b) * H * W;
-
-  float best = -INFINITY;
-  for (int k = lane; k < nv * S; k += 32) {
-    const int v = k / S;
-    const int s = k - v * S;
-    const int e = (v + 1 < nv) ? v + 1 : 0;
-    const float sx = __ldg(vp + 2 * v), sy = __ldg(vp + 2 * v + 1);
-    const float ex = __ldg(vp + 2 * e), ey = __ldg(vp + 2 * e + 1);
-    const float tt = __ldg(t + s);
-    const float px = __fadd_rn(sx, __fmul_rn(__fsub_rn(ex, sx), tt));
-    const float py = __fadd_rn(sy, __fmul_rn(__fsub_rn(ey, sy), tt));
-    int mx, my;
-    float c = kLethal;
-    if (cell_of(px, ox, rs, &mx) && cell_of(py, oy, rs, &my) && mx >= lo_x &&
-        mx < hi_x && my >= lo_y && my < hi_y) {
-      const int cx = min(max(mx, 0), W - 1);
-      const int cy = min(max(my, 0), H - 1);
-      c = __ldg(map + static_cast<size_t>(cy) * W + cx);
+  // Each lane's (edge, sample) pair advances by 32 samples a step.
+  const int dv = 32 / S, ds = 32 - dv * S;
+  auto step = [&](int& v, int& s) {
+    v += dv;
+    s += ds;
+    if (s >= S) {
+      s -= S;
+      ++v;
     }
-    best = fmaxf(best, c);
-  }
+  };
+
+  for (int p0 = w; p0 < R; p0 += kGroup * warps_per_lane) {
+    int n[kGroup];
+    const float4* pe[kGroup];
+    float best[kGroup];
+    int most = 0;
 #pragma unroll
-  for (int off = 16; off > 0; off >>= 1)
-    best = fmaxf(best, __shfl_xor_sync(0xffffffffu, best, off));
-  if (lane == 0) out[poly] = best;
+    for (int g = 0; g < kGroup; ++g) {
+      const int p = p0 + g * warps_per_lane;
+      n[g] = p < R ? nv_s[li * R + p] * S : 0;
+      pe[g] = edges + (li * R + (p < R ? p : 0)) * V;
+      best[g] = -INFINITY;
+      most = max(most, n[g]);
+    }
+    int v = lane / S, s = lane - (lane / S) * S;
+    for (int k = lane; k < most; k += 32 * kUnroll) {
+      // Cells first: a map offset, -1 for lethal, -2 for no sample.
+      int cell[kUnroll][kGroup];
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u) {
+        const float tt = t_s[s];
+#pragma unroll
+        for (int g = 0; g < kGroup; ++g) {
+          int off = -2;
+          if (k + 32 * u < n[g]) {
+            const float4 ed = pe[g][v];
+            const float fx =
+                cell_of(__fadd_rn(ed.x, __fmul_rn(ed.z, tt)), ox, rs);
+            const float fy =
+                cell_of(__fadd_rn(ed.y, __fmul_rn(ed.w, tt)), oy, rs);
+            off = (fx >= lo_x && fx < hi_x && fy >= lo_y && fy < hi_y)
+                      ? static_cast<int>(fy) * W + static_cast<int>(fx)
+                      : -1;
+          }
+          cell[u][g] = off;
+        }
+        step(v, s);
+      }
+      // Then every read, then the maxima.
+      float c[kUnroll][kGroup];
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u)
+#pragma unroll
+        for (int g = 0; g < kGroup; ++g)
+          c[u][g] = cell[u][g] >= 0 ? __ldg(map + cell[u][g])
+                                    : (cell[u][g] == -1 ? kLethal : -INFINITY);
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u)
+#pragma unroll
+        for (int g = 0; g < kGroup; ++g) best[g] = fmaxf(best[g], c[u][g]);
+    }
+#pragma unroll
+    for (int g = 0; g < kGroup; ++g) {
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1)
+        best[g] = fmaxf(best[g], __shfl_xor_sync(0xffffffffu, best[g], off));
+      const int p = p0 + g * warps_per_lane;
+      if (lane == 0 && p < R) out[static_cast<size_t>(b) * R + p] = best[g];
+    }
+  }
+}
+
+template <int kS>
+cudaError_t launch_footprint(unsigned blocks, int threads, long long smem,
+                             cudaStream_t stream, const float* data,
+                             const float* origin, const float* res,
+                             const int* bounds, const float* verts,
+                             const int* n_valid, const float* t, float* out,
+                             int Bm, int R, int H, int W, int V, int S,
+                             int lanes_per_block, int warps_per_lane) {
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        footprint_cost_kernel<kS>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (err != cudaSuccess) return err;
+  }
+  footprint_cost_kernel<kS><<<blocks, threads, static_cast<size_t>(smem),
+                              stream>>>(data, origin, res, bounds, verts,
+                                        n_valid, t, out, Bm, R, H, W, V, S,
+                                        lanes_per_block, warps_per_lane);
+  return cudaGetLastError();
 }
 
 }  // namespace neo_mpc
 
+// Shared memory a block of the launch needs, in bytes (as
+// kernels/binding.py::k3_smem_bytes computes it).
+static long long footprint_cost_smem(int R, int V, int S,
+                                     int lanes_per_block) {
+  return static_cast<long long>(lanes_per_block) * R *
+             (V * static_cast<long long>(sizeof(float4)) + sizeof(int)) +
+         static_cast<long long>(S) * sizeof(float);
+}
+
 // data (Bm, H, W), origin (Bm, 2), res (Bm,), bounds (Bm, 4) int32 or null
 // (the whole grid), verts (Bm, R, V, 2), n_valid (Bm, R) int32, t (S,);
-// out (Bm, R). All contiguous. Returns cudaGetLastError().
+// out (Bm, R). All contiguous. lanes_per_block * warps_per_lane warps a
+// block. Returns cudaGetLastError().
 extern "C" int neo_footprint_cost_f32(int Bm, int R, int H, int W, int V,
-                                      int S, const void* data,
+                                      int S, int lanes_per_block,
+                                      int warps_per_lane, const void* data,
                                       const void* origin, const void* res,
                                       const void* bounds, const void* verts,
                                       const void* n_valid, const void* t,
                                       void* out, void* stream) {
-  const long long polys = static_cast<long long>(Bm) * R;
-  if (polys == 0) return 0;
-  const long long blocks =
-      (polys + neo_mpc::kWarpsPerBlock - 1) / neo_mpc::kWarpsPerBlock;
-  if (blocks > 2147483647LL) return static_cast<int>(cudaErrorInvalidValue);
-  neo_mpc::footprint_cost_kernel<<<static_cast<unsigned>(blocks),
-                                   32 * neo_mpc::kWarpsPerBlock, 0,
-                                   static_cast<cudaStream_t>(stream)>>>(
+  if (static_cast<long long>(Bm) * R == 0) return 0;
+  const int threads = 32 * lanes_per_block * warps_per_lane;
+  if (S < 1 || lanes_per_block < 1 || warps_per_lane < 1 || threads > 1024)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const long long smem = footprint_cost_smem(R, V, S, lanes_per_block);
+  const unsigned blocks =
+      static_cast<unsigned>((Bm + lanes_per_block - 1) / lanes_per_block);
+  cudaError_t (*launch)(unsigned, int, long long, cudaStream_t, const float*,
+                        const float*, const float*, const int*, const float*,
+                        const int*, const float*, float*, int, int, int, int,
+                        int, int, int, int) =
+      S == 8    ? neo_mpc::launch_footprint<8>
+      : S == 16 ? neo_mpc::launch_footprint<16>
+      : S == 32 ? neo_mpc::launch_footprint<32>
+      : S == 64 ? neo_mpc::launch_footprint<64>
+                : neo_mpc::launch_footprint<0>;
+  return static_cast<int>(launch(
+      blocks, threads, smem, static_cast<cudaStream_t>(stream),
       static_cast<const float*>(data), static_cast<const float*>(origin),
       static_cast<const float*>(res), static_cast<const int*>(bounds),
       static_cast<const float*>(verts), static_cast<const int*>(n_valid),
       static_cast<const float*>(t), static_cast<float*>(out), Bm, R, H, W, V,
-      S);
-  return static_cast<int>(cudaGetLastError());
+      S, lanes_per_block, warps_per_lane));
 }

@@ -1,4 +1,5 @@
-// K1: the whole ADMM QP subproblem of one SQP iteration, one thread per lane.
+// K1: the whole ADMM QP subproblem of one SQP iteration, a team of threads
+// per lane.
 //
 // Replaces the TPU kernel neo_mpc_planner2_tpu/sqp.py::_qp_admm_kernel
 // (launched by _qp_admm_pallas_batched). Per lane it solves
@@ -6,30 +7,62 @@
 // where J, the cone Jacobian, has two nonzeros per row (dx_k, dy_k at
 // columns 3k, 3k+1):
 //   1. M = B + (sigma + rho) I + rho J'J, built from dx/dy alone;
-//   2. M^-1 by the unrolled, division-free Cholesky (spd_inverse.cuh);
+//   2. M^-1 by the division-free Cholesky of spd_inverse.cuh (rsqrt
+//      diagonal), forward and back substitution, every inner product summed
+//      in sqp._tree_sum's pairwise order;
 //   3. `iters` ADMM iterations: d = M^-1 rhs, box clip -> zb, cone max -> zc,
-//      dual updates;
-//   4. the box-clipped d and the warm-start carry (d, zb, zc, wb, wc).
-// The caller forms y_cone = rho * wc.
+//      dual updates (all of them: no early exit, as the TPU kernel);
+//   4. the box-clipped d, the warm-start carry (d, zb, zc, wb, wc) and the
+//      cone duals y_cone = rho * wc.
 //
-// What bounds it on an H100: at m = 9 a lane does about m^3/2 operations for
-// the inverse and about iters * (m^2 + 6m) for the iterations (some 8k
-// flops at iters = 60) on about 160 floats of input and output, so the
-// kernel is bound by the latency of each thread's serial chain, not by
-// memory. Layout: every operand is lane-minor (rows, B), so neighbouring
-// threads read neighbouring addresses. Registers are the scarce resource:
-// the per-thread working set (the lower triangle of M, its inverse, the
-// substitution scratch and five vectors) grows as m^2. ptxas (CUDA 12.8)
-// gives the m = 15 instance all 255 registers a thread may have, without
-// spilling; a larger m would not fit. With 128 threads a block, a
-// 4096-lane batch fills 32 blocks, one on each of 32 of the 132 SMs: the
-// launch shape and the register pressure are the first things to attack
-// when this kernel is made fast.
+// What bounds it on an H100: arithmetic latency. A lane does ~1k
+// operations for the inverse and ~280 per ADMM iteration on 211 floats of
+// input and output, so at 60 iterations it is compute-bound, and on one
+// thread a lane each iteration is a serial chain of ~m^2 dependent
+// operations. The design splits every lane over a team of m threads,
+// packed 32 / m teams to a warp (three at m = 9): thread i owns row i.
+//   - Inverse: thread i builds row i of M and of the Cholesky factor L,
+//     reading pivot rows from shared memory; thread c then computes column
+//     c of L^-1 and of X = L^-T L^-1, the column that is row c of the
+//     symmetric X. The sums keep the serial order (tree_sum), except the
+//     forward substitution's, whose range starts at the thread's own
+//     column: there a multiply-add chain over the whole range, zeros
+//     included, keeps every register index a compile-time constant (the
+//     pairwise order from a runtime start cost ~10x the instructions).
+//   - ADMM: thread i keeps row i of M^-1 in registers and computes d[i] as
+//     a dot product of m multiply-adds in two interleaved chains; rhs goes
+//     through shared memory (one store, one __syncwarp, m/4 vector loads;
+//     two buffers in turn, so one barrier an iteration), the box clip and
+//     wb stay with row i, and the cone pair (zc_k, wc_k) with rows 3k and
+//     3k + 1, which trade d through one shuffle. Each iteration's
+//     dependent chain is ~m, not ~m^2. With 4096 lanes the card holds ~10
+//     warps an SM, and the iterations are bound by instruction issue, so
+//     the loop is written for few instructions: the cone's weight in rhs
+//     is one precomputed coefficient a row, and the dot product is
+//     multiply-adds, not the serial version's products and pairwise sum
+//     (the two differ by float32 rounding only). Measured and dropped: rhs
+//     exchanged by m shuffles in teams of 16 (the shuffle pipe and the
+//     idle rows made it slower than one thread a lane), and the cone rows
+//     forming J_k d from a kept row of J M^-1 (more instructions).
+//   - A thread holds one row (m floats) instead of the 2 m^2 of one thread
+//     a lane, so registers no longer cap m or occupancy; at m = 9, 4096
+//     lanes make 1366 warps over all 132 SMs.
+//   - Operands are batch-major, (B, rows), as the JAX package's public
+//     functions take them: a block's lanes are contiguous rows, read with
+//     coalesced loads, and written back the same way, so the wrapper is
+//     one launch with no transposes.
+// TMA and wgmma do not fit: every lane has its own m x m matrix and one
+// matrix-vector product per iteration, with no operand shared between
+// lanes to tile, and a block's operands are a few KB of contiguous rows
+// that plain coalesced loads bring in.
 #include <cuda_runtime.h>
 
 #include "spd_inverse.cuh"
 
 namespace neo_mpc {
+
+constexpr int kQpThreads = 128;
+constexpr unsigned kFullMask = 0xffffffffu;
 
 __device__ __forceinline__ float clip_nan(float v, float lo, float hi) {
   // min(max(v, lo), hi) with NaN propagation, like jnp.clip.
@@ -38,7 +71,7 @@ __device__ __forceinline__ float clip_nan(float v, float lo, float hi) {
 }
 
 template <int M>
-__global__ void qp_admm_kernel(
+__global__ void __launch_bounds__(kQpThreads) qp_admm_kernel(
     const float* __restrict__ Bf, const float* __restrict__ g,
     const float* __restrict__ x, const float* __restrict__ c,
     const float* __restrict__ dxy, const float* __restrict__ lo,
@@ -47,122 +80,235 @@ __global__ void qp_admm_kernel(
     const float* __restrict__ wb0, const float* __restrict__ wc0,
     float* __restrict__ dout, float* __restrict__ dN, float* __restrict__ zbN,
     float* __restrict__ zcN, float* __restrict__ wbN, float* __restrict__ wcN,
-    int B, int iters, float rho, float sigma, float sigma_plus_rho) {
+    float* __restrict__ ycone, int B, int iters, float rho, float sigma,
+    float sigma_plus_rho) {
   constexpr int N = M / 3;
-  const int b = blockIdx.x * blockDim.x + threadIdx.x;
-  if (b >= B) return;
-  auto at = [&](const float* p, int r) { return p[(size_t)r * B + b]; };
+  constexpr int WARPS = kQpThreads / 32;
+  constexpr int LPW = 32 / M;           // lanes (teams) a warp
+  constexpr int LANES = WARPS * LPW;    // lanes a block
+  constexpr int SLOTS = WARPS * (LPW + 1);
+  constexpr int MP = (M + 3) / 4 * 4;   // rhs row, padded for float4 reads
+  static_assert(M >= 3 && M <= 32 && M % 3 == 0, "m = 3 N, N <= 10");
+  // Per team slot: M (in its lower triangle: E, overwritten by L, then X),
+  // the reciprocal diagonal of L, and two rhs buffers. Each warp has one
+  // slot more than it has lanes: its last 32 - LPW * M threads form a
+  // team that runs every step on zeros and stores nothing, so that each
+  // shuffle and __syncwarp sees the whole warp.
+  __shared__ float Ms[SLOTS * M * M];
+  __shared__ float Ds[SLOTS * M];
+  __shared__ __align__(16) float Rs[2][SLOTS * MP];
 
-  float dx[N], dy[N], cc[N];
+  const int warp = threadIdx.x >> 5;
+  const int l = threadIdx.x & 31;
+  const int t = l / M;                   // team in the warp; LPW: idle
+  const int i = l - t * M;               // the row this thread owns
+  const int slot = warp * (LPW + 1) + t;
+  const long long b0 = static_cast<long long>(blockIdx.x) * LANES;
+  const long long b = b0 + warp * LPW + t;
+  const bool row = t < LPW && b < B;
+  float* S = Ms + slot * M * M;
+  float* D = Ds + slot * M;
+
+  // The block's lanes are contiguous rows of Bf: one coalesced sweep.
+  for (int k = threadIdx.x; k < LANES * M * M; k += kQpThreads) {
+    const long long idx = b0 * M * M + k;
+    const int lane = k / (M * M);
+    const int to = (lane / LPW) * (LPW + 1) + lane % LPW;
+    Ms[to * M * M + k - lane * M * M] =
+        idx < static_cast<long long>(B) * M * M ? __ldg(Bf + idx) : 0.0f;
+  }
+  const int k3 = i / 3, a = i - 3 * (i / 3);
+  // This row's entry of a batch-major operand with `rows` rows a lane.
+  const long long bl = row ? b : 0;
+#define NEO_ROW(p, rows, r) (row ? __ldg((p) + bl * (rows) + (r)) : 0.0f)
+  const float dx = NEO_ROW(dxy, 2 * N, 2 * k3);
+  const float dy = NEO_ROW(dxy, 2 * N, 2 * k3 + 1);
+  const float cc = NEO_ROW(c, N, k3);
+  __syncthreads();
+
+  // 1. Row i of M (entries j <= i).
+  float Er[M];
 #pragma unroll
-  for (int k = 0; k < N; ++k) {
-    dx[k] = at(dxy, 2 * k);
-    dy[k] = at(dxy, 2 * k + 1);
-    cc[k] = at(c, k);
+  for (int j = 0; j < M; ++j) {
+    float e = (row && j <= i) ? S[i * M + j] : 0.0f;
+    const int kj = j / 3, bj = j % 3;
+    if (kj == k3 && a < 2 && bj < 2)
+      e = e + rho * ((a == 0 ? dx : dy) * (bj == 0 ? dx : dy));
+    if (j == i) e = e + sigma_plus_rho;
+    Er[j] = e;
   }
 
-  // 1. The lower triangle of M.
-  float E[M][M];
+  // 2a. Cholesky, column by column: thread j takes the pivot, then every
+  // row below it its entry of column j. Row i of L stays in Lr and goes to
+  // S for the rows below.
+  const float tiny = 1e-20f;
+  float Lr[M];
 #pragma unroll
-  for (int i = 0; i < M; ++i) {
+  for (int j = 0; j < M; ++j) {
+    float p[M];
+    Lr[j] = 0.0f;
+    if (i == j) {
+      float s = Er[j];
+      if (j > 0) {
 #pragma unroll
-    for (int j = 0; j <= i; ++j) {
-      float e = at(Bf, i * M + j);
-      const int ki = i / 3, a = i % 3, kj = j / 3, bb = j % 3;
-      if (ki == kj && a < 2 && bb < 2)
-        e = e + rho * ((a == 0 ? dx[ki] : dy[ki]) * (bb == 0 ? dx[kj] : dy[kj]));
-      if (i == j) e = e + sigma_plus_rho;
-      E[i][j] = e;
+        for (int k = 0; k < j; ++k) p[k] = Lr[k] * Lr[k];
+        s = s - tree_sum(p, j);
+      }
+      s = max_nan(s, tiny);
+      const float dj = rsqrtf(s);
+      Lr[j] = s * dj;
+      D[j] = dj;
+    }
+    __syncwarp();
+    if (i > j) {
+      float si = Er[j];
+      if (j > 0) {
+#pragma unroll
+        for (int k = 0; k < j; ++k) p[k] = Lr[k] * S[j * M + k];
+        si = si - tree_sum(p, j);
+      }
+      Lr[j] = si * D[j];
+      S[i * M + j] = Lr[j];
     }
   }
+  __syncwarp();
 
-  // 2. Its inverse.
-  float X[M][M];
-  spd_inverse<M>(E, X);
+  // 2b. Forward: column i of Y = L^-1, Y[r][i] for r >= i. The column's
+  // entries above row i are 0, so the dot product over k < r runs from
+  // k = 0 with every index a compile-time constant: a multiply-add chain
+  // in k order (the serial version sums L[r][k] Y[k][i] for k in [i, r)
+  // pairwise; the two differ by float32 rounding only).
+  float Yc[M];
+#pragma unroll
+  for (int r = 0; r < M; ++r) {
+    float sum = 0.0f;
+#pragma unroll
+    for (int k = 0; k < r; ++k) sum = fmaf(S[r * M + k], Yc[k], sum);
+    Yc[r] = (r == i) ? D[r] : ((r > i) ? -sum * D[r] : 0.0f);
+  }
+
+  // 2c. Backward: column i of X = L^-T Y, X[r][i] for r >= i.
+  float Xc[M];
+#pragma unroll
+  for (int r = M - 1; r >= 0; --r) {
+    float acc = Yc[r];
+    if (r + 1 < M) {
+      float p[M];
+#pragma unroll
+      for (int k = r + 1; k < M; ++k) p[k - r - 1] = S[k * M + r] * Xc[k];
+      acc = acc - tree_sum(p, M - 1 - r);
+    }
+    Xc[r] = acc * D[r];
+  }
+
+  // Row i of the symmetric X: X[i][j] is column j's entry at row i for
+  // j < i, this thread's own column entry for j >= i.
+  __syncwarp();
+#pragma unroll
+  for (int r = 0; r < M; ++r)
+    if (r >= i) S[r * M + i] = Xc[r];
+  __syncwarp();
+  float Xr[M];
+#pragma unroll
+  for (int j = 0; j < M; ++j) Xr[j] = (j < i) ? S[i * M + j] : Xc[j];
 
   // 3. ADMM.
-  float gg[M], dlo[M], dhi[M], d[M], zb[M], wb[M], zc[N], wc[N];
-#pragma unroll
-  for (int i = 0; i < M; ++i) {
-    gg[i] = at(g, i);
-    const float xi = at(x, i);
-    dlo[i] = at(lo, i) - xi;
-    dhi[i] = at(hi, i) - xi;
-    d[i] = at(d0, i);
-    zb[i] = at(zb0, i);
-    wb[i] = at(wb0, i);
-  }
-#pragma unroll
-  for (int k = 0; k < N; ++k) {
-    zc[k] = at(zc0, k);
-    wc[k] = at(wc0, k);
-  }
-  float rhs[M], p[M];
+  const float gi = NEO_ROW(g, M, i);
+  const float xi = NEO_ROW(x, M, i);
+  const float dlo = NEO_ROW(lo, M, i) - xi, dhi = NEO_ROW(hi, M, i) - xi;
+  float d = NEO_ROW(d0, M, i), zb = NEO_ROW(zb0, M, i);
+  float wb = NEO_ROW(wb0, M, i);
+  float zc = NEO_ROW(zc0, N, k3), wc = NEO_ROW(wc0, N, k3);
+#undef NEO_ROW
+  // Row i's weight of the cone dual in rhs (J' (zc - wc))_i: dx or dy of
+  // its pair, 0 for rows 3k + 2.
+  const float cone = (a == 0) ? rho * dx : ((a == 1) ? rho * dy : 0.0f);
+  // The other row of the cone pair: 3k + 1 for row 3k, 3k for row 3k + 1.
+  const int pair = (a == 0) ? l + 1 : ((a == 1) ? l - 1 : l);
   for (int it = 0; it < iters; ++it) {
+    float* rs = Rs[it & 1] + slot * MP;
+    rs[i] = -gi + sigma * d + rho * (zb - wb) + cone * (zc - wc);
+    __syncwarp();
+    // d[i] = X[i] . rhs, as two interleaved multiply-add chains.
+    float s0 = 0.0f, s1 = 0.0f;
 #pragma unroll
-    for (int i = 0; i < M; ++i) {
-      const int k = i / 3, a = i % 3;
-      float r = -gg[i] + sigma * d[i] + rho * (zb[i] - wb[i]);
-      if (a == 0) r = r + rho * (dx[k] * (zc[k] - wc[k]));
-      if (a == 1) r = r + rho * (dy[k] * (zc[k] - wc[k]));
-      rhs[i] = r;
+    for (int q = 0; q < MP / 4; ++q) {
+      const float4 v = reinterpret_cast<const float4*>(rs)[q];
+      const float vs[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int j = 4 * q + e;
+        if (j < M) {
+          if (j % 2 == 0) s0 = fmaf(Xr[j], vs[e], s0);
+          else s1 = fmaf(Xr[j], vs[e], s1);
+        }
+      }
     }
-#pragma unroll
-    for (int i = 0; i < M; ++i) {
-#pragma unroll
-      for (int j = 0; j < M; ++j) p[j] = X[i][j] * rhs[j];
-      d[i] = tree_sum(p, M);
-    }
-#pragma unroll
-    for (int i = 0; i < M; ++i) zb[i] = clip_nan(d[i] + wb[i], dlo[i], dhi[i]);
-#pragma unroll
-    for (int k = 0; k < N; ++k) {
-      const float jd = dx[k] * d[3 * k] + dy[k] * d[3 * k + 1];
-      const float z = jd + wc[k];
-      zc[k] = (z < -cc[k]) ? -cc[k] : z;
-      wc[k] = wc[k] + jd - zc[k];
-    }
-#pragma unroll
-    for (int i = 0; i < M; ++i) wb[i] = wb[i] + d[i] - zb[i];
+    d = s0 + s1;
+    zb = clip_nan(d + wb, dlo, dhi);
+    // Rows 3k and 3k + 1 both form J_k d = dx d[3k] + dy d[3k+1], by the
+    // same instructions, so their copies of (zc_k, wc_k) stay equal.
+    const float dq = __shfl_sync(kFullMask, d, pair);
+    const float da = (a == 0) ? d : dq;
+    const float db = (a == 0) ? dq : d;
+    const float jd = dx * da + dy * db;
+    const float z = jd + wc;
+    zc = (z < -cc) ? -cc : z;
+    wc = wc + jd - zc;
+    wb = wb + d - zb;
   }
 
-  // 4. Outputs, lane-minor.
-  auto put = [&](float* q, int r, float v) { q[(size_t)r * B + b] = v; };
-#pragma unroll
-  for (int i = 0; i < M; ++i) {
-    put(dout, i, clip_nan(d[i], dlo[i], dhi[i]));
-    put(dN, i, d[i]);
-    put(zbN, i, zb[i]);
-    put(wbN, i, wb[i]);
-  }
-#pragma unroll
-  for (int k = 0; k < N; ++k) {
-    put(zcN, k, zc[k]);
-    put(wcN, k, wc[k]);
+  // 4. Outputs, batch-major.
+  if (row) {
+    dout[b * M + i] = clip_nan(d, dlo, dhi);
+    dN[b * M + i] = d;
+    zbN[b * M + i] = zb;
+    wbN[b * M + i] = wb;
+    if (a == 0) {
+      zcN[b * N + k3] = zc;
+      wcN[b * N + k3] = wc;
+      ycone[b * N + k3] = rho * wc;
+    }
   }
 }
 
 template <int M>
-cudaError_t launch_qp(const void* const* in, void* const* out, int B, int iters,
-                      float rho, float sigma, float sigma_plus_rho,
+cudaError_t launch_qp(const float* const* in, float* const* out, int B,
+                      int iters, float rho, float sigma, float sigma_plus_rho,
                       cudaStream_t stream) {
-  const int threads = 128;
-  const int blocks = (B + threads - 1) / threads;
-  const float* const* i = reinterpret_cast<const float* const*>(in);
-  float* const* o = reinterpret_cast<float* const*>(out);
-  qp_admm_kernel<M><<<blocks, threads, 0, stream>>>(
-      i[0], i[1], i[2], i[3], i[4], i[5], i[6], i[7], i[8], i[9], i[10], i[11],
-      o[0], o[1], o[2], o[3], o[4], o[5], B, iters, rho, sigma, sigma_plus_rho);
+  constexpr int LANES = (kQpThreads / 32) * (32 / M);
+  const int blocks = (B + LANES - 1) / LANES;
+  qp_admm_kernel<M><<<blocks, kQpThreads, 0, stream>>>(
+      in[0], in[1], in[2], in[3], in[4], in[5], in[6], in[7], in[8], in[9],
+      in[10], in[11], out[0], out[1], out[2], out[3], out[4], out[5], out[6],
+      B, iters, rho, sigma, sigma_plus_rho);
   return cudaGetLastError();
 }
 
 }  // namespace neo_mpc
 
-// in: 12 lane-minor operands (Bflat, g, x, c, dxy, lo, hi, d0, zb0, zc0, wb0,
-// wc0); out: 6 (d_out, d, zb, zc, wb, wc). Returns cudaGetLastError().
-extern "C" int neo_qp_admm_f32(int m, int B, int iters, float rho, float sigma,
-                               float sigma_plus_rho, const void* const* in,
-                               void* const* out, void* stream) {
+// Every operand batch-major and contiguous: Bflat (B, m*m); g, x, lo, hi,
+// d0, zb0, wb0 (B, m); c, zc0, wc0 (B, m/3); dxy (B, 2m/3). Outputs d_out,
+// d, zb, wb (B, m); zc, wc, y_cone (B, m/3). Returns cudaGetLastError().
+extern "C" int neo_qp_admm_f32(
+    int m, int B, int iters, float rho, float sigma, float sigma_plus_rho,
+    const void* Bflat, const void* g, const void* x, const void* c,
+    const void* dxy, const void* lo, const void* hi, const void* d0,
+    const void* zb0, const void* zc0, const void* wb0, const void* wc0,
+    void* d_out, void* d, void* zb, void* zc, void* wb, void* wc,
+    void* y_cone, void* stream) {
+  if (B <= 0 || iters < 0) return static_cast<int>(cudaErrorInvalidValue);
+  const float* in[12] = {
+      static_cast<const float*>(Bflat), static_cast<const float*>(g),
+      static_cast<const float*>(x),     static_cast<const float*>(c),
+      static_cast<const float*>(dxy),   static_cast<const float*>(lo),
+      static_cast<const float*>(hi),    static_cast<const float*>(d0),
+      static_cast<const float*>(zb0),   static_cast<const float*>(zc0),
+      static_cast<const float*>(wb0),   static_cast<const float*>(wc0)};
+  float* out[7] = {static_cast<float*>(d_out), static_cast<float*>(d),
+                   static_cast<float*>(zb),    static_cast<float*>(zc),
+                   static_cast<float*>(wb),    static_cast<float*>(wc),
+                   static_cast<float*>(y_cone)};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (m) {
     case 6: return neo_mpc::launch_qp<6>(in, out, B, iters, rho, sigma, sigma_plus_rho, s);

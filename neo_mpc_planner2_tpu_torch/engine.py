@@ -43,7 +43,7 @@ class ControlState:
         return dataclasses.replace(self, **kw)
 
 
-def init_state(cfg: MpcConfig, device=None) -> ControlState:
+def init_state(cfg: MpcConfig, device="cuda") -> ControlState:
     """One lane's initial state (no batch dim); see batch_state."""
     n = cfg.control_steps
     z = lambda *s: torch.zeros(s, dtype=torch.float32, device=device)
@@ -240,14 +240,16 @@ def make_batched_controller_step(cfg: MpcConfig, parity: bool = True,
 
 
 class MpcEngine:
-    """Convenience wrapper: single-robot and batched steps.
+    """Convenience wrapper: single-robot and batched steps. Its states
+    live on `device`, the card unless the caller asks for the CPU.
 
     >>> eng = MpcEngine(cfg)
     >>> state = eng.init_state()
     >>> out = eng.step(state, plan, robot_pose, vel, costmap, footprint, dt)
     """
 
-    def __init__(self, cfg: MpcConfig, parity: bool = True, device=None):
+    def __init__(self, cfg: MpcConfig, parity: bool = True,
+                 device="cuda"):
         self.cfg = cfg
         self.parity = parity
         self.device = device

@@ -5,7 +5,8 @@ footprints and warm-start state are its parameters. Each function here takes
 a container of numpy leaves — a dict, or any object with the same attribute
 names, such as the JAX package's dataclass after
 `jax.tree.map(np.asarray, ...)` — and returns the port's tensors on
-`device`. This module imports no JAX.
+`device`: the card unless the caller asks for the CPU (device="cpu").
+This module imports no JAX.
 """
 
 from __future__ import annotations
@@ -37,7 +38,7 @@ def _t(a, device):
     return torch.as_tensor(np.array(a, copy=True), device=device)
 
 
-def costmap_from_numpy(src, device=None) -> Costmap:
+def costmap_from_numpy(src, device="cuda") -> Costmap:
     """data, origin, resolution (+ optional flat, flat_u8). A rolling-window
     view (win_cells set) is refused: the port has no such regime yet."""
     if _get(src, "win_cells") is not None:
@@ -49,23 +50,23 @@ def costmap_from_numpy(src, device=None) -> Costmap:
                    flat_u8=_t(_get(src, "flat_u8"), device))
 
 
-def plan_from_numpy(src, device=None) -> Plan:
+def plan_from_numpy(src, device="cuda") -> Plan:
     return Plan(px=_t(_get(src, "px"), device), py=_t(_get(src, "py"), device),
                 pyaw=_t(_get(src, "pyaw"), device),
                 n_valid=_t(_get(src, "n_valid"), device))
 
 
-def footprint_from_numpy(src, device=None) -> Footprint:
+def footprint_from_numpy(src, device="cuda") -> Footprint:
     return Footprint(vertices=_t(_get(src, "vertices"), device),
                      n_valid=_t(_get(src, "n_valid"), device))
 
 
-def control_state_from_numpy(src, device=None) -> ControlState:
+def control_state_from_numpy(src, device="cuda") -> ControlState:
     return ControlState(**{name: _t(_get(src, name), device)
                            for name in ControlState.__dataclass_fields__})
 
 
-def scenario_batch_from_numpy(src, device=None) -> ScenarioBatch:
+def scenario_batch_from_numpy(src, device="cuda") -> ScenarioBatch:
     return ScenarioBatch(
         state=control_state_from_numpy(_get(src, "state"), device),
         plan=plan_from_numpy(_get(src, "plan"), device),

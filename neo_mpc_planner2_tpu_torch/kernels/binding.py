@@ -1,23 +1,59 @@
 """Launch the CUDA kernels on contiguous CUDA tensors.
 
-K1 and K2 take float32 operands laid out lane-minor, (rows, B); K3 takes
-its operands batch-major as `footprint_cost_batch` documents them. Each
-function allocates its outputs with torch.empty, launches on the current
-stream without synchronising, and raises if the launch reports an error.
+K1 and K3 take their operands batch-major, as `sqp.qp_admm` and
+`footprint_cost_batch` document them; K2 takes its matrices lane-minor,
+(m*m, B). Each function allocates its outputs with torch.empty, launches on
+the current stream without synchronising, and raises if the launch reports
+an error. The argument order of each call is that of the C function named
+in `build.SIGNATURES`.
 """
 
 from __future__ import annotations
-
-import ctypes
 
 import torch
 
 from .build import load_library
 
-__all__ = ["SUPPORTED_M", "launch_qp_admm", "launch_spd_inv",
-           "launch_footprint_cost"]
+__all__ = ["SUPPORTED_M", "QP_INPUTS", "QP_OUTPUTS", "qp_rows",
+           "K3_MAX_SMEM", "k3_launch_shape", "k3_smem_bytes",
+           "launch_qp_admm", "launch_spd_inv", "launch_footprint_cost"]
 
 SUPPORTED_M = (6, 9, 15)
+
+# K1's operands and outputs, in the order of neo_qp_admm_f32's arguments.
+QP_INPUTS = ("Bflat", "g", "x", "c", "dxy", "lo", "hi", "d0", "zb0", "zc0",
+             "wb0", "wc0")
+QP_OUTPUTS = ("d_out", "d", "zb", "zc", "wb", "wc", "y_cone")
+
+
+def qp_rows(m: int) -> dict:
+    """The row count of each K1 operand and output (each is (B, rows))."""
+    n = m // 3
+    return dict(Bflat=m * m, g=m, x=m, c=n, dxy=2 * n, lo=m, hi=m, d0=m,
+                zb0=m, zc0=n, wb0=m, wc0=n, d_out=m, d=m, zb=m, zc=n, wb=m,
+                wc=n, y_cone=n)
+
+
+# The most shared memory a block may take on an H100 (227 KB).
+K3_MAX_SMEM = 232448
+
+
+def k3_launch_shape(R: int) -> tuple[int, int]:
+    """K3's launch shape for R polygons a lane: (lanes_per_block,
+    warps_per_lane), four warps a block. Measured on the product slice's own
+    calls on an H100 (scripts/torch_kernel_turns.py --shapes; PERF.md): one
+    warp a lane was fastest for the gate (R = 1) and the gradient calls
+    (R = 3), two warps a lane for the wave (R = 21); more warps a lane
+    split a polygon's few samples further and ran slower."""
+    warps = 1 if R <= 3 else 2
+    return 4 // warps, warps
+
+
+def k3_smem_bytes(R: int, V: int, S: int, lanes_per_block: int) -> int:
+    """Dynamic shared memory of one K3 block: a lane's R·V staged edges (16
+    bytes each) and R valid counts, for each lane of the block, and the S
+    edge parameters."""
+    return lanes_per_block * R * (16 * V + 4) + 4 * S
 
 
 def _check(rc: int, what: str) -> None:
@@ -25,22 +61,23 @@ def _check(rc: int, what: str) -> None:
         raise RuntimeError(f"{what} launch failed: cudaError {rc}")
 
 
-def _ptrs(tensors):
-    return (ctypes.c_void_p * len(tensors))(*(t.data_ptr() for t in tensors))
+def _stream(device) -> int:
+    return torch.cuda.current_stream(device).cuda_stream
 
 
 def launch_qp_admm(ins, m: int, iters: int, rho: float, sigma: float):
-    """ins: the 12 lane-minor operands (Bflat, g, x, c, dxy, lo, hi, d0, zb0,
-    zc0, wb0, wc0). Returns lane-minor (d_out, d, zb, zc, wb, wc)."""
+    """ins: the 12 batch-major operands of QP_INPUTS, each (B, rows).
+    Returns the 7 batch-major outputs of QP_OUTPUTS."""
     lib = load_library()
-    B = ins[1].shape[1]
-    n = m // 3
-    outs = [torch.empty((r, B), dtype=torch.float32, device=ins[0].device)
-            for r in (m, m, m, n, m, n)]
-    stream = torch.cuda.current_stream(ins[0].device).cuda_stream
+    B = ins[0].shape[0]
+    rows = qp_rows(m)
+    outs = [torch.empty((B, rows[name]), dtype=torch.float32,
+                        device=ins[0].device) for name in QP_OUTPUTS]
     rc = lib.neo_qp_admm_f32(m, B, int(iters), float(rho), float(sigma),
-                             float(sigma + rho), _ptrs(ins), _ptrs(outs),
-                             stream)
+                             float(sigma + rho),
+                             *(t.data_ptr() for t in ins),
+                             *(t.data_ptr() for t in outs),
+                             _stream(ins[0].device))
     _check(rc, "qp_admm")
     return outs
 
@@ -49,25 +86,27 @@ def launch_spd_inv(A: torch.Tensor, m: int) -> torch.Tensor:
     """A: lane-minor (m*m, B). Returns the inverses, lane-minor."""
     lib = load_library()
     X = torch.empty_like(A)
-    stream = torch.cuda.current_stream(A.device).cuda_stream
-    rc = lib.neo_spd_inv_f32(m, A.shape[1], A.data_ptr(), X.data_ptr(), stream)
+    rc = lib.neo_spd_inv_f32(m, A.shape[1], A.data_ptr(), X.data_ptr(),
+                             _stream(A.device))
     _check(rc, "spd_inv")
     return X
 
 
-def launch_footprint_cost(data, origin, res, bounds, verts, n_valid, t):
+def launch_footprint_cost(data, origin, res, bounds, verts, n_valid, t,
+                          shape: tuple[int, int] | None = None):
     """data (Bm, H, W), origin (Bm, 2), res (Bm,), bounds (Bm, 4) int32 or
     None (the whole grid), verts (Bm, R, V, 2), n_valid (Bm, R) int32,
-    t (S,). Returns the (Bm, R) costs."""
+    t (S,). shape: (lanes_per_block, warps_per_lane), k3_launch_shape(R) by
+    default. Returns the (Bm, R) costs."""
     lib = load_library()
     Bm, H, W = data.shape
     R, V = verts.shape[1], verts.shape[2]
+    lanes, warps = k3_launch_shape(R) if shape is None else shape
     out = torch.empty((Bm, R), dtype=torch.float32, device=data.device)
-    stream = torch.cuda.current_stream(data.device).cuda_stream
     rc = lib.neo_footprint_cost_f32(
-        Bm, R, H, W, V, t.shape[0], data.data_ptr(), origin.data_ptr(),
-        res.data_ptr(), None if bounds is None else bounds.data_ptr(),
-        verts.data_ptr(), n_valid.data_ptr(), t.data_ptr(), out.data_ptr(),
-        stream)
+        Bm, R, H, W, V, t.shape[0], lanes, warps, data.data_ptr(),
+        origin.data_ptr(), res.data_ptr(),
+        None if bounds is None else bounds.data_ptr(), verts.data_ptr(),
+        n_valid.data_ptr(), t.data_ptr(), out.data_ptr(), _stream(data.device))
     _check(rc, "footprint_cost")
     return out

@@ -19,8 +19,9 @@ import tempfile
 import time
 from pathlib import Path
 
-__all__ = ["CSRC", "BUILD_DIR", "CUDA_HOME", "NVCC_FLAGS", "find_nvcc",
-           "library_path", "build_library", "load_library", "last_build"]
+__all__ = ["CSRC", "BUILD_DIR", "CUDA_HOME", "NVCC_FLAGS", "SIGNATURES",
+           "find_nvcc", "library_path", "build_library", "load_library",
+           "last_build"]
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
@@ -29,6 +30,18 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 SOURCES = ("qp_admm.cu", "spd_inv.cu", "footprint_cost.cu")
 HEADERS = ("spd_inverse.cuh",)
+
+_vp, _i, _f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+# The C interface of the library: name -> (restype, argtypes), in the order
+# of the `extern "C"` declarations in csrc/.
+SIGNATURES = {
+    # m, B, iters, rho, sigma, sigma + rho; 12 operands, 7 outputs; stream.
+    "neo_qp_admm_f32": (_i, [_i, _i, _i, _f, _f, _f] + [_vp] * 20),
+    # m, B; A, X; stream.
+    "neo_spd_inv_f32": (_i, [_i, _i, _vp, _vp, _vp]),
+    # Bm, R, H, W, V, S, lanes_per_block, warps_per_lane; 8 arrays; stream.
+    "neo_footprint_cost_f32": (_i, [_i] * 8 + [_vp] * 9),
+}
 
 # What the last build_library call did: {"path", "built", "seconds", "log"}.
 last_build: dict = {}
@@ -48,38 +61,47 @@ def find_nvcc() -> str:
         f"{cand}: the CUDA kernels need the CUDA toolkit to build")
 
 
-def _source_hash() -> str:
+def _source_hash(csrc: Path, sources, headers) -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for name in SOURCES + HEADERS:
+    for name in tuple(sources) + tuple(headers):
         h.update(name.encode())
-        h.update((CSRC / name).read_bytes())
+        h.update((csrc / name).read_bytes())
     return h.hexdigest()[:16]
 
 
-def library_path() -> Path:
-    return BUILD_DIR / f"libneo_mpc_kernels_{_source_hash()}.so"
+def library_path(csrc: Path | None = None, build_dir: Path | None = None,
+                 sources=SOURCES, headers=HEADERS) -> Path:
+    csrc = CSRC if csrc is None else Path(csrc)
+    build_dir = BUILD_DIR if build_dir is None else Path(build_dir)
+    return (build_dir
+            / f"libneo_mpc_kernels_{_source_hash(csrc, sources, headers)}.so")
 
 
-def build_library() -> Path:
-    """Compile the kernels unless a library built from the same sources and
-    flags exists. Raises RuntimeError with the compiler's output on failure."""
-    out = library_path()
+def build_library(csrc: Path | None = None, build_dir: Path | None = None,
+                  sources=SOURCES, headers=HEADERS) -> Path:
+    """Compile `sources` under `csrc` (default: the package's kernels) into
+    one library under `build_dir`, unless a library built from the same
+    sources and flags exists. Raises RuntimeError with the compiler's
+    output on failure."""
+    csrc = CSRC if csrc is None else Path(csrc)
+    build_dir = BUILD_DIR if build_dir is None else Path(build_dir)
+    out = library_path(csrc, build_dir, sources, headers)
     t0 = time.perf_counter()
     if out.exists():
         last_build.update(path=str(out), built=False, seconds=0.0,
                           log=_read_log(out))
         return out
     nvcc = find_nvcc()
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
-        objs = [os.path.join(tmp, s + ".o") for s in SOURCES]
+    build_dir.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=build_dir) as tmp:
+        objs = [os.path.join(tmp, s + ".o") for s in sources]
         procs = [subprocess.Popen(
-            [nvcc, *NVCC_FLAGS, "-c", str(CSRC / s), "-o", o],
+            [nvcc, *NVCC_FLAGS, "-c", str(csrc / s), "-o", o],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-            for s, o in zip(SOURCES, objs)]
+            for s, o in zip(sources, objs)]
         logs = [p.communicate()[0] for p in procs]
         log = "".join(logs)
-        failed = [s for s, p in zip(SOURCES, procs) if p.returncode != 0]
+        failed = [s for s, p in zip(sources, procs) if p.returncode != 0]
         if failed:
             raise RuntimeError(f"nvcc failed on {failed}:\n{log}")
         lib = os.path.join(tmp, "lib.so")
@@ -105,12 +127,8 @@ def load_library() -> ctypes.CDLL:
     global _lib
     if _lib is None:
         lib = ctypes.CDLL(str(build_library()))
-        vp, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.neo_qp_admm_f32.argtypes = [i, i, i, f, f, f, vp, vp, vp]
-        lib.neo_qp_admm_f32.restype = i
-        lib.neo_spd_inv_f32.argtypes = [i, i, vp, vp, vp]
-        lib.neo_spd_inv_f32.restype = i
-        lib.neo_footprint_cost_f32.argtypes = [i] * 6 + [vp] * 9
-        lib.neo_footprint_cost_f32.restype = i
+        for name, (restype, argtypes) in SIGNATURES.items():
+            fn = getattr(lib, name)
+            fn.restype, fn.argtypes = restype, argtypes
         _lib = lib
     return _lib

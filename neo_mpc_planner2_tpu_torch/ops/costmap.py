@@ -89,7 +89,7 @@ class Costmap:
 
     @staticmethod
     def create(data, origin=(0.0, 0.0), resolution=0.05,
-               device=None) -> "Costmap":
+               device="cuda") -> "Costmap":
         if isinstance(resolution, (int, float)) and resolution <= 0:
             raise ValueError(f"resolution must be positive: {resolution}")
         f = lambda a: torch.as_tensor(a, dtype=torch.float32, device=device)

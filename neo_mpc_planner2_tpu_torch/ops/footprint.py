@@ -41,7 +41,8 @@ class Footprint:
         return dataclasses.replace(self, **kw)
 
     @staticmethod
-    def create(points, max_vertices: int = 8, device=None) -> "Footprint":
+    def create(points, max_vertices: int = 8,
+               device="cuda") -> "Footprint":
         pts = torch.as_tensor(points, dtype=torch.float32, device=device)
         n = pts.shape[0]
         if n > max_vertices:
@@ -49,11 +50,11 @@ class Footprint:
         pad = pts[-1:].expand(max_vertices - n, 2)
         return Footprint(vertices=torch.cat([pts, pad], dim=0),
                          n_valid=torch.tensor(n, dtype=torch.int32,
-                                              device=device))
+                                              device=pts.device))
 
     @staticmethod
     def rectangle(length: float, width: float, max_vertices: int = 8,
-                  device=None) -> "Footprint":
+                  device="cuda") -> "Footprint":
         """Axis-aligned rectangle centered on base_link."""
         hl, hw = length / 2.0, width / 2.0
         return Footprint.create([[hl, hw], [-hl, hw], [-hl, -hw], [hl, -hw]],
@@ -65,7 +66,7 @@ def transform_footprint(pose: torch.Tensor, fp: Footprint) -> Footprint:
     return fp.replace(vertices=se2_apply(pose[..., None, :], fp.vertices))
 
 
-def edge_parameters(samples: int, device=None) -> torch.Tensor:
+def edge_parameters(samples: int, device="cuda") -> torch.Tensor:
     """The sample positions along an edge, bit-equal to the JAX package's
     `jnp.linspace(0, 1, samples)`: XLA computes i / (samples - 1) as
     i * f32(1 / (samples - 1)), then appends an exact 1. `torch.linspace`
@@ -83,10 +84,11 @@ def edge_parameters(samples: int, device=None) -> torch.Tensor:
 def _edge_parameters_on(samples: int, device: torch.device) -> torch.Tensor:
     """edge_parameters built once on the CPU and kept on `device`, so that
     a call on the card copies nothing from the host. Read-only."""
-    return edge_parameters(samples).to(device)
+    return edge_parameters(samples, "cpu").to(device)
 
 
-# The kernel's limits: a warp strides over V*S samples of one polygon.
+# The widths K3 is built and tested for (vertices a polygon, samples an
+# edge); its shared memory also bounds R·V a lane (binding.k3_smem_bytes).
 K3_MAX_VERTICES = 16
 K3_MAX_SAMPLES = 64
 
@@ -141,9 +143,13 @@ def _check_kernel_inputs(data, origin, res, bounds, verts, n_valid, t):
         raise ValueError(f"footprint_cost_batch: the kernel takes at most "
                          f"{K3_MAX_VERTICES} vertices and {K3_MAX_SAMPLES} "
                          f"samples, got {V} and {t.shape[0]}")
-    if H * W >= 2 ** 31:
+    if H * W >= 2 ** 31 or max(H, W) >= 2 ** 24:
         raise ValueError("footprint_cost_batch: map too large for int32 "
-                         "cell indices")
+                         "cell indices or float32 cell bounds")
+    lanes, _ = binding.k3_launch_shape(R)
+    if binding.k3_smem_bytes(R, V, t.shape[0], lanes) > binding.K3_MAX_SMEM:
+        raise ValueError(f"footprint_cost_batch: {R} polygons of {V} "
+                         "vertices a lane do not fit a block's shared memory")
 
 
 def footprint_cost_batch(data, origin, res, bounds, verts, n_valid, t):

@@ -50,7 +50,8 @@ class Weights:
     w_footprint: torch.Tensor
 
     @staticmethod
-    def from_config(cfg: MpcConfig, batch: int, device=None) -> "Weights":
+    def from_config(cfg: MpcConfig, batch: int,
+                    device="cuda") -> "Weights":
         return Weights(*(torch.full((batch,), getattr(cfg, n),
                                     dtype=torch.float32, device=device)
                          for n in _WEIGHT_NAMES))
@@ -66,7 +67,8 @@ class Limits:
     acc: torch.Tensor            # (B, 3) acc_x_limit, acc_y_limit, acc_theta
 
     @staticmethod
-    def from_config(cfg: MpcConfig, batch: int, device=None) -> "Limits":
+    def from_config(cfg: MpcConfig, batch: int,
+                    device="cuda") -> "Limits":
         f = lambda *v: torch.tensor(v, dtype=torch.float32,
                                     device=device).expand(batch, len(v))
         return Limits(

@@ -43,14 +43,14 @@ class Plan:
         return torch.stack([self.px, self.py, self.pyaw], dim=-1)
 
     @staticmethod
-    def from_poses(poses, n_valid, device=None) -> "Plan":
+    def from_poses(poses, n_valid, device="cuda") -> "Plan":
         p = torch.as_tensor(poses, dtype=torch.float32, device=device)
         return Plan(px=p[..., 0], py=p[..., 1], pyaw=p[..., 2],
                     n_valid=torch.as_tensor(n_valid, dtype=torch.int32,
                                             device=p.device))
 
     @staticmethod
-    def create(poses, max_points: int = 128, device=None) -> "Plan":
+    def create(poses, max_points: int = 128, device="cuda") -> "Plan":
         p = torch.as_tensor(poses, dtype=torch.float32, device=device)
         n = p.shape[0]
         if n == 0:
@@ -58,7 +58,7 @@ class Plan:
         if n > max_points:
             raise ValueError(f"plan has {n} poses > max {max_points}")
         pad = p[-1:].expand(max_points - n, 3)
-        return Plan.from_poses(torch.cat([p, pad], dim=0), n)
+        return Plan.from_poses(torch.cat([p, pad], dim=0), n, p.device)
 
     def goal(self) -> torch.Tensor:
         """Final pose (cpp:280), (*lead, 3)."""

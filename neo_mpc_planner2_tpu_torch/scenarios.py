@@ -32,12 +32,12 @@ MPO500_WIDTH = 0.67
 BLOB_SIGMA2 = 0.08
 
 
-def mpo700_footprint(max_vertices: int = 8, device=None) -> Footprint:
+def mpo700_footprint(max_vertices: int = 8, device="cuda") -> Footprint:
     return Footprint.rectangle(MPO700_LENGTH, MPO700_WIDTH, max_vertices,
                                device)
 
 
-def mpo500_footprint(max_vertices: int = 8, device=None) -> Footprint:
+def mpo500_footprint(max_vertices: int = 8, device="cuda") -> Footprint:
     return Footprint.rectangle(MPO500_LENGTH, MPO500_WIDTH, max_vertices,
                                device)
 
@@ -112,9 +112,10 @@ def make_scenario_batch(cfg: MpcConfig, batch: int, seed: int = 0,
                         corridor_max_cost: float = 0.6,
                         center_on: str = "start",
                         footprint: Footprint | None = None,
-                        device=None) -> ScenarioBatch:
+                        device="cuda") -> ScenarioBatch:
     """Random curved plans + Gaussian-blob obstacle maps + perturbed starts;
-    the arguments are the JAX package's (maps always on `device`)."""
+    the arguments are the JAX package's. Every tensor lies on `device`: the
+    card unless the caller asks for the CPU (device="cpu")."""
     rng = np.random.default_rng(seed)
 
     # --- plans: arcs with random curvature/length, starting at the origin ---

@@ -175,11 +175,25 @@ def qp_admm_plain(Bflat, g, x, c, J, lo, hi, d0, zb0, zc0, wb0, wc0, *,
     return clip(d, dlo, dhi), rho * wc, d, zb, zc, wb, wc
 
 
+def _check_qp_operands(args, m: int) -> None:
+    """What K1 takes: float32, contiguous, on one device, each operand
+    batch-major (B, rows) in binding.QP_INPUTS order. A lane-minor
+    (rows, B) operand is refused."""
+    _check_kernel_inputs(list(args), m, "qp_admm")
+    B = args[0].shape[0]
+    rows = binding.qp_rows(m)
+    for name, a in zip(binding.QP_INPUTS, args):
+        if tuple(a.shape) != (B, rows[name]):
+            raise ValueError(f"qp_admm: {name} has shape {tuple(a.shape)}, "
+                             f"expected batch-major {(B, rows[name])}")
+
+
 def qp_admm(Bflat, g, x, c, dxy, lo, hi, d0, zb0, zc0, wb0, wc0, *,
             iters: int, rho: float = 1.0, sigma: float = 1e-6):
     """The ADMM QP of one SQP iteration for a batch of lanes, all operands
     (B, rows) with Bflat (B, m²) and dxy (B, 2N) the cone Jacobian's
-    nonzeros. Kernel K1 for CUDA float32 tensors (any batch size); the plain
+    nonzeros. Kernel K1 for CUDA float32 tensors (any batch size, one
+    launch, the outputs written batch-major by the kernel); the plain
     version for CPU tensors; anything else raises. Returns what
     qp_admm_plain returns."""
     args = (Bflat, g, x, c, dxy, lo, hi, d0, zb0, zc0, wb0, wc0)
@@ -190,21 +204,15 @@ def qp_admm(Bflat, g, x, c, dxy, lo, hi, d0, zb0, zc0, wb0, wc0, *,
                              sigma=sigma)
     if x.device.type != "cuda":
         raise ValueError(f"qp_admm: unsupported device {x.device}")
-    _check_kernel_inputs(list(args), m, "qp_admm")
-    n = m // 3
-    rows = (m * m, m, m, n, 2 * n, m, m, m, m, n, m, n)
-    for a, r in zip(args, rows):
-        if tuple(a.shape) != (B, r):
-            raise ValueError(f"qp_admm: operand shape {tuple(a.shape)}, "
-                             f"expected {(B, r)}")
+    _check_qp_operands(args, m)
     if B == 0:
-        outs = [x.new_empty(B, r) for r in (m, n, m, m, n, m, n)]
-        return tuple(outs)
-    outs = binding.launch_qp_admm([a.t().contiguous() for a in args], m,
-                                  iters, rho, sigma)
+        rows = binding.qp_rows(m)
+        return tuple(x.new_empty(B, rows[name]) for name in
+                     ("d_out", "y_cone", "d", "zb", "zc", "wb", "wc"))
+    d_out, d, zb, zc, wb, wc, y_cone = binding.launch_qp_admm(
+        args, m, iters, rho, sigma)
     qp_admm.launches += 1
-    d_out, d, zb, zc, wb, wc = (o.t().contiguous() for o in outs)
-    return d_out, rho * wc, d, zb, zc, wb, wc
+    return d_out, y_cone, d, zb, zc, wb, wc
 
 
 qp_admm.launches = 0

@@ -2,8 +2,9 @@
 (footprint_cost_batch) on the card.
 
 Every test here needs an NVIDIA GPU: it carries the `cuda` marker and skips
-where `torch.cuda.is_available()` is false. The file imports no JAX, so it
-runs on a machine with a card and without JAX:
+where `torch.cuda.is_available()` is false (decided inside the `dev`
+fixture). The file imports no JAX, so it runs on a machine with a card and
+without JAX:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
 
@@ -78,6 +79,32 @@ def test_qp_admm_kernel_matches_plain(dev, m, B, iters):
         torch.testing.assert_close(gt, w, rtol=RTOL, atol=ATOL)
 
 
+@pytest.mark.parametrize("m", [6, 9, 15])
+def test_qp_admm_lane_does_not_depend_on_its_batch(dev, m):
+    """A lane's result is the same whatever lanes share its warp and block:
+    the whole batch, its first 131 lanes, and the batch shifted by one lane
+    (every lane moves to another team slot)."""
+    args = _qp_inputs(np.random.default_rng(m), 4096, m, dev)
+    kw = dict(iters=60, rho=1.0, sigma=1e-6)
+    full = sqp.qp_admm(*args, **kw)
+    head = sqp.qp_admm(*(a[:131].contiguous() for a in args), **kw)
+    shifted = sqp.qp_admm(*(a[1:].contiguous() for a in args), **kw)
+    torch.cuda.synchronize()
+    for f, h, s in zip(full, head, shifted):
+        assert torch.equal(f[:131], h)
+        assert torch.equal(f[1:], s)
+
+
+@pytest.mark.parametrize("m", [6, 9, 15])
+def test_qp_admm_is_one_launch(dev, m):
+    """One qp_admm call on the card is one CUDA launch: the operands and
+    outputs are batch-major, so the wrapper copies nothing."""
+    args = _qp_inputs(np.random.default_rng(0), 512, m, dev)
+    n = _chip_smoke().count_launches(
+        lambda: sqp.qp_admm(*args, iters=60))
+    assert n == {"launches": 1, "kernels": 1}
+
+
 @pytest.mark.parametrize("B", [1, 131, 4096])
 @pytest.mark.parametrize("m", [6, 9, 15])
 def test_chol_inverse_kernel_matches_plain(dev, m, B):
@@ -107,6 +134,8 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(dev):
         sqp.qp_admm(*args[:-1], args[-1].cpu(), iters=6)   # mixed devices
     with pytest.raises(ValueError):
         sqp.qp_admm(*args[:-1], args[-1][:4], iters=6)     # wrong shape
+    with pytest.raises(ValueError):                        # lane-minor
+        sqp.qp_admm(*(a.t().contiguous() for a in args), iters=6)
 
 
 def test_controller_step_on_the_card_matches_the_cpu(dev):
@@ -118,14 +147,17 @@ def test_controller_step_on_the_card_matches_the_cpu(dev):
 
     cfg = tp.fleet_config().replace(max_plan_points=64,
                                     footprint_edge_samples=16)
-    sb = tp.make_scenario_batch(cfg, 64, seed=3, map_size=48, plan_points=32)
+    sb = tp.make_scenario_batch(cfg, 64, seed=3, map_size=48, plan_points=32,
+                                device=dev)
     step = tp.make_batched_controller_step(cfg)
     args = (sb.state, sb.plan, sb.robot_pose, sb.current_vel, sb.costmap,
             sb.footprint, sb.delta_t)
+    assert sb.robot_pose.is_cuda and sb.costmap.data.is_cuda
     before = sqp.qp_admm.launches
-    gpu = step(*tree_map(lambda t: t.to(dev), args))
+    gpu = step(*args)
     assert sqp.qp_admm.launches > before
-    diff = (gpu.cmd_vel.cpu() - step(*args).cmd_vel).abs().amax(-1)
+    cpu = step(*tree_map(lambda t: t.cpu(), args))
+    diff = (gpu.cmd_vel.cpu() - cpu.cmd_vel).abs().amax(-1)
     assert float((diff <= 1e-3).float().mean()) >= 0.99
 
 
@@ -136,8 +168,8 @@ def _chip_smoke():
     return chip_smoke
 
 
-@pytest.mark.parametrize("S", [8, 16, 32])
-@pytest.mark.parametrize("R", [1, 21])
+@pytest.mark.parametrize("S", [8, 16, 32, 64])
+@pytest.mark.parametrize("R", [1, 3, 21])
 @pytest.mark.parametrize("B", [1, 131, 4096])
 def test_footprint_cost_kernel_matches_plain(dev, B, R, S):
     """Rectangles, padded triangles, samples on cell boundaries and in the
@@ -157,6 +189,50 @@ def test_footprint_cost_kernel_matches_plain(dev, B, R, S):
         assert fpm.footprint_cost_batch.launches == before + 1
         assert got.is_cuda and got.shape == (B, R)
         assert torch.equal(got, fpm.footprint_cost_batch_plain(*args))
+
+
+@pytest.mark.parametrize("shape", [(1, 1), (4, 1), (2, 2), (1, 7), (8, 3),
+                                   (16, 2)])
+def test_footprint_cost_kernel_matches_plain_at_every_launch_shape(dev,
+                                                                  shape):
+    """Any (lanes_per_block, warps_per_lane) gives the same costs: a lane's
+    polygons split over its warps in any way, odd S takes the general
+    path."""
+    from neo_mpc_planner2_tpu_torch.kernels import binding
+
+    rng = np.random.default_rng(sum(shape))
+    data, origin, res, verts, nv = _chip_smoke()._k3_inputs(rng, 131, 21,
+                                                            dev)
+    cm = cmap.Costmap(data=data, origin=origin, resolution=res)
+    cx = torch.as_tensor(rng.uniform(-2.0, 2.0, 131), dtype=torch.float32,
+                         device=dev)
+    for S in (16, 13):
+        t = fpm.edge_parameters(S, dev)
+        for bounds in (None, cmap.product_patch_bounds(cm, cx, cx, 28)):
+            args = (data, origin, res, bounds, verts, nv, t)
+            got = binding.launch_footprint_cost(*args, shape=shape)
+            torch.cuda.synchronize()
+            assert torch.equal(got, fpm.footprint_cost_batch_plain(*args))
+
+
+def test_footprint_cost_kernel_matches_plain_on_product_slice_calls(dev):
+    """K3 on the arguments of its own calls in the product closed loop
+    (the gate, the gradient calls and the candidate wave with its patch
+    bounds), captured from a 2-tick run."""
+    import neo_mpc_planner2_tpu_torch as tp
+
+    cs = _chip_smoke()
+    cfg = cs.product_cfg()
+    sb = tp.make_scenario_batch(cfg, 256, seed=5, map_size=64,
+                                plan_points=64, device=dev)
+    with cs.K3Recorder() as rec:
+        tp.batch_simulate(cfg, sb, 2, parity=False)
+    cases = cs.captured_k3_cases(rec)
+    assert {k.split("_")[0] for k in cases} >= {"gate", "wave"}
+    for label, args in cases.items():
+        got = fpm.footprint_cost_batch(*args)
+        torch.cuda.synchronize()
+        assert torch.equal(got, fpm.footprint_cost_batch_plain(*args)), label
 
 
 def test_footprint_cost_wrapper_raises_on_what_the_kernel_does_not_take(dev):
@@ -188,13 +264,15 @@ def test_product_step_on_the_card_matches_the_cpu(dev):
     from neo_mpc_planner2_tpu_torch.tree import tree_map
 
     cfg = _chip_smoke().product_cfg()
-    sb = tp.make_scenario_batch(cfg, 64, seed=3, map_size=48, plan_points=32)
+    sb = tp.make_scenario_batch(cfg, 64, seed=3, map_size=48, plan_points=32,
+                                device=dev)
     step = tp.make_batched_controller_step(cfg, parity=False)
     args = (sb.state, sb.plan, sb.robot_pose, sb.current_vel, sb.costmap,
             sb.footprint, sb.delta_t)
     qp0, fp0 = sqp.qp_admm.launches, fpm.footprint_cost_batch.launches
-    gpu = step(*tree_map(lambda t: t.to(dev), args))
+    gpu = step(*args)
     assert sqp.qp_admm.launches > qp0
     assert fpm.footprint_cost_batch.launches > fp0
-    diff = (gpu.cmd_vel.cpu() - step(*args).cmd_vel).abs().amax(-1)
+    cpu = step(*tree_map(lambda t: t.cpu(), args))
+    diff = (gpu.cmd_vel.cpu() - cpu.cmd_vel).abs().amax(-1)
     assert float((diff <= 1e-3).float().mean()) >= 0.99

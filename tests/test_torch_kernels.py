@@ -8,6 +8,7 @@ outputs are picked map values). The CUDA kernels themselves run only on a
 card: their tests are in test_torch_cuda.py, which imports no JAX so that it
 runs on a machine with a card and no JAX."""
 
+import ctypes
 import functools
 import pathlib
 import sys
@@ -356,7 +357,9 @@ def test_footprint_cost_batch_refuses_other_devices():
 def test_chip_smoke_kernels_line_covers_every_kernel():
     """chip_smoke.py's module-level KERNELS (the entries of its `kernels`
     line) name every launcher of kernels/binding.py, each with a source that
-    exists and the `def` of the TPU kernel it replaces."""
+    exists and the `def` of the TPU kernel it replaces; every entry the line
+    prints carries the time, the bound, the launches a tick and the library
+    call's time."""
     sys.path.insert(0, str(ROOT))
     import chip_smoke
 
@@ -369,3 +372,264 @@ def test_chip_smoke_kernels_line_covers_every_kernel():
         path, line = k["replaces"].rsplit(":", 1)
         text = (ROOT / path).read_text().splitlines()[int(line) - 1]
         assert text.startswith("def _") and "kernel" in text, text
+    slice_ = {"launches": {k["name"]: 40 for k in chip_smoke.KERNELS},
+              "ticks": 20}
+    measured = {k["name"]: dict(max_abs_err=0.0, ms=0.01, plain_ms=1.0,
+                                bound_ms=0.002, bound_by="bytes",
+                                library_ms=None)
+                for k in chip_smoke.KERNELS}
+    entries = chip_smoke.kernels_line(slice_, slice_, measured)
+    required = {"name", "route", "source", "replaces", "launches",
+                "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                "share_of_bound", "launches_per_tick", "library_ms"}
+    for e in entries:
+        assert set(e) == set(chip_smoke.KERNEL_KEYS) >= required
+        assert e["launches_per_tick"] == {"fleet": 2.0, "product": 2.0}
+        assert e["share_of_bound"] == pytest.approx(0.2)
+
+
+# --- the C interface, read against the sources -----------------------------
+
+def _c_signature(name):
+    """(type, parameter name) of each argument of the `extern "C"` function
+    `name` in csrc/, from its source."""
+    import re
+
+    for src in sorted(build.CSRC.glob("*.cu")):
+        text = src.read_text()
+        hit = re.search(r'extern "C" int ' + name + r"\(([^)]*)\)", text)
+        if hit:
+            out = []
+            for arg in hit.group(1).split(","):
+                words = arg.replace("*", " * ").split()
+                kind = ("ptr" if "*" in words else words[0])
+                out.append((kind, words[-1]))
+            return out
+    raise AssertionError(f"{name} not found in {build.CSRC}")
+
+
+@pytest.mark.parametrize("name", sorted(build.SIGNATURES))
+def test_declared_signatures_match_the_sources(name):
+    ctype = {"int": ctypes.c_int, "float": ctypes.c_float,
+             "ptr": ctypes.c_void_p}
+    restype, argtypes = build.SIGNATURES[name]
+    assert restype is ctypes.c_int
+    assert [ctype[k] for k, _ in _c_signature(name)] == list(argtypes)
+
+
+class _StubLibrary:
+    """Stands in for the built library: records each call's arguments."""
+
+    def __init__(self):
+        self.calls = []
+
+    def __getattr__(self, name):
+        def record(*args):
+            self.calls.append((name, args))
+            return 0
+        return record
+
+
+@pytest.fixture
+def stub_library(monkeypatch):
+    lib = _StubLibrary()
+    monkeypatch.setattr(binding, "load_library", lambda: lib)
+    monkeypatch.setattr(binding, "_stream", lambda device: 1234)
+    return lib
+
+
+def test_launch_qp_admm_packs_operands_in_c_order(stub_library):
+    """binding.launch_qp_admm hands the batch-major operands, then the
+    outputs it allocates, in the order of neo_qp_admm_f32's parameters."""
+    m, B = 9, 5
+    rows = binding.qp_rows(m)
+    ins = [torch.zeros(B, rows[n]) for n in binding.QP_INPUTS]
+    outs = binding.launch_qp_admm(ins, m, iters=7, rho=1.5, sigma=0.25)
+    (name, args), = stub_library.calls
+    assert name == "neo_qp_admm_f32"
+    sig = _c_signature(name)
+    assert len(args) == len(sig) == len(build.SIGNATURES[name][1])
+    assert args[:6] == (m, B, 7, 1.5, 0.25, 1.75)
+    assert [n for _, n in sig[6:-1]] == list(binding.QP_INPUTS
+                                           + binding.QP_OUTPUTS)
+    assert list(args[6:18]) == [t.data_ptr() for t in ins]
+    assert list(args[18:25]) == [t.data_ptr() for t in outs]
+    assert args[-1] == 1234
+    for n, t in zip(binding.QP_OUTPUTS, outs):
+        assert t.shape == (B, rows[n]) and t.dtype == torch.float32
+
+
+def test_launch_footprint_cost_packs_operands_in_c_order(stub_library):
+    Bm, R, H, W, V, S = 3, 21, 16, 20, 8, 16
+    data = torch.zeros(Bm, H, W)
+    origin, res = torch.zeros(Bm, 2), torch.ones(Bm)
+    bounds = torch.zeros(Bm, 4, dtype=torch.int32)
+    verts = torch.zeros(Bm, R, V, 2)
+    nv = torch.zeros(Bm, R, dtype=torch.int32)
+    t = torch.zeros(S)
+    out = binding.launch_footprint_cost(data, origin, res, bounds, verts, nv,
+                                        t)
+    (name, args), = stub_library.calls
+    assert len(args) == len(_c_signature(name))
+    assert args[:8] == (Bm, R, H, W, V, S, *binding.k3_launch_shape(R))
+    assert list(args[8:-1]) == [a.data_ptr() for a in
+                                (data, origin, res, bounds, verts, nv, t,
+                                 out)]
+    assert out.shape == (Bm, R)
+    binding.launch_footprint_cost(data, origin, res, None, verts, nv, t,
+                                  shape=(2, 3))
+    args = stub_library.calls[-1][1]
+    assert args[6:8] == (2, 3) and args[11] is None
+
+
+@pytest.mark.parametrize("fault", ["lane_minor", "float64", "strided",
+                                   "mixed_rows"])
+def test_qp_admm_kernel_operands_are_checked(fault):
+    """What sqp.qp_admm checks before it launches K1: batch-major (B, rows)
+    float32 contiguous operands; a lane-minor operand is refused."""
+    m, B = 9, 6
+    rows = binding.qp_rows(m)
+    args = [torch.zeros(B, rows[n]) for n in binding.QP_INPUTS]
+    tsqp._check_qp_operands(args, m)                  # batch-major: taken
+    if fault == "lane_minor":
+        args = [a.t().contiguous() for a in args]
+        err = ValueError
+    elif fault == "float64":
+        args[3] = args[3].double()
+        err = TypeError
+    elif fault == "strided":
+        args[1] = torch.zeros(rows["g"], B).t()
+        err = ValueError
+    else:
+        args[9] = torch.zeros(B, rows["zc0"] + 1)
+        err = ValueError
+    with pytest.raises(err):
+        tsqp._check_qp_operands(args, m)
+
+
+def test_footprint_cost_kernel_limits_are_checked():
+    meta = lambda *s, dt=torch.float32: torch.empty(s, dtype=dt,
+                                                    device="meta")
+    ok = (meta(2, 8, 8), meta(2, 2), meta(2), None, meta(2, 21, 8, 2),
+          meta(2, 21, dt=torch.int32), meta(16))
+    tfp._check_kernel_inputs(*ok)
+    assert binding.k3_smem_bytes(21, 8, 16, 4) == 4 * 21 * (16 * 8 + 4) + 64
+    too_many = (meta(2, 8, 8), meta(2, 2), meta(2), None,
+                meta(2, 1000, 16, 2), meta(2, 1000, dt=torch.int32),
+                meta(16))
+    with pytest.raises(ValueError, match="shared memory"):
+        tfp._check_kernel_inputs(*too_many)
+    wide = (meta(2, 1, 2 ** 24), *ok[1:])
+    with pytest.raises(ValueError, match="too large"):
+        tfp._check_kernel_inputs(*wide)
+
+
+# --- the bound calculator ----------------------------------------------------
+
+@pytest.mark.parametrize("kernel,m,ops_per_lane,bound_by", [
+    ("qp_admm", 9, 18255, "operations"),
+    ("qp_admm", 15, 43565, "operations"),
+    ("spd_inv", 9, 873, "bytes"),
+])
+def test_bound_calculator_k1_k2(kernel, m, ops_per_lane, bound_by):
+    """K1 at 60 ADMM iterations: ~1k operations for the inverse and ~280
+    an iteration at m = 9; K2 moves each matrix in and out once."""
+    from neo_mpc_planner2_tpu_torch.kernels import bounds
+
+    B = 4096
+    work = (bounds.qp_admm_work(B, m, 60) if kernel == "qp_admm"
+            else bounds.spd_inv_work(B, m))
+    assert work["ops"] == B * ops_per_lane
+    assert work["bound_by"] == bound_by
+    n = m // 3
+    floats = (m * m + 11 * m + 8 * n if kernel == "qp_admm" else 2 * m * m)
+    assert work["bytes"] == 4 * B * floats
+    assert work["bound_ms"] == pytest.approx(max(
+        work["ops"] / 67e12, work["bytes"] / 3.35e12) * 1e3)
+    if kernel == "qp_admm" and m == 9:
+        assert bounds.inverse_ops(9) == 873
+        assert work["bound_ms"] == pytest.approx(0.001116, rel=1e-3)
+
+
+def _k3_case(B, R, S, rng, bounded):
+    """Placed rectangles (a wave's: poses along a short path) on a small
+    map, some padded triangles, and a patch rectangle per lane."""
+    H = W = 24
+    data = torch.as_tensor(rng.uniform(0, 1, (B, H, W)).astype(np.float32))
+    origin = torch.full((B, 2), -0.6)
+    res = torch.full((B,), 0.05)
+    base = np.asarray([[0.15, 0.1], [-0.15, 0.1], [-0.15, -0.1],
+                       [0.15, -0.1]], np.float32)
+    verts = np.zeros((B, R, 8, 2), np.float32)
+    nv = np.full((B, R), 4, np.int32)
+    for b in range(B):
+        for r in range(R):
+            c = rng.uniform(-0.5, 0.5, 2)
+            yaw = rng.uniform(-np.pi, np.pi)
+            rot = np.asarray([[np.cos(yaw), -np.sin(yaw)],
+                              [np.sin(yaw), np.cos(yaw)]])
+            verts[b, r, :4] = c + base @ rot.T
+            verts[b, r, 4:] = rng.uniform(50, 90, (4, 2))
+            if r % 3 == 2:
+                nv[b, r] = 3
+    bounds = None
+    if bounded:
+        lo = rng.integers(0, 8, (B, 2))
+        bounds = torch.as_tensor(np.concatenate([lo, lo + 12], -1),
+                                 dtype=torch.int32)
+    t = tfp.edge_parameters(S, "cpu")
+    return (data, origin, res, bounds, torch.as_tensor(verts),
+            torch.as_tensor(nv), t)
+
+
+@pytest.mark.parametrize("bounded", [False, True])
+def test_k3_distinct_cells_match_a_brute_force_count(bounded):
+    """The cells K3's samples read, counted by footprint_cells_touched,
+    against a loop over every polygon, valid edge and sample in numpy
+    float32 (the same rounding: p = s + (e - s)·t, floor((p - o) / res))."""
+    from neo_mpc_planner2_tpu_torch.kernels import bounds as kb
+
+    rng = np.random.default_rng(21)
+    B, R, S = 3, 4, 8
+    data, origin, res, bnd, verts, nv, t = _k3_case(B, R, S, rng, bounded)
+    f = np.float32
+    cells = set()
+    for b in range(B):
+        o, r_ = origin[b].numpy(), f(res[b])
+        lo_x, lo_y, hi_x, hi_y = (0, 0, 24, 24) if bnd is None else \
+            bnd[b].tolist()
+        for p in range(R):
+            n = int(nv[b, p])
+            for v in range(n):
+                s_ = verts[b, p, v].numpy()
+                e_ = verts[b, p, (v + 1) % n].numpy()
+                for tt in t.numpy():
+                    pt = (s_ + (e_ - s_) * tt).astype(f)
+                    mx, my = np.floor((pt - o).astype(f) / r_).astype(int)
+                    if lo_x <= mx < hi_x and lo_y <= my < hi_y:
+                        cells.add((b, my, mx))
+    got = kb.footprint_cells_touched(data, origin, res, bnd, verts, nv, t)
+    assert got == len(cells) > 0
+
+
+def test_bound_calculator_k3_counts_the_inputs_work():
+    """At the wave's shape (R = 21 polygons of 4 valid edges, S = 16) K3
+    does 17 operations a sample, and moves the valid vertices, the counts,
+    the output, t, the lanes' origin/resolution/bounds and the cells."""
+    from neo_mpc_planner2_tpu_torch.kernels import bounds as kb
+
+    rng = np.random.default_rng(22)
+    B, R, S = 4, 21, 16
+    args = _k3_case(B, R, S, rng, True)
+    nv = args[5]
+    work = kb.footprint_cost_work(*args)
+    samples = int(nv.sum()) * S
+    assert work["samples"] == samples
+    assert work["ops"] == 17 * samples
+    cells = kb.footprint_cells_touched(*args)
+    assert work["cells"] == cells
+    assert work["bytes"] == 4 * (2 * int(nv.sum()) + 2 * B * R + S + 3 * B
+                                 + 4 * B + cells)
+    assert work["bound_by"] == "bytes"
+    # The main-path wave: 4096 lanes x 21 polygons x 4 edges x 16 samples.
+    assert 4096 * 21 * 4 * 16 * kb.K3_OPS_PER_SAMPLE == 93585408

@@ -167,7 +167,7 @@ def test_point_sampler_and_u8_decode(u8):
 @pytest.mark.parametrize("samples", [1, 2, 8, 16, 32, 33])
 def test_edge_parameters_bit_equal_to_jnp_linspace(samples):
     np.testing.assert_array_equal(
-        tfp.edge_parameters(samples).numpy(),
+        tfp.edge_parameters(samples, "cpu").numpy(),
         N(jnp.linspace(0.0, 1.0, samples)))
 
 
@@ -175,7 +175,8 @@ def _placed(fp1, poses):
     B = poses.shape[0]
     jfps = jax.tree.map(lambda x: jnp.broadcast_to(x, (B,) + x.shape), fp1)
     jplaced = jax.vmap(jfp.transform_footprint)(jnp.asarray(poses), jfps)
-    tfps = interop.footprint_from_numpy(jax.tree.map(np.asarray, jfps))
+    tfps = interop.footprint_from_numpy(jax.tree.map(np.asarray, jfps),
+                                        device="cpu")
     tplaced = tfp.transform_footprint(T(poses), tfps)
     return jplaced, tplaced
 
@@ -230,7 +231,8 @@ def test_footprint_cost_at_pose_matches():
     want = jax.vmap(lambda c, f, p: jfp.footprint_cost_at_pose(
         c, f, p, 8, "gather"))(jc, fps, jnp.asarray(poses))
     got = tfp.footprint_cost_at_pose(
-        tc, interop.footprint_from_numpy(jax.tree.map(np.asarray, fps)),
+        tc, interop.footprint_from_numpy(jax.tree.map(np.asarray, fps),
+                                         device="cpu"),
         T(poses), 8, "gather")
     np.testing.assert_array_equal(got.numpy(), N(want))
 
@@ -242,7 +244,7 @@ def _golden_batch(B=8, jitter=0.45, lethal=0.85):
     sb = make_scenario_batch(cfg, B, seed=2026, map_size=48, plan_points=32,
                              lethal_threshold=lethal, pose_jitter=jitter)
     return cfg, sb, interop.scenario_batch_from_numpy(
-        jax.tree.map(np.asarray, sb))
+        jax.tree.map(np.asarray, sb), device="cpu")
 
 
 @pytest.mark.parametrize("slow_down", [False, True])

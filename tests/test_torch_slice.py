@@ -50,7 +50,8 @@ def _tcfg(jc):
 
 
 def _from_jax(sb):
-    return interop.scenario_batch_from_numpy(jax.tree.map(np.asarray, sb))
+    return interop.scenario_batch_from_numpy(jax.tree.map(np.asarray, sb),
+                                             device="cpu")
 
 
 @pytest.mark.parametrize("opts", [
@@ -62,7 +63,7 @@ def test_scenario_batch_matches_jax(opts):
     cfg = record_golden.suite_cfg()
     want = jmake(cfg, 16, seed=7, map_size=40, plan_points=32, **opts)
     got = make_scenario_batch(_tcfg(cfg), 16, seed=7, map_size=40,
-                              plan_points=32, **opts)
+                              plan_points=32, device="cpu", **opts)
     N = np.asarray
     for name in ("px", "py", "pyaw", "n_valid"):
         np.testing.assert_array_equal(getattr(got.plan, name).numpy(),
@@ -178,7 +179,7 @@ def test_product_slice_matches_jax_batch_simulate():
     assert float(speed.max()) <= cfg.max_vel_trans + 1e-5
     # MpcEngine in product mode: its first batched step is the run's first.
     tb = _from_jax(sb)
-    eng = tp.MpcEngine(_tcfg(cfg), parity=False)
+    eng = tp.MpcEngine(_tcfg(cfg), parity=False, device="cpu")
     out = eng.batch_step(eng.init_batch_state(16), tb.plan, tb.robot_pose,
                          tb.current_vel, tb.costmap, tb.footprint,
                          tb.delta_t)
@@ -200,7 +201,7 @@ def test_mpc_engine_matches_jax():
     sb = jmake(cfg, 2, seed=2026, map_size=48, plan_points=32)
     one = jax.tree.map(lambda x: x[0], sb)
     tone = _from_jax(one)
-    jeng, teng = mpc.MpcEngine(cfg), tp.MpcEngine(_tcfg(cfg))
+    jeng, teng = mpc.MpcEngine(cfg), tp.MpcEngine(_tcfg(cfg), device="cpu")
     jst, tst = jeng.init_state(), teng.init_state()
     jvel, tvel = one.current_vel, tone.current_vel
     first = None
@@ -224,7 +225,7 @@ def test_mpc_engine_matches_jax():
 
 def test_unported_regimes_raise():
     cfg = tp.fleet_config().replace(max_plan_points=16)
-    sb = make_scenario_batch(cfg, 2, map_size=32, plan_points=8)
+    sb = make_scenario_batch(cfg, 2, map_size=32, plan_points=8, device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         batch_simulate(cfg, sb, 1, window_cells=8)
     with pytest.raises(NotImplementedError, match="ROADMAP"):

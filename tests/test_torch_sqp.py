@@ -81,9 +81,9 @@ def _problem(ls, max_iters, qp_iters, B=8):
         current_pose=T(sb.robot_pose), carrot_pose=T(carrot),
         goal_pose=T(goal), current_vel=T(sb.current_vel),
         footprint=interop.footprint_from_numpy(
-            jax.tree.map(np.asarray, sb.footprint)),
+            jax.tree.map(np.asarray, sb.footprint), device="cpu"),
         costmap=interop.costmap_from_numpy(
-            jax.tree.map(np.asarray, sb.costmap)),
+            jax.tree.map(np.asarray, sb.costmap), device="cpu"),
         switch_opt=torch.zeros(B, dtype=torch.bool))
     x0 = np.random.default_rng(0).uniform(-0.3, 0.3, (B, 9)).astype(
         np.float32)
