@@ -3,12 +3,15 @@
     python3 chip_smoke.py
 
 Builds the CUDA kernels from `neo_mpc_planner2_tpu_torch/csrc/`, checks each
-against its plain PyTorch version on the card, and drives both slices of the
-port through `batch_simulate` (4096 lanes, 64x64 maps, control_steps=3,
-20 ticks each): the fleet closed loop (parity objective) and the product
-closed loop (smooth objective, candidate-wave line search, patch sampler).
-For each slice it compares one controller step on the card with the same
-step on the CPU, and counts the CUDA launches of a tick with torch.profiler.
+against its plain PyTorch version on the card, and drives the three slices
+of the port through `batch_simulate` (4096 lanes, 64x64 maps,
+control_steps=3, 20 ticks each): the fleet closed loop (parity objective),
+the product closed loop (smooth objective, candidate-wave line search,
+patch sampler) and the prox closed loop (the product point with the
+prox-FISTA solver, bench.py's prox row). For each slice it compares one
+controller step on the card with the same step on the CPU, and reads the
+CUDA launches, the device's busy time and its idle share of a tick with
+torch.profiler.
 K3 is also held to its plain version, and timed, on the arguments of its
 own calls in the product slice (a gate at R = 1, a gradient call at R = 3
 and a wave at R = 21), captured during the slice's warm-up run. Every phase
@@ -60,6 +63,14 @@ TIMING = ("*_ms: the kernel's device time (torch.profiler, median of 3 x "
           "PyTorch call's kernels, mean of 20")
 
 SLICE_TICKS = 20
+# Each slice's warm-up run (the product slice's K3 calls are captured
+# there) and, per slice, the ticks that the launch count profiles, as
+# (first tick, ticks): the prox slice makes ~10^5 launches a tick, and the
+# profiler's records of 20 such ticks take longer to read than the whole
+# smoke may, so it profiles 2 ticks from the middle of a run.
+WARM_TICKS = 2
+LAUNCH_TICKS = {"fleet": (0, SLICE_TICKS), "product": (0, SLICE_TICKS),
+                "prox": (SLICE_TICKS // 2, 2)}
 
 
 def _nvidia_smi() -> str:
@@ -72,18 +83,22 @@ def _nvidia_smi() -> str:
 
 def _ptxas_report(log: str) -> dict:
     """Registers, stack and spill bytes per kernel instance from nvcc's
-    `-Xptxas -v` output, keyed like "qp_admm_m15" or "footprint_cost_S16"."""
+    `-Xptxas -v` output, keyed like "qp_admm_m15", "spd_inv_m9_w4" or
+    "footprint_cost_S16"."""
     import re
 
     report, name = {}, None
     for line in log.splitlines():
         hit = re.search(r"Compiling entry function '\w*?"
-                        r"(qp_admm|spd_inv|footprint_cost)_kernelILi(\d+)E",
-                        line)
+                        r"(qp_admm|spd_inv|footprint_cost)_kernelILi(\d+)E"
+                        r"(?:Li(\d+)E)?", line)
         if hit:
-            # K1/K2 instances are keyed by m, K3's by S (S0: any other S).
+            # K1 instances are keyed by m, K2's by m and warps a block, K3's
+            # by S (S0: any other S).
             key = "S" if hit.group(1) == "footprint_cost" else "m"
             name = f"{hit.group(1)}_{key}{hit.group(2)}"
+            if hit.group(3):
+                name += f"_w{hit.group(3)}"
             report[name] = {}
         elif name and "spill stores" in line:
             nums = [int(v) for v in re.findall(r"(\d+) bytes", line)]
@@ -114,13 +129,41 @@ def _time_ms(fn, reps: int = 20) -> float:
     return statistics.median(times)
 
 
+def l2_copies(device, nbytes: int) -> int:
+    """How many copies of a call's operands (nbytes read and written in
+    all) its timed calls rotate over so that each call finds none of them
+    in the card's L2: together at least twice the L2, and at least 3."""
+    import torch
+
+    l2 = torch.cuda.get_device_properties(device).L2_cache_size
+    return max(3, -(-2 * l2 // nbytes))
+
+
+def rotating(fn, inputs: list):
+    """A call of fn on the next of `inputs` each time, which keeps each
+    output until its input comes round again: the caching allocator then
+    rotates the outputs over len(inputs) + 1 blocks, and a call reads and
+    writes memory that the last len(inputs) - 1 calls did not touch."""
+    outs = [None] * len(inputs)
+    turn = [0]
+
+    def call():
+        k = turn[0] % len(inputs)
+        turn[0] += 1
+        outs[k] = fn(inputs[k])
+        return outs[k]
+
+    return call
+
+
 def _device_ms(fn, kernel: str, reps: int = 20, traces: int = 3) -> float:
     """Median device time of the `kernel` launches in `traces` profiles of
     `reps` calls of fn() each, after one warm-up, from torch.profiler's
     CUDA trace: the kernel alone on the card, without the host's enqueue
     (which a single short launch between two CUDA events also times). The
     profiler may drop a record of a short trace, so the records of all
-    traces are pooled; at least a third of the launches must be seen."""
+    traces are pooled, and up to `traces` more are taken while fewer than
+    a third of the first `traces` profiles' launches were seen."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -128,7 +171,9 @@ def _device_ms(fn, kernel: str, reps: int = 20, traces: int = 3) -> float:
     fn()
     torch.cuda.synchronize()
     times = []
-    for _ in range(traces):
+    for i in range(2 * traces):
+        if i >= traces and 3 * len(times) >= reps * traces:
+            break
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             for _ in range(reps):
@@ -172,9 +217,10 @@ LAUNCH_EVENTS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
                  "cuLaunchKernelEx")
 
 
-def count_launches(fn) -> dict:
-    """The CUDA launches (host API calls) and the kernels that ran on the
-    card during one call of fn(), from torch.profiler."""
+def profile_run(fn) -> dict:
+    """One call of fn() under torch.profiler: the CUDA launches (host API
+    calls), the kernels that ran on the card, the device time of all of
+    them summed (ms) and that of each hand-written kernel of KERNELS."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -185,8 +231,29 @@ def count_launches(fn) -> dict:
         fn()
         torch.cuda.synchronize()
     events = prof.events()
+    dev = [(e.name, e.time_range.elapsed_us() / 1e3) for e in events
+           if e.device_type == DeviceType.CUDA]
     return {"launches": sum(e.name in LAUNCH_EVENTS for e in events),
-            "kernels": sum(e.device_type == DeviceType.CUDA for e in events)}
+            "kernels": len(dev),
+            "device_ms": sum(ms for _, ms in dev),
+            "kernel_ms": {k["name"]: sum(ms for n, ms in dev
+                                         if f"{k['name']}_kernel" in n)
+                          for k in KERNELS}}
+
+
+def count_launches(fn, traces: int = 3) -> dict:
+    """The CUDA launches (host API calls) and the kernels that ran on the
+    card during one call of fn(), from torch.profiler. The profiler may
+    drop the device record of a short trace, so the call is traced
+    `traces` times: the kernels are the most that one trace saw, and every
+    trace must see the same launches."""
+    runs = [profile_run(fn) for _ in range(traces)]
+    launches = {run["launches"] for run in runs}
+    if len(launches) != 1:
+        raise AssertionError(f"the same call made {sorted(launches)} "
+                             "launches in its traces")
+    return {"launches": launches.pop(),
+            "kernels": max(run["kernels"] for run in runs)}
 
 
 def _excess(got, want, rtol, atol) -> float:
@@ -219,10 +286,10 @@ def _qp_inputs(rng, B, m, device):
 
 
 def phase_kernels(device):
-    """K1 and K2 against their plain versions at every shape, within rtol
-    2e-4 / atol 2e-5; timed at B = 4096. K1 is also timed without ADMM
-    iterations (the inverse and the operands' traffic alone), and one
-    qp_admm call must be one CUDA launch."""
+    """K1 against its plain version at every shape, within rtol 2e-4 /
+    atol 2e-5; timed at B = 4096. K1 is also timed without ADMM iterations
+    (the inverse and the operands' traffic alone), and one qp_admm call must
+    be one CUDA launch."""
     import numpy as np
     import torch
 
@@ -273,46 +340,91 @@ def phase_kernels(device):
     report["qp_admm_max_abs_err"] = worst
     print(json.dumps({"phase": "K1 qp_admm vs plain", "rtol": rtol,
                       "atol": atol, "timing": TIMING, **report}), flush=True)
+    return report
 
+
+K2_SIZES = (1, 131, 4096, 65536)
+K2_TIMED = (4096, 65536)
+
+
+def phase_k2(device):
+    """K2 against its plain version at m in {6, 9, 15} and every size of
+    K2_SIZES, and on tests/test_solver.py's ill-conditioned diagonal, within
+    rtol 2e-4 / atol 2e-5, with the residual |MX - I|; timed at B = 4096
+    and 65536, each timed call on the next of copies of M that together
+    exceed twice the L2: the kernel, the whole call, the plain version, the
+    library call, the bound. One chol_inverse call must be one CUDA
+    launch."""
+    import numpy as np
+    import torch
+
+    from neo_mpc_planner2_tpu_torch import sqp
+    from neo_mpc_planner2_tpu_torch.kernels import binding, bounds
+
+    rng = np.random.default_rng(0)
+    rtol, atol = 2e-4, 2e-5
     inv = {}
     worst_inv, worst_res = 0.0, 0.0
+    ill = torch.diag(torch.tensor([1e4, 1e3, 1e2, 10, 1, 1, 0.1, 0.01, 1e-3],
+                                  device=device))[None]
+    cases = [(9, ill)]
     for m in (6, 9, 15):
-        for B in (1, 131, 4096):
+        for B in K2_SIZES:
             A = rng.normal(size=(B, m, m)).astype(np.float32) * 0.3
-            M = torch.as_tensor(A @ np.swapaxes(A, -1, -2)
-                                + np.eye(m, dtype=np.float32), device=device)
-            got = sqp.chol_inverse(M)
-            want = sqp.chol_inverse_plain(M)
-            torch.cuda.synchronize()
-            ex = _excess(got, want, rtol, atol)
-            if ex > 0 or not bool(torch.isfinite(got).all()):
-                raise AssertionError(f"K2 m={m} B={B}: off its plain "
-                                     f"version by {ex:.3g} past rtol/atol")
-            res = float((M @ got - torch.eye(m, device=device)).abs().max())
-            if res > 1e-3:
-                raise AssertionError(f"K2 m={m} B={B}: |MX - I| = {res:.3g}")
-            worst_inv = max(worst_inv, float((got - want).abs().max()))
-            worst_res = max(worst_res, res)
-            if B == 4096:
-                inv[f"spd_inv_m{m}_ms"] = _device_ms(
-                    lambda: sqp.chol_inverse(M), "spd_inv_kernel")
-                inv[f"spd_inv_wrapper_m{m}_ms"] = _time_ms(
-                    lambda: sqp.chol_inverse(M))
-                inv[f"spd_inv_plain_m{m}_ms"] = _time_ms(
-                    lambda: sqp.chol_inverse_plain(M))
-                # The one PyTorch call for the same function (the port
-                # never calls it).
-                inv[f"spd_inv_library_m{m}_ms"] = _device_total_ms(
-                    lambda: torch.linalg.inv(M))
-                work = bounds.spd_inv_work(B, m)
-                inv[f"spd_inv_m{m}_bound_ms"] = work["bound_ms"]
-                inv[f"spd_inv_m{m}_bound_by"] = work["bound_by"]
+            cases.append((m, torch.as_tensor(
+                A @ np.swapaxes(A, -1, -2) + np.eye(m, dtype=np.float32),
+                device=device)))
+    for m, M in cases:
+        B = M.shape[0]
+        got = sqp.chol_inverse(M)
+        want = sqp.chol_inverse_plain(M)
+        torch.cuda.synchronize()
+        ex = _excess(got, want, rtol, atol)
+        if ex > 0 or not bool(torch.isfinite(got).all()):
+            raise AssertionError(f"K2 m={m} B={B}: off its plain version by "
+                                 f"{ex:.3g} past rtol/atol")
+        res = float((M @ got - torch.eye(m, device=device)).abs().max())
+        if res > 1e-3:
+            raise AssertionError(f"K2 m={m} B={B}: |MX - I| = {res:.3g}")
+        worst_inv = max(worst_inv, float((got - want).abs().max()))
+        worst_res = max(worst_res, res)
+        if B not in K2_TIMED:
+            continue
+        tag = f"m{m}" if B == 4096 else f"m{m}_B{B}"
+        # Every timed call reads and writes memory that is not in L2 (at
+        # B = 65536, m = 9 one call's 42 MB would fit the H100's 50 MB).
+        ring = [M] + [M.clone() for _ in
+                      range(l2_copies(device, 2 * M.numel() * 4) - 1)]
+        call = rotating(sqp.chol_inverse, ring)
+        inv[f"spd_inv_{tag}_copies"] = len(ring)
+        inv[f"spd_inv_{tag}_warps"] = binding.k2_launch_shape(B, device)
+        inv[f"spd_inv_{tag}_ms"] = _device_ms(call, "spd_inv_kernel")
+        inv[f"spd_inv_wrapper_{tag}_ms"] = _time_ms(call)
+        inv[f"spd_inv_plain_{tag}_ms"] = _time_ms(
+            rotating(sqp.chol_inverse_plain, ring))
+        # The one PyTorch call for the same function (the port never calls
+        # it).
+        inv[f"spd_inv_library_{tag}_ms"] = _device_total_ms(
+            rotating(torch.linalg.inv, ring))
+        work = bounds.spd_inv_work(B, m)
+        inv[f"spd_inv_{tag}_bound_ms"] = work["bound_ms"]
+        inv[f"spd_inv_{tag}_bound_by"] = work["bound_by"]
+        inv[f"spd_inv_{tag}_share_of_bound"] = (work["bound_ms"]
+                                                / inv[f"spd_inv_{tag}_ms"])
+        if m == 9:
+            n = count_launches(call)
+            inv[f"spd_inv_{tag}_launches_per_call"] = n
+            if n != {"launches": 1, "kernels": 1}:
+                raise AssertionError(f"one chol_inverse call made {n}, "
+                                     "expected one launch")
+        del ring, call
     inv["spd_inv_max_abs_err"] = worst_inv
     inv["spd_inv_max_residual"] = worst_res
     print(json.dumps({"phase": "K2 spd_inv vs plain", "rtol": rtol,
-                      "atol": atol, "launches": sqp.chol_inverse.launches,
+                      "atol": atol, "sizes": K2_SIZES,
+                      "launches": sqp.chol_inverse.launches,
                       "timing": TIMING, **inv}), flush=True)
-    return report, inv
+    return inv
 
 
 def _k3_inputs(rng, B: int, R: int, device):
@@ -547,12 +659,28 @@ def _reset_launch_counts():
     footprint.footprint_cost_batch.launches = 0
 
 
-def phase_slice(device, smi: str, name: str, cfg, parity: bool,
-                batch: int = 4096, ticks: int = SLICE_TICKS,
+def prox_solver(cfg):
+    """The prox slice's solver: prox-FISTA on the smooth objective."""
+    import neo_mpc_planner2_tpu_torch as tp
+
+    return tp.make_solver_batched(cfg, tp.make_objective(cfg, parity=False))
+
+
+# Each slice: (config, parity, its solver or None for the SQP, the kernels
+# its closed loop must launch).
+SLICES = {
+    "fleet": (fleet_cfg, True, None, ("qp_admm", "footprint_cost")),
+    "product": (product_cfg, False, None, ("qp_admm", "footprint_cost")),
+    "prox": (product_cfg, False, prox_solver, ("footprint_cost",)),
+}
+
+
+def phase_slice(device, smi: str, name: str, batch: int = 4096,
+                ticks: int = SLICE_TICKS,
                 recorder: "K3Recorder | None" = None):
-    """One slice's closed loop: a warm-up run (K3's calls recorded there
-    when a recorder is given), then a timed run with the launch counts set
-    to 0 just before it and read just after."""
+    """One slice's closed loop: a warm-up run of WARM_TICKS (K3's calls
+    recorded there when a recorder is given), then a timed run with the
+    launch counts set to 0 just before it and read just after."""
     import contextlib
 
     import torch
@@ -560,14 +688,18 @@ def phase_slice(device, smi: str, name: str, cfg, parity: bool,
     from neo_mpc_planner2_tpu_torch.scenarios import make_scenario_batch
     from neo_mpc_planner2_tpu_torch.simulation import batch_simulate
 
+    make_cfg, parity, make_solver, required = SLICES[name]
+    cfg = make_cfg()
+    run = dict(parity=parity, solver_batch=None if make_solver is None
+               else make_solver(cfg))
     sb = make_scenario_batch(cfg, batch, seed=0, map_size=64,
                              plan_points=64, device=device)
     with recorder if recorder is not None else contextlib.nullcontext():
-        batch_simulate(cfg, sb, ticks, parity=parity)      # warm-up
+        batch_simulate(cfg, sb, WARM_TICKS, **run)         # warm-up
     torch.cuda.synchronize()
     _reset_launch_counts()
     t0 = time.perf_counter()
-    res = batch_simulate(cfg, sb, ticks, parity=parity)
+    res = batch_simulate(cfg, sb, ticks, **run)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = _launch_counts()
@@ -579,10 +711,10 @@ def phase_slice(device, smi: str, name: str, cfg, parity: bool,
     if float(speed.max()) > cfg.max_vel_trans + 1e-5:
         raise AssertionError(f"{name}: |cmd_xy| {float(speed.max())} above "
                              f"max_vel_trans {cfg.max_vel_trans}")
-    for kernel in ("qp_admm", "footprint_cost"):
+    for kernel in required:
         if launches[kernel] <= 0:
             raise AssertionError(f"{name}: {kernel} was never launched")
-    out = {"phase": name, "batch": batch, "ticks": ticks,
+    out = {"phase": f"{name} slice", "batch": batch, "ticks": ticks,
            "map": 64, "control_steps": cfg.control_steps,
            "wall_s": wall, "solves_per_s": batch * ticks / wall,
            "launches": launches,
@@ -590,35 +722,53 @@ def phase_slice(device, smi: str, name: str, cfg, parity: bool,
                                       .float().mean()),
            "final_dist_p50": float(res.goal_dist[:, -1].median()),
            "converged_frac": float(res.converged.float().mean()),
-           "mean_sqp_iters": float(res.solver_iters.float().mean()),
+           "mean_solver_iters": float(res.solver_iters.float().mean()),
            "card": smi}
     print(json.dumps(out), flush=True)
     return out
 
 
-def phase_launches_per_tick(device, batch: int = 4096,
-                            ticks: int = SLICE_TICKS) -> dict:
-    """Each slice's run again under torch.profiler: the CUDA launches (host
-    API calls) and device kernels of a tick. Last, because after a trace
-    this long the profiler may drop records of a short one."""
+def phase_launches_per_tick(device, slices: dict, batch: int = 4096) -> dict:
+    """Each slice's run again under torch.profiler, over the ticks
+    LAUNCH_TICKS[slice] = (first, n): `first` ticks unprofiled, then n
+    ticks on from where they stopped. Per tick: the CUDA launches (host API
+    calls), the device kernels, the device's busy time and each
+    hand-written kernel's device time; and the device's idle share, one
+    less the busy time over a tick's wall time in the slice's timed run
+    (slices: name -> that slice phase's output). Last, because after a
+    trace this long the profiler may drop records of a short one."""
     from neo_mpc_planner2_tpu_torch.scenarios import make_scenario_batch
     from neo_mpc_planner2_tpu_torch.simulation import batch_simulate
 
-    out = {"phase": "CUDA launches a tick", "batch": batch, "ticks": ticks}
-    for name, cfg, parity in (("fleet", fleet_cfg(), True),
-                              ("product", product_cfg(), False)):
+    out = {"phase": "CUDA launches a tick", "batch": batch,
+           "ticks": LAUNCH_TICKS}
+    for name, (make_cfg, parity, make_solver, _) in SLICES.items():
+        first, ticks = LAUNCH_TICKS[name]
+        cfg = make_cfg()
+        run = dict(parity=parity, solver_batch=None if make_solver is None
+                   else make_solver(cfg))
         sb = make_scenario_batch(cfg, batch, seed=0, map_size=64,
                                  plan_points=64, device=device)
-        n = count_launches(lambda: batch_simulate(cfg, sb, ticks,
-                                                  parity=parity))
-        out[name] = {"cuda_launches_per_tick": n["launches"] / ticks,
-                     "device_kernels_per_tick": n["kernels"] / ticks}
+        init = None
+        if first:
+            head = batch_simulate(cfg, sb, first, **run)
+            init = (head.final_state, head.poses[:, -1], head.cmds[:, -1])
+        p = profile_run(lambda: batch_simulate(cfg, sb, ticks, init=init,
+                                               **run))
+        busy = p["device_ms"] / ticks
+        wall = 1e3 * slices[name]["wall_s"] / slices[name]["ticks"]
+        out[name] = {"cuda_launches_per_tick": p["launches"] / ticks,
+                     "device_kernels_per_tick": p["kernels"] / ticks,
+                     "device_busy_ms_per_tick": busy,
+                     "kernel_ms_per_tick": {k: v / ticks for k, v in
+                                            p["kernel_ms"].items()},
+                     "timed_run_wall_ms_per_tick": wall,
+                     "device_idle_share": 1.0 - busy / wall}
     print(json.dumps(out), flush=True)
     return out
 
 
-def phase_card_vs_cpu(device, name: str, cfg, parity: bool,
-                      lanes: int = 256):
+def phase_card_vs_cpu(device, name: str, lanes: int = 256):
     """One controller step on the card against the same step on the CPU
     (plain versions): at least 99 % of lanes within 1e-3 (a 1-ulp tie in f
     may move a lane's termination by one iteration)."""
@@ -626,16 +776,20 @@ def phase_card_vs_cpu(device, name: str, cfg, parity: bool,
     from neo_mpc_planner2_tpu_torch.scenarios import make_scenario_batch
     from neo_mpc_planner2_tpu_torch.tree import tree_map
 
+    make_cfg, parity, make_solver, _ = SLICES[name]
+    cfg = make_cfg()
     sb = make_scenario_batch(cfg, lanes, seed=1, map_size=64, plan_points=64,
                              device=device)
-    step = make_batched_controller_step(cfg, parity=parity)
+    step = make_batched_controller_step(
+        cfg, parity=parity,
+        solver_batch=None if make_solver is None else make_solver(cfg))
     args = (sb.state, sb.plan, sb.robot_pose, sb.current_vel, sb.costmap,
             sb.footprint, sb.delta_t)
     gpu = step(*args).cmd_vel.cpu()
     cpu = step(*tree_map(lambda t: t.cpu(), args)).cmd_vel
     diff = (gpu - cpu).abs().amax(-1)
     frac = float((diff <= 1e-3).float().mean())
-    out = {"phase": f"{name}: card vs cpu, one step", "lanes": lanes,
+    out = {"phase": f"{name} slice: card vs cpu, one step", "lanes": lanes,
            "max_cmd_diff": float(diff.max()), "frac_within_1e-3": frac}
     print(json.dumps(out), flush=True)
     if frac < 0.99:
@@ -644,22 +798,21 @@ def phase_card_vs_cpu(device, name: str, cfg, parity: bool,
     return out
 
 
-def kernels_line(fleet: dict, product: dict, measured: dict) -> list:
+def kernels_line(slices: dict, measured: dict) -> list:
     """The `kernels` line's entries, one per KERNELS entry, with the keys
-    of KERNEL_KEYS. fleet/product: the slice phases' outputs; measured:
+    of KERNEL_KEYS. slices: name -> that slice phase's output; measured:
     name -> {max_abs_err, ms, plain_ms, bound_ms, bound_by, library_ms}."""
     entries = []
     for k in KERNELS:
         got = measured[k["name"]]
-        fl = fleet["launches"][k["name"]]
-        pr = product["launches"][k["name"]]
+        runs = {s: out["launches"][k["name"]] for s, out in slices.items()}
         entries.append({
             "name": k["name"], "route": k["route"], "source": k["source"],
             "replaces": k["replaces"],
-            # Launches on the two slices' timed runs (fleet + product).
-            "launches": fl + pr,
-            "launches_per_tick": {"fleet": fl / fleet["ticks"],
-                                  "product": pr / product["ticks"]},
+            # Launches on the slices' timed runs, all together.
+            "launches": sum(runs.values()),
+            "launches_per_tick": {s: n / slices[s]["ticks"]
+                                  for s, n in runs.items()},
             "max_abs_err": got["max_abs_err"], "ms": got["ms"],
             "plain_ms": got["plain_ms"], "bound_ms": got["bound_ms"],
             "bound_by": got["bound_by"],
@@ -676,9 +829,9 @@ def main() -> int:
               file=sys.stderr)
         return 2
     device = torch.device("cuda:0")
-    name = torch.cuda.get_device_name(0)
+    kind = torch.cuda.get_device_name(0)
     smi = _nvidia_smi()
-    print(json.dumps({"phase": "device", "name": name, "nvidia_smi": smi,
+    print(json.dumps({"phase": "device", "name": kind, "nvidia_smi": smi,
                       "torch": torch.__version__, "cuda": torch.version.cuda}),
           flush=True)
 
@@ -690,17 +843,19 @@ def main() -> int:
                       "ptxas": _ptxas_report(build.last_build["log"])}),
           flush=True)
 
-    k1, k2 = phase_kernels(device)
+    k1 = phase_kernels(device)
+    k2 = phase_k2(device)
     k3 = phase_k3(device)
-    fleet = phase_slice(device, smi, "fleet slice", fleet_cfg(), parity=True)
-    phase_card_vs_cpu(device, "fleet slice", fleet_cfg(), parity=True)
+    slices = {}
     recorder = K3Recorder()
-    product = phase_slice(device, smi, "product slice", product_cfg(),
-                          parity=False, recorder=recorder)
-    phase_card_vs_cpu(device, "product slice", product_cfg(), parity=False)
-    captured = phase_k3_captured(recorder, SLICE_TICKS)
+    for name in SLICES:
+        slices[name] = phase_slice(
+            device, smi, name,
+            recorder=recorder if name == "product" else None)
+        phase_card_vs_cpu(device, name)
+    captured = phase_k3_captured(recorder, WARM_TICKS)
     wave = next(v for k, v in captured.items() if k.startswith("wave"))
-    phase_launches_per_tick(device)
+    phase_launches_per_tick(device, slices)
 
     measured = {
         "qp_admm": dict(max_abs_err=k1["qp_admm_max_abs_err"],
@@ -720,11 +875,11 @@ def main() -> int:
                                bound_ms=wave["bound_ms"],
                                bound_by=wave["bound_by"], library_ms=None),
     }
-    print(json.dumps({"kernels": kernels_line(fleet, product, measured)}),
+    print(json.dumps({"kernels": kernels_line(slices, measured)}),
           flush=True)
     print(_nvidia_smi(), flush=True)
     print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": name,
+        "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}), flush=True)
     return 0
 

@@ -7,8 +7,10 @@ This package imports no JAX. It runs the closed loop
 `engine.make_batched_controller_step` and the batched SQP solver) in both
 modes: the parity objective (`fleet_config`) and the smooth product
 objective with the candidate-wave line search (`product_config`,
-parity=False). On the card the QP runs in the CUDA kernel
-`csrc/qp_admm.cu` and every footprint cost in `csrc/footprint_cost.cu`.
+parity=False), and with the prox-FISTA solver of `solver.py` in its place
+(`make_solver_batched`, passed as `solver_batch`). On the card the QP runs
+in the CUDA kernel `csrc/qp_admm.cu`, every footprint cost in
+`csrc/footprint_cost.cu`, and `sqp.chol_inverse` in `csrc/spd_inv.cu`.
 """
 
 import torch as _torch
@@ -29,7 +31,8 @@ from .ops.pursuit import Plan, PursuitResult, pursuit_tick
 from .ops.rollout import rollout
 from .scenarios import ScenarioBatch, make_scenario_batch
 from .simulation import SimResult, batch_simulate
-from .solver import SolveResult
+from .solver import (SolveResult, make_solver, make_solver_batched,
+                     project_feasible, prox_fista, prox_g)
 from .sqp import (chol_inverse, make_sqp_solver, make_sqp_solver_batched,
                   qp_admm, sqp_solve)
 
@@ -43,6 +46,7 @@ __all__ = [
     "objective_product",
     "Plan", "PursuitResult", "pursuit_tick", "rollout",
     "ScenarioBatch", "make_scenario_batch", "SimResult", "batch_simulate",
-    "SolveResult", "chol_inverse", "make_sqp_solver",
+    "SolveResult", "make_solver", "make_solver_batched", "project_feasible",
+    "prox_fista", "prox_g", "chol_inverse", "make_sqp_solver",
     "make_sqp_solver_batched", "qp_admm", "sqp_solve",
 ]

@@ -7,9 +7,10 @@
 // where J, the cone Jacobian, has two nonzeros per row (dx_k, dy_k at
 // columns 3k, 3k+1):
 //   1. M = B + (sigma + rho) I + rho J'J, built from dx/dy alone;
-//   2. M^-1 by the division-free Cholesky of spd_inverse.cuh (rsqrt
-//      diagonal), forward and back substitution, every inner product summed
-//      in sqp._tree_sum's pairwise order;
+//   2. M^-1 by this kernel's own team version of the division-free
+//      Cholesky (rsqrt diagonal), forward and back substitution, inner
+//      products summed by spd_inverse.cuh's tree_sum in sqp._tree_sum's
+//      pairwise order (the one exception is below);
 //   3. `iters` ADMM iterations: d = M^-1 rhs, box clip -> zb, cone max -> zc,
 //      dual updates (all of them: no early exit, as the TPU kernel);
 //   4. the box-clipped d, the warm-start carry (d, zb, zc, wb, wc) and the

@@ -1,5 +1,6 @@
-// Unrolled SPD inverse shared by the QP kernel (qp_admm.cu) and the batched
-// inverse kernel (spd_inv.cu).
+// Device functions of the SPD inverse (K2, spd_inv.cu) and the pairwise sum
+// both kernels share; K1 (qp_admm.cu) has its own team inverse and takes
+// only tree_sum and max_nan from here.
 //
 // Mirrors neo_mpc_planner2_tpu/sqp.py::_chol_inverse_unrolled: Cholesky with
 // the diagonal carried as its reciprocal square root (rsqrtf, so neither the
@@ -8,11 +9,8 @@
 // X = L^-T Y, mirrored to the upper. Every inner dot product is summed
 // pairwise in the order of the reference's _tree_sum.
 //
-// One thread owns one matrix; the arrays below live in registers when they
-// fit. Fully unrolled, every index is a compile-time constant, so ptxas can
-// keep only the live entries: at m = 15 the batched inverse needs 168
-// registers and the fused QP 255, the most a thread may have (CUDA 12.8,
-// no spill). A larger m would not fit and would spill.
+// Fully unrolled, every index is a compile-time constant, so ptxas keeps the
+// arrays in registers.
 #pragma once
 
 namespace neo_mpc {
@@ -41,11 +39,10 @@ __device__ __forceinline__ float max_nan(float s, float lo) {
 }
 
 // E: the lower triangle (i >= j) of the SPD matrix; it is overwritten with
-// the Cholesky factor L. X receives the full symmetric inverse.
+// the Cholesky factor L, and D[j] = 1 / L[j][j].
 template <int M>
-__device__ __forceinline__ void spd_inverse(float (&E)[M][M], float (&X)[M][M]) {
+__device__ __forceinline__ void cholesky(float (&E)[M][M], float (&D)[M]) {
   const float tiny = 1e-20f;
-  float D[M];  // 1 / L[j][j]
   float p[M];
 #pragma unroll
   for (int j = 0; j < M; ++j) {
@@ -71,36 +68,36 @@ __device__ __forceinline__ void spd_inverse(float (&E)[M][M], float (&X)[M][M]) 
       E[i][j] = si * D[j];
     }
   }
+}
 
-  // Forward: Y = L^-1, entries (i, c) with c <= i.
-  float Y[M][M];
+// Column C of the inverse from the factor L (lower triangle) and D: column
+// C of Y = L^-1 by forward substitution, then X[i][C] for i >= C by back
+// substitution. Columns are independent given L, so any set of them can be
+// computed apart with the same rounding. Returns X[i][C] in Xc[i], i >= C.
+template <int M, int C>
+__device__ __forceinline__ void inverse_column(const float (&L)[M][M],
+                                               const float (&D)[M],
+                                               float (&Xc)[M]) {
+  float p[M];
+  float Y[M];
+  Y[C] = D[C];
 #pragma unroll
-  for (int i = 0; i < M; ++i) {
-    Y[i][i] = D[i];
+  for (int i = C + 1; i < M; ++i) {
 #pragma unroll
-    for (int c = 0; c < i; ++c) {
+    for (int k = 0; k < M; ++k)
+      if (k >= C && k < i) p[k - C] = L[i][k] * Y[k];
+    Y[i] = -tree_sum(p, i - C) * D[i];
+  }
+#pragma unroll
+  for (int i = M - 1; i >= C; --i) {
+    float acc = Y[i];
+    if (i + 1 < M) {
 #pragma unroll
       for (int k = 0; k < M; ++k)
-        if (k >= c && k < i) p[k - c] = E[i][k] * Y[k][c];
-      Y[i][c] = -tree_sum(p, i - c) * D[i];
+        if (k > i) p[k - i - 1] = L[k][i] * Xc[k];
+      acc = acc - tree_sum(p, M - 1 - i);
     }
-  }
-
-  // Backward: X = L^-T Y, lower triangle, mirrored.
-#pragma unroll
-  for (int i = M - 1; i >= 0; --i) {
-#pragma unroll
-    for (int c = 0; c <= i; ++c) {
-      float acc = Y[i][c];
-      if (i + 1 < M) {
-#pragma unroll
-        for (int k = 0; k < M; ++k)
-          if (k > i) p[k - i - 1] = E[k][i] * X[k][c];
-        acc = acc - tree_sum(p, M - 1 - i);
-      }
-      X[i][c] = acc * D[i];
-      X[c][i] = X[i][c];
-    }
+    Xc[i] = acc * D[i];
   }
 }
 

@@ -1,10 +1,9 @@
 """Launch the CUDA kernels on contiguous CUDA tensors.
 
-K1 and K3 take their operands batch-major, as `sqp.qp_admm` and
-`footprint_cost_batch` document them; K2 takes its matrices lane-minor,
-(m*m, B). Each function allocates its outputs with torch.empty, launches on
-the current stream without synchronising, and raises if the launch reports
-an error. The argument order of each call is that of the C function named
+Every kernel takes its operands batch-major, as `sqp.qp_admm`,
+`sqp.chol_inverse` and `footprint_cost_batch` document them. Each function
+allocates its outputs with torch.empty, launches on the current stream
+without synchronising, and raises if the launch reports an error. The argument order of each call is that of the C function named
 in `build.SIGNATURES`.
 """
 
@@ -16,6 +15,7 @@ from .build import load_library
 
 __all__ = ["SUPPORTED_M", "QP_INPUTS", "QP_OUTPUTS", "qp_rows",
            "K3_MAX_SMEM", "k3_launch_shape", "k3_smem_bytes",
+           "K2_WIDTHS", "K2_WIDE_BLOCKS_PER_SM", "k2_launch_shape",
            "launch_qp_admm", "launch_spd_inv", "launch_footprint_cost"]
 
 SUPPORTED_M = (6, 9, 15)
@@ -82,14 +82,42 @@ def launch_qp_admm(ins, m: int, iters: int, rho: float, sigma: float):
     return outs
 
 
-def launch_spd_inv(A: torch.Tensor, m: int) -> torch.Tensor:
-    """A: lane-minor (m*m, B). Returns the inverses, lane-minor."""
+# K2's widths (warps a block of 32 matrices) that csrc/spd_inv.cu builds.
+K2_WIDTHS = (1, 4)
+# K2 takes four warps a block while its blocks are at most this many to an
+# SM, one above.
+K2_WIDE_BLOCKS_PER_SM = 2
+
+
+def _sms(device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def k2_launch_shape(B: int, device) -> int:
+    """K2's warps a block of 32 matrices on `device`: four (each warp
+    factoring and taking a quarter of the columns: shorter chains) while
+    the B / 32 blocks are at most K2_WIDE_BLOCKS_PER_SM to an SM, one
+    above (no repeated factoring where bytes bound). Measured on an H100
+    (scripts/torch_kernel_turns.py --k2-shapes; PERF.md): four warps were
+    fastest or within 4 % at B <= 8192, and one within 4 % of the fastest
+    width from B = 16384 on, where four ran up to 32 % slower (m = 15)."""
+    blocks = -(-B // 32)
+    return 4 if blocks <= K2_WIDE_BLOCKS_PER_SM * _sms(device) else 1
+
+
+def _launch_spd_inv_at(M: torch.Tensor, warps: int) -> torch.Tensor:
     lib = load_library()
-    X = torch.empty_like(A)
-    rc = lib.neo_spd_inv_f32(m, A.shape[1], A.data_ptr(), X.data_ptr(),
-                             _stream(A.device))
+    X = torch.empty_like(M)
+    rc = lib.neo_spd_inv_f32(M.shape[-1], M.shape[0], warps, M.data_ptr(),
+                             X.data_ptr(), _stream(M.device))
     _check(rc, "spd_inv")
     return X
+
+
+def launch_spd_inv(M: torch.Tensor) -> torch.Tensor:
+    """M: batch-major (B, m, m). Returns the inverses, (B, m, m), at
+    k2_launch_shape's width."""
+    return _launch_spd_inv_at(M, k2_launch_shape(M.shape[0], M.device))
 
 
 def launch_footprint_cost(data, origin, res, bounds, verts, n_valid, t,

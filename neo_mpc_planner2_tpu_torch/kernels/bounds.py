@@ -69,8 +69,9 @@ def qp_admm_work(B: int, m: int, iters: int) -> dict:
 
 
 def spd_inv_work(B: int, m: int) -> dict:
-    """K2 on B matrices: read each once, write each inverse once."""
-    return bound(B * inverse_ops(m), 2 * B * m * m * F32)
+    """K2 on B matrices: read each lower triangle once (the function reads
+    nothing else), write each whole inverse once."""
+    return bound(B * inverse_ops(m), B * (m * (m + 1) // 2 + m * m) * F32)
 
 
 # A sample: p = s + (e - s)t in x and y (4: the difference is staged), the

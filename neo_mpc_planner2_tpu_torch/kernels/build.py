@@ -37,8 +37,8 @@ _vp, _i, _f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 SIGNATURES = {
     # m, B, iters, rho, sigma, sigma + rho; 12 operands, 7 outputs; stream.
     "neo_qp_admm_f32": (_i, [_i, _i, _i, _f, _f, _f] + [_vp] * 20),
-    # m, B; A, X; stream.
-    "neo_spd_inv_f32": (_i, [_i, _i, _vp, _vp, _vp]),
+    # m, B, warps_per_block; A, X; stream.
+    "neo_spd_inv_f32": (_i, [_i] * 3 + [_vp] * 3),
     # Bm, R, H, W, V, S, lanes_per_block, warps_per_lane; 8 arrays; stream.
     "neo_footprint_cost_f32": (_i, [_i] * 8 + [_vp] * 9),
 }

@@ -16,7 +16,8 @@ candidates at once (the wave), which takes the same alpha.
 The QP goes through `qp_admm`, which launches the CUDA kernel K1 for CUDA
 tensors and runs `qp_admm_plain` for CPU tensors. `chol_inverse` does the
 same with K2 and `chol_inverse_plain`: it is the batched SPD inverse on its
-own, while K1 fuses the same device function into the QP.
+own. K1 computes the QP's inverse itself, with a team inverse of its own,
+so the solver never launches K2.
 """
 
 from __future__ import annotations
@@ -131,19 +132,23 @@ def _check_kernel_inputs(tensors, m: int, what: str) -> None:
 
 
 def chol_inverse(M: torch.Tensor) -> torch.Tensor:
-    """Batched SPD inverse of M (B, m, m): kernel K2 for a CUDA float32
-    tensor, the plain version for a CPU tensor; anything else raises."""
+    """Batched SPD inverse of M (B, m, m), read from its lower triangle:
+    kernel K2 for a CUDA float32 tensor (one launch, no copies), the plain
+    version for a CPU tensor; anything else raises."""
     if M.device.type == "cpu":
         return chol_inverse_plain(M)
     if M.device.type != "cuda":
         raise ValueError(f"chol_inverse: unsupported device {M.device}")
+    if M.dim() != 3 or M.shape[1] != M.shape[2]:
+        raise ValueError(f"chol_inverse: M has shape {tuple(M.shape)}, "
+                         "expected batch-major (B, m, m)")
     B, m = M.shape[0], M.shape[-1]
     _check_kernel_inputs([M], m, "chol_inverse")
     if B == 0:
         return torch.empty_like(M)
-    Xt = binding.launch_spd_inv(M.reshape(B, m * m).t().contiguous(), m)
+    X = binding.launch_spd_inv(M)
     chol_inverse.launches += 1
-    return Xt.t().reshape(B, m, m).contiguous()
+    return X
 
 
 chol_inverse.launches = 0

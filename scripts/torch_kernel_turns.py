@@ -1,30 +1,32 @@
-"""Old against new K1 and K3 on one GPU, in turns, and K3's launch shapes.
+"""Old against new K1 and K2 on one GPU, in turns, and the launch shapes of
+K2 and K3.
 
-    git show <commit>:neo_mpc_planner2_tpu_torch/csrc/qp_admm.cu \
-        > build/old_kernels/qp_admm.cu        # and spd_inverse.cuh,
-                                              # footprint_cost.cu
+    mkdir -p build/old_kernels
+    for f in qp_admm.cu spd_inv.cu spd_inverse.cuh; do
+        git show <commit>:neo_mpc_planner2_tpu_torch/csrc/$f \
+            > build/old_kernels/$f
+    done
     python3 scripts/torch_kernel_turns.py --old build/old_kernels
 
-Builds the earlier design's sources from `--old` (one thread a lane, K1's
-operands lane-minor behind 18 transposes; K3 one warp a polygon, 8 to a
-block) into their own library beside the port's, and binds them with the
-earlier C signatures. Captures the arguments of K3's calls in the product
-slice (4096 lanes, a 2-tick run), then, for each turn of `--turns`
-(default old,new,new,old) on the same card:
+Builds the earlier sources from `--old` into their own library beside the
+port's and binds them with their C signatures: K2 as one thread a matrix
+on lane-minor operands, behind its wrapper's two transposing copies; K1
+with the batch-major interface it has had since it became one launch a
+call. Then, for each turn of `--turns` (default old,new,new,old) on the
+same card:
 
-- K1's device time at m = 9 and m = 15, B = 4096, 60 iterations, and the
-  CUDA launches of one `sqp.qp_admm` call;
-- K3's device time on each captured call (gate R = 1, gradient R = 3, wave
-  R = 21), held exactly equal between the two designs;
-- both slices' solves/s (4096 lanes x 20 ticks after a warm-up) and their
-  CUDA launches a tick (torch.profiler).
+- K2 at B in {4096, 65536} and m in {6, 9, 15}: the kernel's device time
+  (torch.profiler), the whole `chol_inverse` call's time (CUDA events) and
+  the CUDA launches of one call, with the inverses held against the first
+  turn's;
+- K1 at B = 4096, m in {9, 15}, 60 iterations: its device time, with every
+  output held bit-identical to the first turn's.
 
-The old design is swapped in by replacing `sqp.qp_admm` and
-`binding.launch_footprint_cost`, which the port looks up at every call; the
-launch counters keep counting. `--shapes` times K3 on the captured calls at
-each (lanes_per_block, warps_per_lane) instead. Prints one JSON line per
-measurement and the card's name and power limit. Needs one CUDA device;
-imports no JAX.
+`--shapes` times K3 on the arguments of its calls in the product slice
+(4096 lanes, a 2-tick run) at each (lanes_per_block, warps_per_lane);
+`--k2-shapes` times K2 at each of its widths (warps a block), each held
+against the plain version first. Prints one JSON line per measurement and
+the card's name and power limit. Needs one CUDA device; imports no JAX.
 """
 
 from __future__ import annotations
@@ -34,28 +36,30 @@ import ctypes
 import json
 import pathlib
 import sys
-import time
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT))
 
 import chip_smoke as cs  # noqa: E402
 
+K2_SIZES = (4096, 65536)
+K2_M = (6, 9, 15)
+
 
 def load_old(old_dir: pathlib.Path):
-    """Build and load the earlier sources with their C signatures."""
+    """Build and load the earlier K1 and K2 sources."""
     from neo_mpc_planner2_tpu_torch.kernels import build
 
     path = build.build_library(
         csrc=old_dir, build_dir=ROOT / "build" / "old_kernels_lib",
-        sources=("qp_admm.cu", "footprint_cost.cu"),
-        headers=("spd_inverse.cuh",))
+        sources=("qp_admm.cu", "spd_inv.cu"), headers=("spd_inverse.cuh",))
     lib = ctypes.CDLL(str(path))
-    vp, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.neo_qp_admm_f32.argtypes = [i, i, i, f, f, f, vp, vp, vp]
-    lib.neo_qp_admm_f32.restype = i
-    lib.neo_footprint_cost_f32.argtypes = [i] * 6 + [vp] * 9
-    lib.neo_footprint_cost_f32.restype = i
+    vp, i = ctypes.c_void_p, ctypes.c_int
+    restype, argtypes = build.SIGNATURES["neo_qp_admm_f32"]
+    lib.neo_qp_admm_f32.restype, lib.neo_qp_admm_f32.argtypes = (restype,
+                                                                 argtypes)
+    lib.neo_spd_inv_f32.restype = i
+    lib.neo_spd_inv_f32.argtypes = [i, i, vp, vp, vp]
     print(json.dumps({"phase": "old build", "seconds":
                       build.last_build["seconds"],
                       "ptxas": cs._ptxas_report(build.last_build["log"])}),
@@ -64,70 +68,122 @@ def load_old(old_dir: pathlib.Path):
 
 
 def old_wrappers(lib):
-    """The earlier qp_admm wrapper (lane-minor operands: 12 transposes in,
-    6 out, and rho * wc) and K3 launcher, over the old library."""
+    """The earlier chol_inverse (lane-minor kernel: one copy in, one out),
+    its kernel alone on a lane-minor (m*m, B) operand, and qp_admm, over
+    the old library."""
     import torch
 
-    from neo_mpc_planner2_tpu_torch import sqp
+    from neo_mpc_planner2_tpu_torch.kernels import binding
 
-    ptrs = lambda ts: (ctypes.c_void_p * len(ts))(*(t.data_ptr() for t in ts))
     stream = lambda dev: torch.cuda.current_stream(dev).cuda_stream
 
-    def qp_admm(Bflat, g, x, c, dxy, lo, hi, d0, zb0, zc0, wb0, wc0, *,
-                iters, rho=1.0, sigma=1e-6):
-        args = (Bflat, g, x, c, dxy, lo, hi, d0, zb0, zc0, wb0, wc0)
-        B, m = x.shape
-        n = m // 3
-        ins = [a.t().contiguous() for a in args]
-        outs = [torch.empty((r, B), dtype=torch.float32, device=x.device)
-                for r in (m, m, m, n, m, n)]
+    def kernel(At):
+        mm, B = At.shape
+        Xt = torch.empty_like(At)
+        rc = lib.neo_spd_inv_f32(round(mm ** 0.5), B, At.data_ptr(),
+                                 Xt.data_ptr(), stream(At.device))
+        if rc:
+            raise RuntimeError(f"old spd_inv launch failed: cudaError {rc}")
+        return Xt
+
+    def chol_inverse(M):
+        B, m = M.shape[0], M.shape[-1]
+        Xt = kernel(M.reshape(B, m * m).t().contiguous())
+        return Xt.t().reshape(B, m, m).contiguous()
+
+    def lane_minor(M):
+        B, m = M.shape[0], M.shape[-1]
+        return M.reshape(B, m * m).t().contiguous()
+
+    def qp_admm(*args, iters, rho=1.0, sigma=1e-6):
+        B, m = args[2].shape
+        rows = binding.qp_rows(m)
+        outs = [torch.empty((B, rows[n]), dtype=torch.float32,
+                            device=args[0].device) for n in binding.QP_OUTPUTS]
         rc = lib.neo_qp_admm_f32(m, B, int(iters), float(rho), float(sigma),
-                                 float(sigma + rho), ptrs(ins), ptrs(outs),
-                                 stream(x.device))
+                                 float(sigma + rho),
+                                 *(t.data_ptr() for t in args),
+                                 *(t.data_ptr() for t in outs),
+                                 stream(args[0].device))
         if rc:
             raise RuntimeError(f"old qp_admm launch failed: cudaError {rc}")
-        sqp.qp_admm.launches += 1
-        d_out, d, zb, zc, wb, wc = (o.t().contiguous() for o in outs)
-        return d_out, rho * wc, d, zb, zc, wb, wc
+        d_out, d, zb, zc, wb, wc, y_cone = outs
+        return d_out, y_cone, d, zb, zc, wb, wc
 
-    qp_admm.launches = 0
-
-    def launch_footprint_cost(data, origin, res, bounds, verts, n_valid, t,
-                              shape=None):
-        Bm, H, W = data.shape
-        R, V = verts.shape[1], verts.shape[2]
-        out = torch.empty((Bm, R), dtype=torch.float32, device=data.device)
-        rc = lib.neo_footprint_cost_f32(
-            Bm, R, H, W, V, t.shape[0], data.data_ptr(), origin.data_ptr(),
-            res.data_ptr(), None if bounds is None else bounds.data_ptr(),
-            verts.data_ptr(), n_valid.data_ptr(), t.data_ptr(),
-            out.data_ptr(), stream(data.device))
-        if rc:
-            raise RuntimeError(f"old footprint_cost launch failed: {rc}")
-        return out
-
-    return qp_admm, launch_footprint_cost
+    return {"chol_inverse": chol_inverse, "qp_admm": qp_admm,
+            "kernel": kernel, "operand": lane_minor}
 
 
-class Design:
-    """Swaps the old K1 wrapper and K3 launcher in and out."""
+def spd_batch(rng, B: int, m: int, device):
+    import numpy as np
+    import torch
 
-    def __init__(self, old):
-        from neo_mpc_planner2_tpu_torch import sqp
-        from neo_mpc_planner2_tpu_torch.kernels import binding
-
-        self.sqp, self.binding = sqp, binding
-        self.new = (sqp.qp_admm, binding.launch_footprint_cost)
-        self.old = old
-
-    def use(self, which: str):
-        qp, k3 = self.new if which == "new" else self.old
-        self.sqp.qp_admm = qp
-        self.binding.launch_footprint_cost = k3
+    A = rng.normal(size=(B, m, m)).astype(np.float32) * 0.3
+    return torch.as_tensor(A @ np.swapaxes(A, -1, -2)
+                           + np.eye(m, dtype=np.float32), device=device)
 
 
-def capture(device, batch: int):
-    """K3's calls in the first two ticks of the product slice."""
+def spd_ring(M) -> list:
+    """M and copies of it, as many as chip_smoke.l2_copies asks for a call
+    that reads and writes M's bytes."""
+    n = cs.l2_copies(M.device, 2 * M.numel() * 4)
+    return [M] + [M.clone() for _ in range(n - 1)]
+
+
+def kernel_turn(which: str, fns: dict, device, ref: dict) -> dict:
+    """One turn. K2's timed calls rotate over copies of their operands that
+    together exceed twice the L2 (chip_smoke.rotating): every launch reads
+    its input from, and writes its output to, memory the card's L2 does not
+    hold. The earlier kernel is timed alone on its lane-minor operand, so
+    that it too reads what its wrapper's copy did not just write."""
+    import numpy as np
+    import torch
+
+    out = {"turn": which}
+    rng = np.random.default_rng(0)
+    for B in K2_SIZES:
+        for m in K2_M:
+            ring = spd_ring(spd_batch(rng, B, m, device))
+            call = cs.rotating(fns["chol_inverse"], ring)
+            got = fns["chol_inverse"](ring[0])
+            key = f"spd_inv_B{B}_m{m}"
+            if key in ref:
+                out[f"{key}_max_diff_vs_first_turn"] = float(
+                    (got - ref[key]).abs().max())
+            else:
+                ref[key] = got
+            kernel = call if "kernel" not in fns else cs.rotating(
+                fns["kernel"], [fns["operand"](M) for M in ring])
+            out[f"{key}_copies"] = len(ring)
+            out[f"{key}_ms"] = cs._device_ms(kernel, "spd_inv_kernel")
+            out[f"{key}_wrapper_ms"] = cs._time_ms(call)
+            out[f"{key}_launches_per_call"] = cs.count_launches(call)
+            del ring, call, kernel
+    for m in (9, 15):
+        args = cs._qp_inputs(rng, 4096, m, device)
+        call = lambda: fns["qp_admm"](*args, iters=60, rho=1.0, sigma=1e-6)
+        got = call()
+        key = f"qp_admm_m{m}"
+        if key in ref:
+            same = all(torch.equal(g, w) for g, w in zip(got, ref[key]))
+            if not same:
+                raise AssertionError(f"K1 m={m}: the {which} design's "
+                                     "outputs differ from the first turn's")
+            out[f"{key}_bit_identical_to_first_turn"] = same
+        else:
+            ref[key] = got
+        out[f"{key}_ms"] = cs._device_ms(call, "qp_admm_kernel")
+    print(json.dumps(out), flush=True)
+    return out
+
+
+def k3_shapes(device, batch: int):
+    """K3's device time on each captured product-slice call at each launch
+    shape."""
+    import torch
+
+    from neo_mpc_planner2_tpu_torch.kernels import binding
+    from neo_mpc_planner2_tpu_torch.ops import footprint as fpm
     from neo_mpc_planner2_tpu_torch.scenarios import make_scenario_batch
     from neo_mpc_planner2_tpu_torch.simulation import batch_simulate
 
@@ -136,97 +192,12 @@ def capture(device, batch: int):
                              device=device)
     with cs.K3Recorder() as rec:
         batch_simulate(cfg, sb, 2, parity=False)
-    return cs.captured_k3_cases(rec)
-
-
-def slice_run(device, cfg, parity: bool, batch: int, ticks: int) -> dict:
-    import torch
-
-    from neo_mpc_planner2_tpu_torch.scenarios import make_scenario_batch
-    from neo_mpc_planner2_tpu_torch.simulation import batch_simulate
-
-    sb = make_scenario_batch(cfg, batch, seed=0, map_size=64, plan_points=64,
-                             device=device)
-    batch_simulate(cfg, sb, ticks, parity=parity)           # warm-up
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    res = batch_simulate(cfg, sb, ticks, parity=parity)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    n = cs.count_launches(lambda: batch_simulate(cfg, sb, ticks,
-                                                 parity=parity))
-    return {"solves_per_s": batch * ticks / wall,
-            "cuda_launches_per_tick": n["launches"] / ticks,
-            "cmds": res.cmds}
-
-
-def kernel_turn(which: str, design: Design, device, cases: dict,
-                ref: dict) -> dict:
-    import numpy as np
-    import torch
-
-    from neo_mpc_planner2_tpu_torch.ops import footprint as fpm
-
-    design.use(which)
-    out = {"turn": which}
-    rng = np.random.default_rng(0)
-    for m in (9, 15):
-        args = cs._qp_inputs(rng, 4096, m, device)
-        call = lambda: design.sqp.qp_admm(*args, iters=60, rho=1.0,
-                                          sigma=1e-6)
-        got = call()
-        key = f"qp_m{m}"
-        if key in ref:
-            err = max(float((g - w).abs().max())
-                      for g, w in zip(got, ref[key]))
-            out[f"qp_admm_m{m}_max_diff_vs_first_turn"] = err
-        else:
-            ref[key] = got
-        out[f"qp_admm_m{m}_ms"] = cs._device_ms(call, "qp_admm_kernel")
-        out[f"qp_admm_m{m}_launches_per_call"] = cs.count_launches(call)
-    for label, args in cases.items():
-        got = fpm.footprint_cost_batch(*args)
-        if label in ref and not torch.equal(got, ref[label]):
-            raise AssertionError(f"K3 {label}: the designs differ")
-        ref.setdefault(label, got)
-        out[f"footprint_cost_{label}_ms"] = cs._device_ms(
-            lambda: fpm.footprint_cost_batch(*args), "footprint_cost_kernel")
-    print(json.dumps(out), flush=True)
-    return out
-
-
-def slice_turn(which: str, design: Design, device, batch: int, ticks: int,
-               ref: dict) -> dict:
-    design.use(which)
-    out = {"turn": which}
-    for name, cfg, parity in (("fleet", cs.fleet_cfg(), True),
-                              ("product", cs.product_cfg(), False)):
-        run = slice_run(device, cfg, parity, batch, ticks)
-        cmds = run.pop("cmds")
-        key = f"{name}_cmds"
-        if key in ref:
-            run["max_cmd_diff_vs_first_turn"] = float(
-                (cmds - ref[key]).abs().max())
-        else:
-            ref[key] = cmds
-        out.update({f"{name}_{k}": v for k, v in run.items()})
-    print(json.dumps(out), flush=True)
-    return out
-
-
-def shapes(cases: dict):
-    """K3's device time on each captured call at each launch shape."""
-    import torch
-
-    from neo_mpc_planner2_tpu_torch.kernels import binding
-    from neo_mpc_planner2_tpu_torch.ops import footprint as fpm
-
-    for label, args in cases.items():
+    for label, args in cs.captured_k3_cases(rec).items():
         R = args[4].shape[1]
         want = fpm.footprint_cost_batch_plain(*args)
         out = {"case": label, "default": list(binding.k3_launch_shape(R))}
         for lanes in (1, 2, 4, 8, 16):
-            for warps in sorted({1, 2, 3, 4, 7, 8}):
+            for warps in (1, 2, 3, 4, 7, 8):
                 if warps > R or lanes * warps > 32:
                     continue
                 f = lambda: binding.launch_footprint_cost(
@@ -240,52 +211,93 @@ def shapes(cases: dict):
         print(json.dumps(out), flush=True)
 
 
+def k2_shapes(device):
+    """K2's device time at each of binding.K2_WIDTHS warps a block, B in
+    {4096, ..., 65536}, m in K2_M, the launches rotating over copies that
+    together exceed twice the L2 (as in the turns). Each width is first
+    held against the plain version (also on a 131-matrix view that starts
+    off a 16-byte boundary) and against the first width, bit for bit."""
+    import numpy as np
+    import torch
+
+    from neo_mpc_planner2_tpu_torch import sqp
+    from neo_mpc_planner2_tpu_torch.kernels import binding
+
+    rng = np.random.default_rng(1)
+    for B in (4096, 8192, 16384, 32768, 65536):
+        for m in K2_M:
+            ring = spd_ring(spd_batch(rng, B, m, device))
+            M = ring[0]
+            want = sqp.chol_inverse_plain(M)
+            out = {"B": B, "m": m, "copies": len(ring),
+                   "default": binding.k2_launch_shape(B, device)}
+            first = None
+            for warps in binding.K2_WIDTHS:
+                at = lambda A: binding._launch_spd_inv_at(A, warps)
+                got, odd = at(M), at(M[1:132])
+                torch.cuda.synchronize()
+                ex = max(cs._excess(got, want, 2e-4, 2e-5),
+                         cs._excess(odd, want[1:132], 2e-4, 2e-5))
+                if ex > 0:
+                    raise AssertionError(f"K2 B={B} m={m} warps={warps}: "
+                                         f"off its plain version by {ex:.3g}")
+                first = got if first is None else first
+                if not torch.equal(got, first):
+                    raise AssertionError(f"K2 B={B} m={m}: warps={warps} "
+                                         "differs from the first width")
+                out[f"warps{warps}_ms"] = cs._device_ms(cs.rotating(at, ring),
+                                                        "spd_inv_kernel")
+            print(json.dumps(out), flush=True)
+            del ring, M, want
+
+
 def main(argv=None) -> int:
     import torch
 
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--old", type=pathlib.Path,
-                    help="directory with the earlier qp_admm.cu, "
-                         "spd_inverse.cuh and footprint_cost.cu")
+                    help="directory with the earlier qp_admm.cu, spd_inv.cu "
+                         "and spd_inverse.cuh")
     ap.add_argument("--turns", default="old,new,new,old")
     ap.add_argument("--shapes", action="store_true",
                     help="time K3's launch shapes instead of the turns")
-    ap.add_argument("--kernels-only", action="store_true",
-                    help="skip the slices' turns")
+    ap.add_argument("--k2-shapes", action="store_true",
+                    help="time K2's launch shapes instead of the turns")
     ap.add_argument("--batch", type=int, default=4096)
-    ap.add_argument("--ticks", type=int, default=cs.SLICE_TICKS)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("torch_kernel_turns: no CUDA device", file=sys.stderr)
         return 2
     device = torch.device("cuda:0")
-    smi = cs._nvidia_smi()
-    print(json.dumps({"phase": "device", "nvidia_smi": smi,
+    print(json.dumps({"phase": "device", "nvidia_smi": cs._nvidia_smi(),
                       "torch": torch.__version__}), flush=True)
-    cases = capture(device, args.batch)
+    from neo_mpc_planner2_tpu_torch.kernels import build
+
+    build.build_library()
+    print(json.dumps({"phase": "build", "seconds": build.last_build["seconds"],
+                      "ptxas": cs._ptxas_report(build.last_build["log"])}),
+          flush=True)
     if args.shapes:
-        shapes(cases)
-    else:
-        if args.old is None:
-            ap.error("--old is required for the turns")
-        design = Design(old_wrappers(load_old(args.old)))
+        k3_shapes(device, args.batch)
+    if args.k2_shapes:
+        k2_shapes(device)
+    if args.old is None and not (args.shapes or args.k2_shapes):
+        ap.error("--old is required for the turns")
+    if args.old is not None:
+        from neo_mpc_planner2_tpu_torch import sqp
+
+        designs = {"old": old_wrappers(load_old(args.old)),
+                   "new": {"chol_inverse": sqp.chol_inverse,
+                           "qp_admm": sqp.qp_admm}}
         ref = {}
-        order = args.turns.split(",")
-        # The kernels' short traces first: after the slices' long traces
-        # the profiler may drop records of short ones.
-        rows = [kernel_turn(w, design, device, cases, ref) for w in order]
-        slices = [] if args.kernels_only else [
-            slice_turn(w, design, device, args.batch, args.ticks, ref)
-            for w in order]
-        design.use("new")
+        rows = [kernel_turn(w, designs[w], device, ref)
+                for w in args.turns.split(",")]
         summary = {}
-        for table in filter(None, (rows, slices)):
-            keys = [k for k in table[0] if isinstance(table[0][k], float)
-                    and "diff" not in k]
-            for w in ("old", "new"):
-                summary.setdefault(w, {}).update(
-                    {k: [r[k] for r in table if r["turn"] == w]
-                     for k in keys})
+        keys = [k for k in rows[0] if isinstance(rows[0][k], float)
+                and "diff" not in k]
+        for w in ("old", "new"):
+            summary[w] = {k: [r[k] for r in rows if r["turn"] == w]
+                          for k in keys}
         print(json.dumps({"phase": "summary", **summary}), flush=True)
     print(cs._nvidia_smi(), flush=True)
     return 0

@@ -1,5 +1,6 @@
 """The CUDA kernels K1 (qp_admm), K2 (chol_inverse) and K3
-(footprint_cost_batch) on the card.
+(footprint_cost_batch) on the card, and one step of each slice against the
+CPU.
 
 Every test here needs an NVIDIA GPU: it carries the `cuda` marker and skips
 where `torch.cuda.is_available()` is false (decided inside the `dev`
@@ -105,7 +106,7 @@ def test_qp_admm_is_one_launch(dev, m):
     assert n == {"launches": 1, "kernels": 1}
 
 
-@pytest.mark.parametrize("B", [1, 131, 4096])
+@pytest.mark.parametrize("B", [1, 131, 4096, 65536])
 @pytest.mark.parametrize("m", [6, 9, 15])
 def test_chol_inverse_kernel_matches_plain(dev, m, B):
     M = torch.as_tensor(_spd(np.random.default_rng(m + B), B, m), device=dev)
@@ -120,6 +121,51 @@ def test_chol_inverse_kernel_matches_plain(dev, m, B):
     assert torch.equal(got, got.transpose(-1, -2))
 
 
+def test_chol_inverse_ill_conditioned_matches_plain(dev):
+    """tests/test_solver.py's ill-conditioned diagonal (1e4 down to 1e-3)."""
+    d = torch.tensor([1e4, 1e3, 1e2, 10, 1, 1, 0.1, 0.01, 1e-3], device=dev)
+    M = torch.diag(d)[None].contiguous()
+    got = sqp.chol_inverse(M)
+    torch.testing.assert_close(got, sqp.chol_inverse_plain(M), rtol=RTOL,
+                               atol=ATOL)
+    torch.testing.assert_close(torch.diagonal(got[0]), 1.0 / d, rtol=1e-4,
+                               atol=0.0)
+
+
+@pytest.mark.parametrize("m", [6, 9, 15])
+def test_chol_inverse_is_one_launch(dev, m):
+    """One chol_inverse call on the card is one CUDA launch: the kernel
+    reads and writes (B, m, m) itself, so the wrapper copies nothing."""
+    M = torch.as_tensor(_spd(np.random.default_rng(m), 4096, m), device=dev)
+    n = _chip_smoke().count_launches(lambda: sqp.chol_inverse(M))
+    assert n == {"launches": 1, "kernels": 1}
+
+
+@pytest.mark.parametrize("m", [6, 9, 15])
+def test_chol_inverse_lane_does_not_depend_on_its_block(dev, m):
+    """A lane's inverse is bit-identical whatever lanes share its block and
+    however many warps share the block's columns: the whole batch, its
+    first 131 lanes, the batch shifted by one lane (a view that starts off
+    a 16-byte boundary), each at every width K2 is built for, and inside a
+    batch large enough for the narrow width. The upper triangle is never
+    read."""
+    from neo_mpc_planner2_tpu_torch.kernels import binding
+
+    M = torch.as_tensor(_spd(np.random.default_rng(m), 4096, m), device=dev)
+    full = sqp.chol_inverse(M)
+    for warps in binding.K2_WIDTHS:
+        at = lambda A: binding._launch_spd_inv_at(A, warps)
+        assert torch.equal(at(M), full)
+        assert torch.equal(at(M[:131].contiguous()), full[:131])
+        assert torch.equal(at(M[1:]), full[1:])
+    big = M.repeat(16, 1, 1)
+    assert binding.k2_launch_shape(big.shape[0], dev) == 1
+    assert torch.equal(sqp.chol_inverse(big)[-4096:], full)
+    upper = torch.triu(torch.ones(m, m, dtype=torch.bool, device=dev), 1)
+    garbage = M.masked_fill(upper, float("nan"))
+    assert torch.equal(sqp.chol_inverse(garbage), full)
+
+
 def test_wrappers_raise_on_what_the_kernels_do_not_take(dev):
     rng = np.random.default_rng(0)
     M = torch.as_tensor(_spd(rng, 8, 9), device=dev)
@@ -129,6 +175,10 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(dev):
         sqp.chol_inverse(M.transpose(0, 1))        # not contiguous
     with pytest.raises(ValueError):
         sqp.chol_inverse(torch.as_tensor(_spd(rng, 4, 12), device=dev))
+    with pytest.raises(ValueError):                        # 2-D
+        sqp.chol_inverse(M[0])
+    with pytest.raises(ValueError):                        # not square
+        sqp.chol_inverse(M[:, :, :6].contiguous())
     args = _qp_inputs(rng, 8, 9, dev)
     with pytest.raises(ValueError):
         sqp.qp_admm(*args[:-1], args[-1].cpu(), iters=6)   # mixed devices
@@ -273,6 +323,30 @@ def test_product_step_on_the_card_matches_the_cpu(dev):
     gpu = step(*args)
     assert sqp.qp_admm.launches > qp0
     assert fpm.footprint_cost_batch.launches > fp0
+    cpu = step(*tree_map(lambda t: t.cpu(), args))
+    diff = (gpu.cmd_vel.cpu() - cpu.cmd_vel).abs().amax(-1)
+    assert float((diff <= 1e-3).float().mean()) >= 0.99
+
+
+def test_prox_step_on_the_card_matches_the_cpu(dev):
+    """One controller step of the prox slice (the product point with the
+    prox-FISTA solver) on the card against the CPU on 64 lanes, with K3
+    launched: commands within 1e-3 on at least 99 % of lanes."""
+    import neo_mpc_planner2_tpu_torch as tp
+    from neo_mpc_planner2_tpu_torch.tree import tree_map
+
+    cfg = _chip_smoke().product_cfg()
+    sb = tp.make_scenario_batch(cfg, 64, seed=3, map_size=48, plan_points=32,
+                                device=dev)
+    step = tp.make_batched_controller_step(
+        cfg, parity=False, solver_batch=tp.make_solver_batched(
+            cfg, tp.make_objective(cfg, parity=False)))
+    args = (sb.state, sb.plan, sb.robot_pose, sb.current_vel, sb.costmap,
+            sb.footprint, sb.delta_t)
+    qp0, fp0 = sqp.qp_admm.launches, fpm.footprint_cost_batch.launches
+    gpu = step(*args)
+    assert fpm.footprint_cost_batch.launches > fp0
+    assert sqp.qp_admm.launches == qp0         # no QP on the prox path
     cpu = step(*tree_map(lambda t: t.cpu(), args))
     diff = (gpu.cmd_vel.cpu() - cpu.cmd_vel).abs().amax(-1)
     assert float((diff <= 1e-3).float().mean()) >= 0.99

@@ -116,3 +116,20 @@ def test_batch_simulate_follows_its_inputs_device():
     res = tp.batch_simulate(_cfg(), sb, 1)
     assert all(t.device.type == "cpu" for t in _leaves(res))
     assert sqp.qp_admm.launches == before
+
+
+def test_prox_solver_follows_its_inputs_device():
+    """The prox path takes its device from the tensors it is given, like
+    the SQP: a CPU scenario runs prox-FISTA on the CPU, with K3's plain
+    version and no kernel launched."""
+    from neo_mpc_planner2_tpu_torch.ops import footprint as fpm
+
+    cfg = _cfg()
+    sb = tp.make_scenario_batch(cfg, 2, map_size=32, plan_points=8,
+                                device="cpu")
+    before = fpm.footprint_cost_batch.launches
+    res = tp.batch_simulate(cfg, sb, 1, parity=False,
+                            solver_batch=tp.make_solver_batched(
+                                cfg, tp.make_objective(cfg, parity=False)))
+    assert all(t.device.type == "cpu" for t in _leaves(res))
+    assert fpm.footprint_cost_batch.launches == before

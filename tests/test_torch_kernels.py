@@ -378,14 +378,63 @@ def test_chip_smoke_kernels_line_covers_every_kernel():
                                 bound_ms=0.002, bound_by="bytes",
                                 library_ms=None)
                 for k in chip_smoke.KERNELS}
-    entries = chip_smoke.kernels_line(slice_, slice_, measured)
+    assert list(chip_smoke.SLICES) == ["fleet", "product", "prox"]
+    entries = chip_smoke.kernels_line(
+        {name: slice_ for name in chip_smoke.SLICES}, measured)
     required = {"name", "route", "source", "replaces", "launches",
                 "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                 "share_of_bound", "launches_per_tick", "library_ms"}
     for e in entries:
         assert set(e) == set(chip_smoke.KERNEL_KEYS) >= required
-        assert e["launches_per_tick"] == {"fleet": 2.0, "product": 2.0}
+        assert e["launches_per_tick"] == {"fleet": 2.0, "product": 2.0,
+                                          "prox": 2.0}
+        assert e["launches"] == 120
         assert e["share_of_bound"] == pytest.approx(0.2)
+
+
+def test_chip_smoke_last_lines_name_the_card(monkeypatch, capsys):
+    """chip_smoke.main's last two lines, with every phase stubbed: the
+    card's name and power limit, then {"ok": true, "device": ...} whose
+    kind is torch.cuda.get_device_name(0), not a slice's name."""
+    import json
+
+    import chip_smoke
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "get_device_name", lambda i=0: "Card X")
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    monkeypatch.setattr(chip_smoke, "_nvidia_smi", lambda: "Card X, 700 W")
+    monkeypatch.setattr(build, "build_library", lambda: None)
+    monkeypatch.setattr(build, "last_build",
+                        {"built": False, "seconds": 0.0, "log": ""})
+    one = dict(max_abs_err=0.0, ms=0.01, plain_ms=1.0, bound_ms=0.002,
+               bound_by="bytes")
+    monkeypatch.setattr(chip_smoke, "phase_kernels", lambda d: {
+        "qp_admm_max_abs_err": 0.0, "qp_admm_m9_ms": 0.01,
+        "qp_admm_plain_m9_ms": 1.0, "qp_admm_m9_bound_ms": 0.002,
+        "qp_admm_m9_bound_by": "operations"})
+    monkeypatch.setattr(chip_smoke, "phase_k2", lambda d: {
+        "spd_inv_max_abs_err": 0.0, "spd_inv_m9_ms": 0.01,
+        "spd_inv_plain_m9_ms": 1.0, "spd_inv_m9_bound_ms": 0.002,
+        "spd_inv_m9_bound_by": "bytes", "spd_inv_library_m9_ms": 0.05})
+    monkeypatch.setattr(chip_smoke, "phase_k3",
+                        lambda d: {"footprint_cost_max_abs_err": 0.0})
+    monkeypatch.setattr(chip_smoke, "phase_slice", lambda *a, **kw: {
+        "launches": {k["name"]: 40 for k in chip_smoke.KERNELS},
+        "ticks": 20})
+    monkeypatch.setattr(chip_smoke, "phase_card_vs_cpu", lambda *a: None)
+    monkeypatch.setattr(chip_smoke, "phase_k3_captured",
+                        lambda *a: {"wave_R21": one})
+    monkeypatch.setattr(chip_smoke, "phase_launches_per_tick",
+                        lambda d, s: {})
+    assert chip_smoke.main() == 0
+    lines = capsys.readouterr().out.strip().splitlines()
+    assert lines[-2] == "Card X, 700 W"
+    assert json.loads(lines[-1]) == {"ok": True, "device": {
+        "platform": "gpu", "kind": "Card X", "count": 1}}
+    kernels = json.loads(lines[-3])["kernels"]
+    assert [k["name"] for k in kernels] == [k["name"]
+                                            for k in chip_smoke.KERNELS]
 
 
 # --- the C interface, read against the sources -----------------------------
@@ -435,6 +484,7 @@ def stub_library(monkeypatch):
     lib = _StubLibrary()
     monkeypatch.setattr(binding, "load_library", lambda: lib)
     monkeypatch.setattr(binding, "_stream", lambda device: 1234)
+    monkeypatch.setattr(binding, "_sms", lambda device: 132)
     return lib
 
 
@@ -457,6 +507,34 @@ def test_launch_qp_admm_packs_operands_in_c_order(stub_library):
     assert args[-1] == 1234
     for n, t in zip(binding.QP_OUTPUTS, outs):
         assert t.shape == (B, rows[n]) and t.dtype == torch.float32
+
+
+def test_launch_spd_inv_packs_operands_in_c_order(stub_library):
+    """binding.launch_spd_inv hands m, B, the warps a block, the batch-major
+    (B, m, m) operand and the output it allocates."""
+    M = torch.zeros(5, 9, 9)
+    X = binding.launch_spd_inv(M)
+    (name, args), = stub_library.calls
+    assert name == "neo_spd_inv_f32"
+    assert len(args) == len(_c_signature(name))
+    assert args[:3] == (9, 5, 4)
+    assert args[3:] == (M.data_ptr(), X.data_ptr(), 1234)
+    assert X.shape == (5, 9, 9) and X.dtype == torch.float32
+    binding.launch_spd_inv(torch.zeros(65536, 6, 6))
+    assert stub_library.calls[-1][1][:3] == (6, 65536, 1)
+
+
+@pytest.mark.parametrize("sms,wide_up_to", [(132, 8448), (114, 7296)])
+def test_k2_launch_shape_follows_the_card(monkeypatch, sms, wide_up_to):
+    """Four warps a block of 32 matrices while the blocks are at most
+    K2_WIDE_BLOCKS_PER_SM to an SM (the H100 SXM's 132 SMs, the PCIe
+    card's 114), one above; both widths are built."""
+    monkeypatch.setattr(binding, "_sms", lambda device: sms)
+    assert wide_up_to == 32 * binding.K2_WIDE_BLOCKS_PER_SM * sms
+    for B, warps in ((1, 4), (4096, 4), (wide_up_to, 4),
+                     (wide_up_to + 1, 1), (65536, 1)):
+        assert binding.k2_launch_shape(B, "cuda") == warps
+        assert warps in binding.K2_WIDTHS
 
 
 def test_launch_footprint_cost_packs_operands_in_c_order(stub_library):
@@ -533,7 +611,8 @@ def test_footprint_cost_kernel_limits_are_checked():
 ])
 def test_bound_calculator_k1_k2(kernel, m, ops_per_lane, bound_by):
     """K1 at 60 ADMM iterations: ~1k operations for the inverse and ~280
-    an iteration at m = 9; K2 moves each matrix in and out once."""
+    an iteration at m = 9; K2 reads each lower triangle and writes each
+    inverse once."""
     from neo_mpc_planner2_tpu_torch.kernels import bounds
 
     B = 4096
@@ -542,13 +621,32 @@ def test_bound_calculator_k1_k2(kernel, m, ops_per_lane, bound_by):
     assert work["ops"] == B * ops_per_lane
     assert work["bound_by"] == bound_by
     n = m // 3
-    floats = (m * m + 11 * m + 8 * n if kernel == "qp_admm" else 2 * m * m)
+    floats = (m * m + 11 * m + 8 * n if kernel == "qp_admm"
+              else m * (m + 1) // 2 + m * m)
     assert work["bytes"] == 4 * B * floats
     assert work["bound_ms"] == pytest.approx(max(
         work["ops"] / 67e12, work["bytes"] / 3.35e12) * 1e3)
     if kernel == "qp_admm" and m == 9:
         assert bounds.inverse_ops(9) == 873
         assert work["bound_ms"] == pytest.approx(0.001116, rel=1e-3)
+
+
+@pytest.mark.parametrize("B,m,nbytes,bound_ms", [
+    (4096, 9, 2064384, 6.1623e-4),
+    (65536, 9, 33030144, 9.8597e-3),
+    (4096, 15, 5652480, 1.6873e-3),
+])
+def test_bound_calculator_k2_counts_the_lower_triangle(B, m, nbytes,
+                                                       bound_ms):
+    """K2's bytes: m(m + 1)/2 floats read and m² written a matrix (126 at
+    m = 9, not 2m² = 162), so its bound at m = 9 is 0.62 µs at B = 4096
+    and 9.9 µs at B = 65536."""
+    from neo_mpc_planner2_tpu_torch.kernels import bounds
+
+    work = bounds.spd_inv_work(B, m)
+    assert work["bytes"] == nbytes
+    assert work["bound_by"] == "bytes"
+    assert work["bound_ms"] == pytest.approx(bound_ms, rel=1e-4)
 
 
 def _k3_case(B, R, S, rng, bounded):
