@@ -3,24 +3,29 @@
     python3 chip_smoke.py
 
 Builds the CUDA kernels from `neo_mpc_planner2_tpu_torch/csrc/`, checks each
-against its plain PyTorch version on the card, and drives the three slices
-of the port through `batch_simulate` (4096 lanes, 64x64 maps,
-control_steps=3, 20 ticks each): the fleet closed loop (parity objective),
-the product closed loop (smooth objective, candidate-wave line search,
-patch sampler) and the prox closed loop (the product point with the
-prox-FISTA solver, bench.py's prox row). For each slice it compares one
-controller step on the card with the same step on the CPU, and reads the
-CUDA launches, the device's busy time and its idle share of a tick with
-torch.profiler.
+against its plain PyTorch version on the card, and drives the six slices
+of the port through `batch_simulate` (4096 lanes, control_steps=3, 20
+ticks each): on 64x64 maps the fleet closed loop (parity objective), the
+product closed loop (smooth objective, candidate-wave line search, patch
+sampler) and the prox closed loop (the product point with the prox-FISTA
+solver, bench.py's prox row); then the fleet point on the three live maps
+of bench.py: a 64x64 rolling window over 128x128 world maps, six moving
+obstacles re-synthesized every tick, and one 16x16 obstacle update a lane
+a tick. For each slice it compares its first tick on the card with the
+same tick on the CPU, and reads the CUDA launches, the device's busy time
+and its idle share of a tick with torch.profiler; for each live map, the
+device time of the map's refresh a tick.
 K3 is also held to its plain version, and timed, on the arguments of its
 own calls in the product slice (a gate at R = 1, a gradient call at R = 3
-and a wave at R = 21), captured during the slice's warm-up run. Every phase
-prints a line; any failure exits non-zero. The `kernels` line lists every
-kernel with its launches, its time beside its bound (`kernels/bounds.py`)
-and, where one PyTorch call computes the same function, that call's time;
-the second-to-last line is the card's name and power limit, the last line
-`{"ok": true, "device": {...}}`. Needs a CUDA device: without one it exits
-non-zero and prints no result. Imports no JAX.
+and a wave at R = 21) and in the rolling slice (R = 1 through the view,
+with the window's cell shift), captured during the slices' warm-up runs.
+Every phase prints a line; any failure exits non-zero. The `kernels` line
+lists every kernel with its launches, its time beside its bound
+(`kernels/bounds.py`) and, where one PyTorch call computes the same
+function, that call's time; the second-to-last line is the card's name and
+power limit, the last line `{"ok": true, "device": {...}}`. Needs a CUDA
+device: without one it exits non-zero and prints no result. Imports no
+JAX.
 """
 
 from __future__ import annotations
@@ -63,14 +68,16 @@ TIMING = ("*_ms: the kernel's device time (torch.profiler, median of 3 x "
           "PyTorch call's kernels, mean of 20")
 
 SLICE_TICKS = 20
-# Each slice's warm-up run (the product slice's K3 calls are captured
-# there) and, per slice, the ticks that the launch count profiles, as
-# (first tick, ticks): the prox slice makes ~10^5 launches a tick, and the
-# profiler's records of 20 such ticks take longer to read than the whole
-# smoke may, so it profiles 2 ticks from the middle of a run.
+# Each slice's warm-up run (the product and rolling slices' K3 calls are
+# captured there) and, per slice, the ticks that the launch count
+# profiles, as (first tick, ticks). Reading the profiler's records takes
+# longer than the ticks they record (a fleet tick makes ~10^4 launches,
+# a prox tick ~3·10^4), so the SQP slices profile their first 10 ticks
+# and the prox slice 2 ticks from the middle of a run.
 WARM_TICKS = 2
-LAUNCH_TICKS = {"fleet": (0, SLICE_TICKS), "product": (0, SLICE_TICKS),
-                "prox": (SLICE_TICKS // 2, 2)}
+LAUNCH_TICKS = {"fleet": (0, 10), "product": (0, 10),
+                "prox": (SLICE_TICKS // 2, 2), "rolling": (0, 10),
+                "dynamic": (0, 10), "updates": (0, 10)}
 
 
 def _nvidia_smi() -> str:
@@ -91,14 +98,16 @@ def _ptxas_report(log: str) -> dict:
     for line in log.splitlines():
         hit = re.search(r"Compiling entry function '\w*?"
                         r"(qp_admm|spd_inv|footprint_cost)_kernelILi(\d+)E"
-                        r"(?:Li(\d+)E)?", line)
+                        r"(?:Li(\d+)E)?(?:Lb(\d)E)?", line)
         if hit:
             # K1 instances are keyed by m, K2's by m and warps a block, K3's
-            # by S (S0: any other S).
+            # by S (S0: any other S) and "_shift" for a view's.
             key = "S" if hit.group(1) == "footprint_cost" else "m"
             name = f"{hit.group(1)}_{key}{hit.group(2)}"
             if hit.group(3):
                 name += f"_w{hit.group(3)}"
+            if hit.group(4) == "1":
+                name += "_shift"
             report[name] = {}
         elif name and "spill stores" in line:
             nums = [int(v) for v in re.findall(r"(\d+) bytes", line)]
@@ -472,9 +481,11 @@ def _k3_inputs(rng, B: int, R: int, device):
 
 def phase_k3(device):
     """K3 against its plain version: exact (the outputs are picked map
-    values), at every shape and polygon kind, full-grid and patch bounds.
-    Timed on these synthetic polygons at B = 4096, R = 21, S = 16, full
-    grid, the shape the earlier one-warp-a-polygon design was timed at."""
+    values), at every shape and polygon kind, full-grid and patch bounds,
+    and through a 40x40 rolling-window view at a random corner (the
+    window's origin, its rectangle and the cell shift). Timed on these
+    synthetic polygons at B = 4096, R = 21, S = 16, full grid, the shape
+    the earlier one-warp-a-polygon design was timed at."""
     import numpy as np
     import torch
 
@@ -490,18 +501,26 @@ def phase_k3(device):
             cx = torch.as_tensor(rng.uniform(-2.0, 2.0, B),
                                  dtype=torch.float32, device=device)
             patch = cmap.product_patch_bounds(cm, cx, cx.flip(0), 28)
+            view = cm.replace(win_lo=torch.as_tensor(
+                rng.integers(0, 25, (B, 2)), dtype=torch.int32,
+                device=device), win_cells=40)
+            v_origin, v_bounds, v_shift = fpm.kernel_map_arguments(view)
+            maps = {"grid": (origin, None, None),
+                    "patch": (origin, patch, None),
+                    "view": (v_origin.contiguous(), v_bounds.contiguous(),
+                             v_shift.contiguous())}
             for S in (8, 16, 32, 64):
                 t = fpm.edge_parameters(S, device)
-                for bounds in (None, patch):
-                    args = (data, origin, res, bounds, verts, nv, t)
+                for kind, (o, bounds, shift) in maps.items():
+                    args = (data, o, res, bounds, verts, nv, t, shift)
                     got = fpm.footprint_cost_batch(*args)
                     want = fpm.footprint_cost_batch_plain(*args)
                     torch.cuda.synchronize()
                     if not torch.equal(got, want):
                         raise AssertionError(
-                            f"K3 B={B} R={R} S={S} bounds="
-                            f"{bounds is not None}: differs from its plain "
-                            f"version by {float((got - want).abs().max())}")
+                            f"K3 B={B} R={R} S={S} {kind}: differs from "
+                            "its plain version by "
+                            f"{float((got - want).abs().max())}")
                     worst = max(worst, float((got - want).abs().max()))
                     cases += 1
                 if B == 4096 and R == 21 and S == 16:
@@ -520,9 +539,9 @@ def phase_k3(device):
 
 class K3Recorder:
     """While active, counts K3's launches by R and keeps a copy of the
-    arguments of the first call for each (R, whole grid or bounds): it
-    wraps `binding.launch_footprint_cost`, which the port looks up at every
-    call, and restores it on exit."""
+    arguments of the first call for each (R, whole grid or bounds, shift or
+    none): it wraps `binding.launch_footprint_cost`, which the port looks
+    up at every call, and restores it on exit."""
 
     def __init__(self):
         self.by_r = collections.Counter()
@@ -535,8 +554,9 @@ class K3Recorder:
 
         def launch(*args, **kw):
             R, bounds = args[4].shape[1], args[3]
+            shift = args[7] if len(args) > 7 else None
             self.by_r[R] += 1
-            key = (R, bounds is None)
+            key = (R, bounds is None, shift is None)
             if key not in self.args:
                 self.args[key] = tuple(
                     None if a is None else a.clone() for a in args)
@@ -552,29 +572,35 @@ class K3Recorder:
         return False
 
 
-def captured_k3_cases(recorder: K3Recorder) -> dict:
-    """The product slice's K3 calls to hold and time: label -> args."""
+def captured_k3_cases(recorder: K3Recorder,
+                      required=("wave", "gate")) -> dict:
+    """A slice's K3 calls to hold and time: label -> args. A call with a
+    shift reads through a view ("view"), one without bounds the whole grid
+    ("gate"), one with bounds a patch ("wave" above R = 3, else "grad")."""
     labels = {}
-    for (R, whole), args in sorted(recorder.args.items()):
-        name = "gate" if whole else ("wave" if R > 3 else "grad")
+    for (R, whole, unshifted), args in sorted(recorder.args.items()):
+        name = ("view" if not unshifted else "gate" if whole
+                else "wave" if R > 3 else "grad")
         labels[f"{name}_R{R}"] = args
-    if not any(k.startswith("wave") for k in labels) or \
-            not any(k.startswith("gate") for k in labels):
-        raise AssertionError(f"the product slice made no wave or no gate "
-                             f"call of K3: {sorted(recorder.args)}")
+    for name in required:
+        if not any(k.startswith(name) for k in labels):
+            raise AssertionError(f"the slice made no {name} call of K3: "
+                                 f"{sorted(recorder.args)}")
     return labels
 
 
-def phase_k3_captured(recorder: K3Recorder, ticks: int):
-    """K3 on the product slice's own inputs: exactly equal to its plain
-    version, timed, its bound from the cells these samples read."""
+def phase_k3_captured(recorder: K3Recorder, ticks: int,
+                      slice_name: str = "product",
+                      required=("wave", "gate")):
+    """K3 on a slice's own inputs: exactly equal to its plain version,
+    timed, its bound from the cells these samples read."""
     import torch
 
     from neo_mpc_planner2_tpu_torch.kernels import bounds
     from neo_mpc_planner2_tpu_torch.ops import footprint as fpm
 
     report = {}
-    for label, args in captured_k3_cases(recorder).items():
+    for label, args in captured_k3_cases(recorder, required).items():
         got = fpm.footprint_cost_batch(*args)
         want = fpm.footprint_cost_batch_plain(*args)
         torch.cuda.synchronize()
@@ -587,7 +613,8 @@ def phase_k3_captured(recorder: K3Recorder, ticks: int):
                         "footprint_cost_kernel")
         report[label] = {
             "shape": list(args[4].shape), "S": int(args[6].shape[0]),
-            "bounds": args[3] is not None, "ms": ms,
+            "bounds": args[3] is not None,
+            "shift": len(args) > 7 and args[7] is not None, "ms": ms,
             "plain_ms": _time_ms(
                 lambda: fpm.footprint_cost_batch_plain(*args)),
             "bound_ms": work["bound_ms"], "bound_by": work["bound_by"],
@@ -595,7 +622,7 @@ def phase_k3_captured(recorder: K3Recorder, ticks: int):
             "samples": work["samples"], "cells": work["cells"],
             "bytes": work["bytes"], "ops": work["ops"]}
     per_tick = {f"R{R}": n / ticks for R, n in sorted(recorder.by_r.items())}
-    print(json.dumps({"phase": "K3 on the product slice's inputs",
+    print(json.dumps({"phase": f"K3 on the {slice_name} slice's inputs",
                       "tolerance": "exact (torch.equal)",
                       "launches_per_tick_by_R": per_tick,
                       "timing": TIMING, **report}), flush=True)
@@ -666,13 +693,72 @@ def prox_solver(cfg):
     return tp.make_solver_batched(cfg, tp.make_objective(cfg, parity=False))
 
 
+# The live maps of bench.py's deployment regimes (bench.py:276-378), each
+# on the fleet point: the scenario seed and map side, and
+#   rolling: the window's side over a 2x world map;
+#   dynamic / updates: the obstacles' generator seed and count a lane (the
+#   updates regime moves one obstacle a lane) and the update block's side.
+LIVE_MAPS = {
+    "rolling": dict(seed=2, map_size=128, window_cells=64),
+    "dynamic": dict(seed=0, map_size=64, obstacle_seed=3, obstacles=6),
+    "updates": dict(seed=0, map_size=64, obstacle_seed=4, obstacles=1,
+                    update_cells=16),
+}
+
 # Each slice: (config, parity, its solver or None for the SQP, the kernels
-# its closed loop must launch).
+# its closed loop must launch). A slice named in LIVE_MAPS runs on that
+# live map, the others on static 64x64 maps.
 SLICES = {
     "fleet": (fleet_cfg, True, None, ("qp_admm", "footprint_cost")),
     "product": (product_cfg, False, None, ("qp_admm", "footprint_cost")),
     "prox": (product_cfg, False, prox_solver, ("footprint_cost",)),
+    "rolling": (fleet_cfg, True, None, ("qp_admm", "footprint_cost")),
+    "dynamic": (fleet_cfg, True, None, ("qp_admm", "footprint_cost")),
+    "updates": (fleet_cfg, True, None, ("qp_admm", "footprint_cost")),
 }
+
+
+def obstacles(name: str, batch: int, device):
+    """A live map's moving obstacles, drawn as bench.py draws them:
+    centres U(-half + 0.8, half - 0.3), amplitudes U(0.3, 0.95), velocities
+    U(-0.25, 0.25) m/s, float32; (B, O, ...) for the dynamic map, (B, ...)
+    for the updates (one obstacle a lane)."""
+    import numpy as np
+    import torch
+
+    live = LIVE_MAPS[name]
+    rng = np.random.default_rng(live["obstacle_seed"])
+    half = live["map_size"] * 0.05 / 2
+    per = (live["obstacles"],) if name == "dynamic" else ()
+    draws = (rng.uniform(-half + 0.8, half - 0.3, (batch,) + per + (2,)),
+             rng.uniform(0.3, 0.95, (batch,) + per),
+             rng.uniform(-0.25, 0.25, (batch,) + per + (2,)))
+    return tuple(torch.as_tensor(a, dtype=torch.float32, device=device)
+                 for a in draws)
+
+
+def slice_inputs(name: str, batch: int, device, seed: int | None = None):
+    """A slice's config, scenario batch and batch_simulate arguments.
+    seed: the scenario seed in place of the slice's own."""
+    from neo_mpc_planner2_tpu_torch.scenarios import make_scenario_batch
+
+    make_cfg, parity, make_solver, _ = SLICES[name]
+    cfg = make_cfg()
+    run = dict(parity=parity, solver_batch=None if make_solver is None
+               else make_solver(cfg))
+    live = LIVE_MAPS.get(name, dict(seed=0, map_size=64))
+    sb = make_scenario_batch(cfg, batch,
+                             seed=live["seed"] if seed is None else seed,
+                             map_size=live["map_size"], plan_points=64,
+                             device=device)
+    if name == "rolling":
+        run.update(window_cells=live["window_cells"])
+    elif name == "dynamic":
+        run.update(dynamic_obstacles=obstacles(name, batch, device))
+    elif name == "updates":
+        run.update(costmap_updates=obstacles(name, batch, device),
+                   update_cells=live["update_cells"])
+    return cfg, sb, run
 
 
 def phase_slice(device, smi: str, name: str, batch: int = 4096,
@@ -685,15 +771,10 @@ def phase_slice(device, smi: str, name: str, batch: int = 4096,
 
     import torch
 
-    from neo_mpc_planner2_tpu_torch.scenarios import make_scenario_batch
     from neo_mpc_planner2_tpu_torch.simulation import batch_simulate
 
-    make_cfg, parity, make_solver, required = SLICES[name]
-    cfg = make_cfg()
-    run = dict(parity=parity, solver_batch=None if make_solver is None
-               else make_solver(cfg))
-    sb = make_scenario_batch(cfg, batch, seed=0, map_size=64,
-                             plan_points=64, device=device)
+    required = SLICES[name][3]
+    cfg, sb, run = slice_inputs(name, batch, device)
     with recorder if recorder is not None else contextlib.nullcontext():
         batch_simulate(cfg, sb, WARM_TICKS, **run)         # warm-up
     torch.cuda.synchronize()
@@ -715,7 +796,8 @@ def phase_slice(device, smi: str, name: str, batch: int = 4096,
         if launches[kernel] <= 0:
             raise AssertionError(f"{name}: {kernel} was never launched")
     out = {"phase": f"{name} slice", "batch": batch, "ticks": ticks,
-           "map": 64, "control_steps": cfg.control_steps,
+           "map": sb.costmap.data.shape[-1], "live_map": LIVE_MAPS.get(name),
+           "control_steps": cfg.control_steps,
            "wall_s": wall, "solves_per_s": batch * ticks / wall,
            "launches": launches,
            "goal_reached_frac": float((res.goal_dist[:, -1] < 0.10)
@@ -723,9 +805,59 @@ def phase_slice(device, smi: str, name: str, batch: int = 4096,
            "final_dist_p50": float(res.goal_dist[:, -1].median()),
            "converged_frac": float(res.converged.float().mean()),
            "mean_solver_iters": float(res.solver_iters.float().mean()),
+           "lethal_frac": float(res.lethal.float().mean()),
+           "collision_frac": float(res.collisions.float().mean()),
            "card": smi}
     print(json.dumps(out), flush=True)
     return out
+
+
+def phase_map_refresh(device, smi: str, batch: int = 4096) -> dict:
+    """Each live map's refresh a tick on its slice's own inputs (the first
+    tick's): its device time (every kernel summed, torch.profiler, mean of
+    20), one call between CUDA events, and its CUDA launches (the host's
+    launch calls of one call, count_launches). rolling: the view (and, beside
+    it, the materialized window the view replaces, flattened); dynamic: the
+    re-synthesized, flattened map; updates: the block's synthesis and its
+    write into a carried map."""
+    from neo_mpc_planner2_tpu_torch.ops.costmap import write_window_
+    from neo_mpc_planner2_tpu_torch.simulation import (
+        dynamic_obstacle_map, obstacle_update, rolling_view, rolling_window)
+
+    report = {}
+    for name in LIVE_MAPS:
+        cfg, sb, run = slice_inputs(name, batch, device)
+        dt = cfg.control_interval
+        world = sb.costmap.with_flat()
+        if name == "rolling":
+            cells = run["window_cells"]
+            calls = {"view": lambda: rolling_view(world, sb.robot_pose,
+                                                  cells),
+                     "materialized": lambda: rolling_window(
+                         world, sb.robot_pose, cells).with_flat()}
+        elif name == "dynamic":
+            calls = {"synthesis": lambda: dynamic_obstacle_map(
+                sb.costmap, run["dynamic_obstacles"], 0, dt)}
+        else:
+            carry = world.replace(data=world.data.clone()).with_flat()
+            cells = run["update_cells"]
+
+            def paint():
+                block, lo = obstacle_update(carry, world.data,
+                                            run["costmap_updates"], 0, dt,
+                                            cells)
+                write_window_(carry, block, lo)
+
+            calls = {"synthesis_and_write": paint}
+        for what, fn in calls.items():
+            out = {"phase": f"{name} slice: map refresh a tick",
+                   "what": what, "batch": batch,
+                   "device_ms": _device_total_ms(fn),
+                   "wall_ms": _time_ms(fn),
+                   "launches": count_launches(fn)["launches"], "card": smi}
+            report[f"{name}_{what}"] = out
+            print(json.dumps(out), flush=True)
+    return report
 
 
 def phase_launches_per_tick(device, slices: dict, batch: int = 4096) -> dict:
@@ -737,18 +869,13 @@ def phase_launches_per_tick(device, slices: dict, batch: int = 4096) -> dict:
     less the busy time over a tick's wall time in the slice's timed run
     (slices: name -> that slice phase's output). Last, because after a
     trace this long the profiler may drop records of a short one."""
-    from neo_mpc_planner2_tpu_torch.scenarios import make_scenario_batch
     from neo_mpc_planner2_tpu_torch.simulation import batch_simulate
 
     out = {"phase": "CUDA launches a tick", "batch": batch,
            "ticks": LAUNCH_TICKS}
-    for name, (make_cfg, parity, make_solver, _) in SLICES.items():
+    for name in SLICES:
         first, ticks = LAUNCH_TICKS[name]
-        cfg = make_cfg()
-        run = dict(parity=parity, solver_batch=None if make_solver is None
-                   else make_solver(cfg))
-        sb = make_scenario_batch(cfg, batch, seed=0, map_size=64,
-                                 plan_points=64, device=device)
+        cfg, sb, run = slice_inputs(name, batch, device)
         init = None
         if first:
             head = batch_simulate(cfg, sb, first, **run)
@@ -769,24 +896,19 @@ def phase_launches_per_tick(device, slices: dict, batch: int = 4096) -> dict:
 
 
 def phase_card_vs_cpu(device, name: str, lanes: int = 256):
-    """One controller step on the card against the same step on the CPU
-    (plain versions): at least 99 % of lanes within 1e-3 (a 1-ulp tie in f
-    may move a lane's termination by one iteration)."""
-    from neo_mpc_planner2_tpu_torch.engine import make_batched_controller_step
-    from neo_mpc_planner2_tpu_torch.scenarios import make_scenario_batch
+    """The slice's first tick on the card against the same tick on the CPU
+    (plain versions), through batch_simulate: on a live map the tick reads
+    the view, the re-synthesized map or the map after its first update. At
+    least 99 % of lanes within 1e-3 (a 1-ulp tie in f may move a lane's
+    termination by one iteration)."""
+    from neo_mpc_planner2_tpu_torch.simulation import batch_simulate
     from neo_mpc_planner2_tpu_torch.tree import tree_map
 
-    make_cfg, parity, make_solver, _ = SLICES[name]
-    cfg = make_cfg()
-    sb = make_scenario_batch(cfg, lanes, seed=1, map_size=64, plan_points=64,
-                             device=device)
-    step = make_batched_controller_step(
-        cfg, parity=parity,
-        solver_batch=None if make_solver is None else make_solver(cfg))
-    args = (sb.state, sb.plan, sb.robot_pose, sb.current_vel, sb.costmap,
-            sb.footprint, sb.delta_t)
-    gpu = step(*args).cmd_vel.cpu()
-    cpu = step(*tree_map(lambda t: t.cpu(), args)).cmd_vel
+    cfg, sb, run = slice_inputs(name, lanes, device, seed=1)
+    gpu = batch_simulate(cfg, sb, 1, **run).cmds[:, 0].cpu()
+    to_cpu = lambda t: t.cpu()
+    cpu = batch_simulate(cfg, tree_map(to_cpu, sb), 1,
+                         **tree_map(to_cpu, run)).cmds[:, 0]
     diff = (gpu - cpu).abs().amax(-1)
     frac = float((diff <= 1e-3).float().mean())
     out = {"phase": f"{name} slice: card vs cpu, one step", "lanes": lanes,
@@ -843,19 +965,33 @@ def main() -> int:
                       "ptxas": _ptxas_report(build.last_build["log"])}),
           flush=True)
 
+    t0 = time.perf_counter()
+
+    def progress(what: str) -> None:
+        print(f"[chip_smoke] {what} done at {time.perf_counter() - t0:.1f} s",
+              file=sys.stderr, flush=True)
+
     k1 = phase_kernels(device)
     k2 = phase_k2(device)
     k3 = phase_k3(device)
+    progress("kernel phases")
     slices = {}
-    recorder = K3Recorder()
+    # K3's calls are captured in the product slice's warm-up (the gate, the
+    # gradient calls, the wave) and in the rolling slice's (through views).
+    recorders = {"product": K3Recorder(), "rolling": K3Recorder()}
     for name in SLICES:
-        slices[name] = phase_slice(
-            device, smi, name,
-            recorder=recorder if name == "product" else None)
+        slices[name] = phase_slice(device, smi, name,
+                                   recorder=recorders.get(name))
         phase_card_vs_cpu(device, name)
-    captured = phase_k3_captured(recorder, WARM_TICKS)
+        progress(f"{name} slice")
+    captured = phase_k3_captured(recorders["product"], WARM_TICKS)
     wave = next(v for k, v in captured.items() if k.startswith("wave"))
+    phase_k3_captured(recorders["rolling"], WARM_TICKS, "rolling",
+                      required=("view",))
+    phase_map_refresh(device, smi)
+    progress("captured K3 and map refresh")
     phase_launches_per_tick(device, slices)
+    progress("launches a tick")
 
     measured = {
         "qp_admm": dict(max_abs_err=k1["qp_admm_max_abs_err"],

@@ -3,14 +3,16 @@ CUDA kernels for NVIDIA Hopper (H100).
 
 A port of `neo_mpc_planner2_tpu` (JAX/Pallas), which stays the reference.
 This package imports no JAX. It runs the closed loop
-(`simulation.batch_simulate` on a static map through
-`engine.make_batched_controller_step` and the batched SQP solver) in both
-modes: the parity objective (`fleet_config`) and the smooth product
-objective with the candidate-wave line search (`product_config`,
-parity=False), and with the prox-FISTA solver of `solver.py` in its place
-(`make_solver_batched`, passed as `solver_batch`). On the card the QP runs
-in the CUDA kernel `csrc/qp_admm.cu`, every footprint cost in
-`csrc/footprint_cost.cu`, and `sqp.chol_inverse` in `csrc/spd_inv.cu`.
+(`simulation.batch_simulate` through `engine.make_batched_controller_step`
+and the batched SQP solver) in both modes: the parity objective
+(`fleet_config`) and the smooth product objective with the candidate-wave
+line search (`product_config`, parity=False), and with the prox-FISTA
+solver of `solver.py` in its place (`make_solver_batched`, passed as
+`solver_batch`); on a static map or a live one: a rolling window
+(`rolling_view`), dynamic obstacles, or incremental map updates. On the
+card the QP runs in the CUDA kernel `csrc/qp_admm.cu`, every footprint
+cost in `csrc/footprint_cost.cu`, and `sqp.chol_inverse` in
+`csrc/spd_inv.cu`.
 """
 
 import torch as _torch
@@ -30,7 +32,8 @@ from .ops.objective import (Scenario, make_objective, objective_parity,
 from .ops.pursuit import Plan, PursuitResult, pursuit_tick
 from .ops.rollout import rollout
 from .scenarios import ScenarioBatch, make_scenario_batch
-from .simulation import SimResult, batch_simulate
+from .simulation import (SimResult, batch_simulate, rolling_view,
+                         rolling_window, simulate_follow_path)
 from .solver import (SolveResult, make_solver, make_solver_batched,
                      project_feasible, prox_fista, prox_g)
 from .sqp import (chol_inverse, make_sqp_solver, make_sqp_solver_batched,
@@ -46,6 +49,7 @@ __all__ = [
     "objective_product",
     "Plan", "PursuitResult", "pursuit_tick", "rollout",
     "ScenarioBatch", "make_scenario_batch", "SimResult", "batch_simulate",
+    "rolling_view", "rolling_window", "simulate_follow_path",
     "SolveResult", "make_solver", "make_solver_batched", "project_feasible",
     "prox_fista", "prox_g", "chol_inverse", "make_sqp_solver",
     "make_sqp_solver_batched", "qp_admm", "sqp_solve",

@@ -18,6 +18,15 @@
 // needs no clamp; it is tested in floats (exact below 2^24 cells a side,
 // and a NaN or infinite cell fails the test as an out-of-range one did).
 //
+// A rolling-window view (the port's Costmap with win_lo set) reads the
+// world map through its window: the caller passes the window's origin
+// (origin + win_lo * res, rounded as the port rounds it), the window as the
+// bounds and win_lo as a per-lane cell `shift`, and the kernel adds the
+// shift to both cells before the bounds test and the address, as the JAX
+// package's world_to_map does on a view. The shift is a template switch
+// (kShift): a static map's launch (shift null) runs the same code as
+// before it existed.
+//
 // What bounds it on an H100: the bytes it must move are the valid vertices,
 // the output and the distinct map cells the samples read (on the product
 // slice's wave, 4096 lanes x 21 polygons x 4 edges x 16 samples: 5.5 MB),
@@ -68,11 +77,12 @@ __device__ __forceinline__ float cell_of(float p, float o, float res) {
 //
 // Shared memory: for each of the block's lanes, R * V edges of 4 floats
 // (sx, sy, dx, dy) and R valid counts; then the S edge parameters.
-template <int kS>
+template <int kS, bool kShift>
 __global__ void footprint_cost_kernel(
     const float* __restrict__ data, const float* __restrict__ origin,
     const float* __restrict__ res, const int* __restrict__ bounds,
-    const float* __restrict__ verts, const int* __restrict__ n_valid,
+    const int* __restrict__ shift, const float* __restrict__ verts,
+    const int* __restrict__ n_valid,
     const float* __restrict__ t, float* __restrict__ out, int Bm, int R,
     int H, int W, int V, int S_rt, int lanes_per_block, int warps_per_lane) {
   const int S = kS ? kS : S_rt;
@@ -123,6 +133,12 @@ __global__ void footprint_cost_kernel(
     hi_x = min(__ldg(bounds + 4 * b + 2), W);
     hi_y = min(__ldg(bounds + 4 * b + 3), H);
   }
+  // The view's cell shift, exact as a float below 2^24 cells.
+  float sh_x = 0.0f, sh_y = 0.0f;
+  if (kShift) {
+    sh_x = static_cast<float>(__ldg(shift + 2 * b));
+    sh_y = static_cast<float>(__ldg(shift + 2 * b + 1));
+  }
   const float* map = data + static_cast<size_t>(b) * H * W;
   // Each lane's (edge, sample) pair advances by 32 samples a step.
   const int dv = 32 / S, ds = 32 - dv * S;
@@ -160,10 +176,12 @@ __global__ void footprint_cost_kernel(
           int off = -2;
           if (k + 32 * u < n[g]) {
             const float4 ed = pe[g][v];
-            const float fx =
-                cell_of(__fadd_rn(ed.x, __fmul_rn(ed.z, tt)), ox, rs);
-            const float fy =
-                cell_of(__fadd_rn(ed.y, __fmul_rn(ed.w, tt)), oy, rs);
+            float fx = cell_of(__fadd_rn(ed.x, __fmul_rn(ed.z, tt)), ox, rs);
+            float fy = cell_of(__fadd_rn(ed.y, __fmul_rn(ed.w, tt)), oy, rs);
+            if (kShift) {
+              fx = __fadd_rn(fx, sh_x);
+              fy = __fadd_rn(fy, sh_y);
+            }
             off = (fx >= lo_x && fx < hi_x && fy >= lo_y && fy < hi_y)
                       ? static_cast<int>(fy) * W + static_cast<int>(fx)
                       : -1;
@@ -196,25 +214,50 @@ __global__ void footprint_cost_kernel(
   }
 }
 
-template <int kS>
+template <int kS, bool kShift>
 cudaError_t launch_footprint(unsigned blocks, int threads, long long smem,
                              cudaStream_t stream, const float* data,
                              const float* origin, const float* res,
-                             const int* bounds, const float* verts,
-                             const int* n_valid, const float* t, float* out,
-                             int Bm, int R, int H, int W, int V, int S,
-                             int lanes_per_block, int warps_per_lane) {
+                             const int* bounds, const int* shift,
+                             const float* verts, const int* n_valid,
+                             const float* t, float* out, int Bm, int R, int H,
+                             int W, int V, int S, int lanes_per_block,
+                             int warps_per_lane) {
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
-        footprint_cost_kernel<kS>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
+        footprint_cost_kernel<kS, kShift>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
     if (err != cudaSuccess) return err;
   }
-  footprint_cost_kernel<kS><<<blocks, threads, static_cast<size_t>(smem),
-                              stream>>>(data, origin, res, bounds, verts,
-                                        n_valid, t, out, Bm, R, H, W, V, S,
-                                        lanes_per_block, warps_per_lane);
+  footprint_cost_kernel<kS, kShift>
+      <<<blocks, threads, static_cast<size_t>(smem), stream>>>(
+          data, origin, res, bounds, shift, verts, n_valid, t, out, Bm, R, H,
+          W, V, S, lanes_per_block, warps_per_lane);
   return cudaGetLastError();
+}
+
+// The instance for S samples an edge, with or without a shift.
+template <bool kShift>
+cudaError_t launch_footprint_s(unsigned blocks, int threads, long long smem,
+                               cudaStream_t stream, const float* data,
+                               const float* origin, const float* res,
+                               const int* bounds, const int* shift,
+                               const float* verts, const int* n_valid,
+                               const float* t, float* out, int Bm, int R,
+                               int H, int W, int V, int S,
+                               int lanes_per_block, int warps_per_lane) {
+  cudaError_t (*launch)(unsigned, int, long long, cudaStream_t, const float*,
+                        const float*, const float*, const int*, const int*,
+                        const float*, const int*, const float*, float*, int,
+                        int, int, int, int, int, int, int) =
+      S == 8    ? launch_footprint<8, kShift>
+      : S == 16 ? launch_footprint<16, kShift>
+      : S == 32 ? launch_footprint<32, kShift>
+      : S == 64 ? launch_footprint<64, kShift>
+                : launch_footprint<0, kShift>;
+  return launch(blocks, threads, smem, stream, data, origin, res, bounds,
+                shift, verts, n_valid, t, out, Bm, R, H, W, V, S,
+                lanes_per_block, warps_per_lane);
 }
 
 }  // namespace neo_mpc
@@ -229,16 +272,18 @@ static long long footprint_cost_smem(int R, int V, int S,
 }
 
 // data (Bm, H, W), origin (Bm, 2), res (Bm,), bounds (Bm, 4) int32 or null
-// (the whole grid), verts (Bm, R, V, 2), n_valid (Bm, R) int32, t (S,);
-// out (Bm, R). All contiguous. lanes_per_block * warps_per_lane warps a
-// block. Returns cudaGetLastError().
+// (the whole grid), shift (Bm, 2) int32 or null (no shift), verts
+// (Bm, R, V, 2), n_valid (Bm, R) int32, t (S,); out (Bm, R). All
+// contiguous. lanes_per_block * warps_per_lane warps a block. Returns
+// cudaGetLastError().
 extern "C" int neo_footprint_cost_f32(int Bm, int R, int H, int W, int V,
                                       int S, int lanes_per_block,
                                       int warps_per_lane, const void* data,
                                       const void* origin, const void* res,
-                                      const void* bounds, const void* verts,
-                                      const void* n_valid, const void* t,
-                                      void* out, void* stream) {
+                                      const void* bounds, const void* shift,
+                                      const void* verts, const void* n_valid,
+                                      const void* t, void* out,
+                                      void* stream) {
   if (static_cast<long long>(Bm) * R == 0) return 0;
   const int threads = 32 * lanes_per_block * warps_per_lane;
   if (S < 1 || lanes_per_block < 1 || warps_per_lane < 1 || threads > 1024)
@@ -246,20 +291,21 @@ extern "C" int neo_footprint_cost_f32(int Bm, int R, int H, int W, int V,
   const long long smem = footprint_cost_smem(R, V, S, lanes_per_block);
   const unsigned blocks =
       static_cast<unsigned>((Bm + lanes_per_block - 1) / lanes_per_block);
-  cudaError_t (*launch)(unsigned, int, long long, cudaStream_t, const float*,
-                        const float*, const float*, const int*, const float*,
-                        const int*, const float*, float*, int, int, int, int,
-                        int, int, int, int) =
-      S == 8    ? neo_mpc::launch_footprint<8>
-      : S == 16 ? neo_mpc::launch_footprint<16>
-      : S == 32 ? neo_mpc::launch_footprint<32>
-      : S == 64 ? neo_mpc::launch_footprint<64>
-                : neo_mpc::launch_footprint<0>;
-  return static_cast<int>(launch(
-      blocks, threads, smem, static_cast<cudaStream_t>(stream),
-      static_cast<const float*>(data), static_cast<const float*>(origin),
-      static_cast<const float*>(res), static_cast<const int*>(bounds),
-      static_cast<const float*>(verts), static_cast<const int*>(n_valid),
-      static_cast<const float*>(t), static_cast<float*>(out), Bm, R, H, W, V,
-      S, lanes_per_block, warps_per_lane));
+  const auto cs = static_cast<cudaStream_t>(stream);
+  const auto* d = static_cast<const float*>(data);
+  const auto* o = static_cast<const float*>(origin);
+  const auto* r = static_cast<const float*>(res);
+  const auto* bo = static_cast<const int*>(bounds);
+  const auto* sh = static_cast<const int*>(shift);
+  const auto* v = static_cast<const float*>(verts);
+  const auto* nv = static_cast<const int*>(n_valid);
+  const auto* tt = static_cast<const float*>(t);
+  auto* ou = static_cast<float*>(out);
+  if (sh != nullptr)
+    return static_cast<int>(neo_mpc::launch_footprint_s<true>(
+        blocks, threads, smem, cs, d, o, r, bo, sh, v, nv, tt, ou, Bm, R, H,
+        W, V, S, lanes_per_block, warps_per_lane));
+  return static_cast<int>(neo_mpc::launch_footprint_s<false>(
+      blocks, threads, smem, cs, d, o, r, bo, sh, v, nv, tt, ou, Bm, R, H, W,
+      V, S, lanes_per_block, warps_per_lane));
 }

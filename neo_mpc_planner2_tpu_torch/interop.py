@@ -39,15 +39,16 @@ def _t(a, device):
 
 
 def costmap_from_numpy(src, device="cuda") -> Costmap:
-    """data, origin, resolution (+ optional flat, flat_u8). A rolling-window
-    view (win_cells set) is refused: the port has no such regime yet."""
-    if _get(src, "win_cells") is not None:
-        raise NotImplementedError("rolling-window views are not ported yet")
+    """data, origin, resolution (+ optional flat, flat_u8, and a
+    rolling-window view's win_lo and win_cells)."""
+    win_cells = _get(src, "win_cells")
     return Costmap(data=_t(_get(src, "data"), device),
                    origin=_t(_get(src, "origin"), device),
                    resolution=_t(_get(src, "resolution"), device),
                    flat=_t(_get(src, "flat"), device),
-                   flat_u8=_t(_get(src, "flat_u8"), device))
+                   flat_u8=_t(_get(src, "flat_u8"), device),
+                   win_lo=_t(_get(src, "win_lo"), device),
+                   win_cells=None if win_cells is None else int(win_cells))
 
 
 def plan_from_numpy(src, device="cuda") -> Plan:

@@ -121,11 +121,12 @@ def launch_spd_inv(M: torch.Tensor) -> torch.Tensor:
 
 
 def launch_footprint_cost(data, origin, res, bounds, verts, n_valid, t,
-                          shape: tuple[int, int] | None = None):
+                          shift=None, shape: tuple[int, int] | None = None):
     """data (Bm, H, W), origin (Bm, 2), res (Bm,), bounds (Bm, 4) int32 or
     None (the whole grid), verts (Bm, R, V, 2), n_valid (Bm, R) int32,
-    t (S,). shape: (lanes_per_block, warps_per_lane), k3_launch_shape(R) by
-    default. Returns the (Bm, R) costs."""
+    t (S,), shift (Bm, 2) int32 or None (a view's win_lo). shape:
+    (lanes_per_block, warps_per_lane), k3_launch_shape(R) by default.
+    Returns the (Bm, R) costs."""
     lib = load_library()
     Bm, H, W = data.shape
     R, V = verts.shape[1], verts.shape[2]
@@ -134,7 +135,8 @@ def launch_footprint_cost(data, origin, res, bounds, verts, n_valid, t,
     rc = lib.neo_footprint_cost_f32(
         Bm, R, H, W, V, t.shape[0], lanes, warps, data.data_ptr(),
         origin.data_ptr(), res.data_ptr(),
-        None if bounds is None else bounds.data_ptr(), verts.data_ptr(),
+        None if bounds is None else bounds.data_ptr(),
+        None if shift is None else shift.data_ptr(), verts.data_ptr(),
         n_valid.data_ptr(), t.data_ptr(), out.data_ptr(), _stream(data.device))
     _check(rc, "footprint_cost")
     return out

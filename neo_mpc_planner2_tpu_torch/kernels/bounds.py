@@ -13,7 +13,7 @@ from __future__ import annotations
 
 import torch
 
-from ..ops.costmap import Costmap, _in_bounds_clipped, world_to_map
+from ..ops.costmap import Costmap, _in_bounds_clipped, _lane, world_to_map
 
 __all__ = ["H100_BYTES_PER_S", "H100_F32_OPS_PER_S", "bound",
            "inverse_ops", "qp_admm_work", "spd_inv_work",
@@ -80,8 +80,8 @@ def spd_inv_work(B: int, m: int) -> dict:
 K3_OPS_PER_SAMPLE = 17
 
 
-def footprint_cells_touched(data, origin, res, bounds, verts, n_valid,
-                            t) -> int:
+def footprint_cells_touched(data, origin, res, bounds, verts, n_valid, t,
+                            shift=None) -> int:
     """The distinct map cells that K3's samples read (arguments as in
     footprint_cost_batch): samples of valid edges inside the bounds
     rectangle (or the grid), counted once per (lane, cell)."""
@@ -95,6 +95,9 @@ def footprint_cells_touched(data, origin, res, bounds, verts, n_valid,
            + (ends - verts)[..., :, None, :] * t[:, None])  # (Bm,R,V,S,2)
     cm = Costmap(data=data, origin=origin, resolution=res)
     mx, my = world_to_map(cm, pts[..., 0], pts[..., 1])
+    if shift is not None:
+        mx = mx + _lane(shift[:, 0], mx)
+        my = my + _lane(shift[:, 1], my)
     inb, mxc, myc = _in_bounds_clipped(cm, mx, my, bounds)
     read = inb & (idx < nv)[..., None]
     lane = torch.arange(Bm, device=data.device).reshape(
@@ -103,23 +106,26 @@ def footprint_cells_touched(data, origin, res, bounds, verts, n_valid,
     return int(torch.unique(cells).numel())
 
 
-def footprint_cost_work(data, origin, res, bounds, verts, n_valid,
-                        t) -> dict:
+def footprint_cost_work(data, origin, res, bounds, verts, n_valid, t,
+                        shift=None) -> dict:
     """K3 on these inputs: the valid edges' samples, the valid vertices,
-    the counts, the output, the per-lane origin, resolution and bounds, and
-    the distinct cells the samples read."""
+    the counts, the output, the per-lane origin, resolution, bounds and
+    shift, and the distinct cells the samples read. A shift adds two
+    operations a sample (one add in x and y)."""
     Bm, R, V = verts.shape[0], verts.shape[1], verts.shape[2]
     S = t.shape[0]
     nv = n_valid.clamp(0, V).long()
     samples = int(nv.sum()) * S
     cells = footprint_cells_touched(data, origin, res, bounds, verts,
-                                    n_valid, t)
+                                    n_valid, t, shift)
     nbytes = F32 * (2 * int(nv.sum())         # valid vertices
                     + 2 * Bm * R              # n_valid, out
                     + S                       # t
                     + 3 * Bm                  # origin, res
                     + (4 * Bm if bounds is not None else 0)
+                    + (2 * Bm if shift is not None else 0)
                     + cells)
-    out = bound(samples * K3_OPS_PER_SAMPLE, nbytes)
+    ops = K3_OPS_PER_SAMPLE + (2 if shift is not None else 0)
+    out = bound(samples * ops, nbytes)
     out.update(samples=samples, cells=cells)
     return out

@@ -39,8 +39,8 @@ SIGNATURES = {
     "neo_qp_admm_f32": (_i, [_i, _i, _i, _f, _f, _f] + [_vp] * 20),
     # m, B, warps_per_block; A, X; stream.
     "neo_spd_inv_f32": (_i, [_i] * 3 + [_vp] * 3),
-    # Bm, R, H, W, V, S, lanes_per_block, warps_per_lane; 8 arrays; stream.
-    "neo_footprint_cost_f32": (_i, [_i] * 8 + [_vp] * 9),
+    # Bm, R, H, W, V, S, lanes_per_block, warps_per_lane; 9 arrays; stream.
+    "neo_footprint_cost_f32": (_i, [_i] * 8 + [_vp] * 10),
 }
 
 # What the last build_library call did: {"path", "built", "seconds", "log"}.

@@ -5,6 +5,8 @@ equally spaced points; the max nearest-cell cost over the valid edges is the
 footprint cost (Costmap2d.getFootprintCost / footprintCostAtPose). The
 polygon is padded to a fixed vertex count with a valid count, so footprints
 of different robots batch together. Exact (cell-walk) mode is not ported yet.
+On a rolling-window view the samples read the world map through the window,
+as world_to_map and cost_at_cell do there.
 
 The batched cost is `footprint_cost_batch`: the CUDA kernel K3
 (`csrc/footprint_cost.cu`) for CUDA tensors, `footprint_cost_batch_plain`
@@ -22,12 +24,12 @@ import math
 import torch
 
 from ..kernels import binding
-from .costmap import Costmap, cost_at_cell, world_to_map
+from .costmap import Costmap, _lane, cost_at_cell, grid_origin, world_to_map
 from .se2 import se2_apply
 
 __all__ = ["Footprint", "transform_footprint", "edge_parameters",
            "footprint_cost_batch", "footprint_cost_batch_plain",
-           "footprint_cost", "footprint_cost_at_pose"]
+           "footprint_cost", "kernel_map_arguments", "footprint_cost_at_pose"]
 
 
 @dataclasses.dataclass
@@ -93,15 +95,18 @@ K3_MAX_VERTICES = 16
 K3_MAX_SAMPLES = 64
 
 
-def footprint_cost_batch_plain(data, origin, res, bounds, verts, n_valid, t):
+def footprint_cost_batch_plain(data, origin, res, bounds, verts, n_valid, t,
+                               shift=None):
     """Plain PyTorch version of K3, the reference the kernel is held to.
 
     data (Bm, H, W), origin (Bm, 2), res (Bm,), bounds (Bm, 4) int32
     (lo_x, lo_y, hi_x, hi_y) inside the grid or None for the whole grid,
     verts (Bm, R, V, 2) placed polygons, n_valid (Bm, R) int32, t (S,) edge
-    parameters -> (Bm, R): per polygon, the max over the valid edges of the
-    nearest-cell cost at p = s + (e - s)·t, cell floor((p - o) / res),
-    lethal outside the bounds."""
+    parameters, shift (Bm, 2) int32 (col, row) cells or None -> (Bm, R):
+    per polygon, the max over the valid edges of the nearest-cell cost at
+    p = s + (e - s)·t, cell floor((p - o) / res) + shift, lethal outside
+    the bounds. A view passes its window's origin, its window as bounds and
+    win_lo as shift."""
     V = verts.shape[-2]
     idx = torch.arange(V, dtype=torch.int32, device=verts.device)
     nv = n_valid[..., None]                                    # (Bm, R, 1)
@@ -111,22 +116,28 @@ def footprint_cost_batch_plain(data, origin, res, bounds, verts, n_valid, t):
            + (ends - verts)[..., :, None, :] * t[:, None])     # (Bm,R,V,S,2)
     cm = Costmap(data=data, origin=origin, resolution=res)
     mx, my = world_to_map(cm, pts[..., 0], pts[..., 1])
+    if shift is not None:
+        mx = mx + _lane(shift[:, 0], mx)
+        my = my + _lane(shift[:, 1], my)
     costs = cost_at_cell(cm, mx, my, bounds)
     costs = torch.where((idx < nv)[..., None], costs, -torch.inf)
     return costs.amax(dim=(-2, -1))
 
 
-def _check_kernel_inputs(data, origin, res, bounds, verts, n_valid, t):
+def _check_kernel_inputs(data, origin, res, bounds, verts, n_valid, t,
+                         shift=None):
     Bm, H, W = data.shape
     R, V = verts.shape[1], verts.shape[2]
     named = dict(data=data, origin=origin, res=res, bounds=bounds,
-                 verts=verts, n_valid=n_valid, t=t)
+                 shift=shift, verts=verts, n_valid=n_valid, t=t)
     shapes = dict(data=(Bm, H, W), origin=(Bm, 2), res=(Bm,), bounds=(Bm, 4),
-                  verts=(Bm, R, V, 2), n_valid=(Bm, R), t=(t.shape[0],))
+                  shift=(Bm, 2), verts=(Bm, R, V, 2), n_valid=(Bm, R),
+                  t=(t.shape[0],))
     for name, a in named.items():
         if a is None:
             continue
-        want = torch.int32 if name in ("bounds", "n_valid") else torch.float32
+        want = (torch.int32 if name in ("bounds", "shift", "n_valid")
+                else torch.float32)
         if a.device != data.device:
             raise ValueError("footprint_cost_batch: operands on different "
                              "devices")
@@ -152,22 +163,23 @@ def _check_kernel_inputs(data, origin, res, bounds, verts, n_valid, t):
                          "vertices a lane do not fit a block's shared memory")
 
 
-def footprint_cost_batch(data, origin, res, bounds, verts, n_valid, t):
+def footprint_cost_batch(data, origin, res, bounds, verts, n_valid, t,
+                         shift=None):
     """Batched footprint boundary max-cost (arguments as in
     footprint_cost_batch_plain): kernel K3 for CUDA tensors, the plain
     version for CPU tensors; anything else raises. R polygons of a lane
     share its map, which is read in place."""
     if data.device.type == "cpu":
         return footprint_cost_batch_plain(data, origin, res, bounds, verts,
-                                          n_valid, t)
+                                          n_valid, t, shift)
     if data.device.type != "cuda":
         raise ValueError(f"footprint_cost_batch: unsupported device "
                          f"{data.device}")
-    _check_kernel_inputs(data, origin, res, bounds, verts, n_valid, t)
+    _check_kernel_inputs(data, origin, res, bounds, verts, n_valid, t, shift)
     if verts.shape[0] * verts.shape[1] == 0:
         return verts.new_empty(verts.shape[:2])
     out = binding.launch_footprint_cost(data, origin, res, bounds, verts,
-                                        n_valid, t)
+                                        n_valid, t, shift)
     footprint_cost_batch.launches += 1
     return out
 
@@ -184,16 +196,16 @@ def footprint_cost(cm: Costmap, fp: Footprint, samples: int = 32,
     The polygons' leading dims start with the map's (*lead) and may carry
     more after them (a wave's candidates and steps): each polygon reads its
     lane's map. bounds: optional (*lead, 4) int32 rectangle inside the grid
-    (a ProductPatchSampler's); samples outside it read lethal. Returns the
-    polygons' leading shape, without gradient."""
+    (a ProductPatchSampler's); samples outside it read lethal. On a view
+    the samples read through its window (K3 with the window's origin, the
+    window as bounds and win_lo as shift); a view takes no bounds, as no
+    patch sampler is built on one. Returns the polygons' leading shape,
+    without gradient."""
     if mode == "exact":
         raise NotImplementedError(
             "footprint_exact (cell walk) is not ported yet (ROADMAP.md)")
     if mode not in ("gather", "onehot"):
         raise ValueError(f"unknown footprint sampling mode {mode!r}")
-    if cm.win_cells is not None:
-        raise NotImplementedError(
-            "rolling-window views are not ported yet (ROADMAP.md)")
     lead = cm.data.shape[:-2]
     verts = fp.vertices.detach()
     poly = verts.shape[:-2]
@@ -202,16 +214,31 @@ def footprint_cost(cm: Costmap, fp: Footprint, samples: int = 32,
                          f"start with the map's lead dims {tuple(lead)}")
     Bm = math.prod(lead)
     H, W, V = cm.data.shape[-2], cm.data.shape[-1], verts.shape[-2]
+    origin, bounds, shift = kernel_map_arguments(cm, bounds)
+    flat = lambda a, *tail: (None if a is None else a.expand(
+        lead + tail).reshape((Bm,) + tail).contiguous())
     out = footprint_cost_batch(
-        cm.data.reshape(Bm, H, W),
-        cm.origin.expand(lead + (2,)).reshape(Bm, 2).contiguous(),
-        cm.resolution.expand(lead).reshape(Bm).contiguous(),
-        None if bounds is None else bounds.reshape(Bm, 4).contiguous(),
-        verts.reshape(Bm, -1, V, 2).contiguous(),
+        cm.data.reshape(Bm, H, W), flat(origin, 2), flat(cm.resolution),
+        flat(bounds, 4), verts.reshape(Bm, -1, V, 2).contiguous(),
         torch.broadcast_to(fp.n_valid, poly).reshape(Bm, -1).to(
             torch.int32).contiguous(),
-        _edge_parameters_on(samples, verts.device))
+        _edge_parameters_on(samples, verts.device), flat(shift, 2))
     return out.reshape(poly)
+
+
+def kernel_map_arguments(cm: Costmap, bounds=None):
+    """K3's per-lane map arguments for `cm`: (origin (*lead, 2), bounds
+    (*lead, 4) int32 or None, shift (*lead, 2) int32 or None). For a view:
+    the window's origin (grid_origin), the window's rectangle in
+    world-frame cells, and win_lo; a view takes no other bounds."""
+    if cm.win_cells is None:
+        return cm.origin, bounds, None
+    if bounds is not None:
+        raise ValueError("footprint_cost: a rolling-window view takes no "
+                         "bounds rectangle")
+    shift = cm.win_lo.to(torch.int32)
+    return (torch.stack(grid_origin(cm), dim=-1),
+            torch.cat([shift, shift + cm.win_cells], dim=-1), shift)
 
 
 def footprint_cost_at_pose(cm: Costmap, fp: Footprint, pose: torch.Tensor,

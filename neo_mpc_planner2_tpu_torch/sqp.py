@@ -469,7 +469,8 @@ def _batch_fobj(cfg: MpcConfig, objective, scens):
     """The per-solve objective over all lanes, with the per-solve constants
     hoisted: in parity mode the footprint term and the point sampler; in
     product mode, with solver_costmap_patch > 0, the patch sampler around
-    each lane's pose."""
+    each lane's pose, except on a rolling-window view, which reads the
+    whole map through its window as the JAX package does."""
     cx, cy = scens.current_pose[:, 0], scens.current_pose[:, 1]
     if getattr(objective, "parity", True):
         with torch.no_grad():
@@ -477,7 +478,7 @@ def _batch_fobj(cfg: MpcConfig, objective, scens):
         sampler = make_point_sampler(scens.costmap, cx, cy,
                                      cfg.solver_costmap_patch)
         return lambda u: objective(u, scens, fp_term, point_sampler=sampler)
-    if cfg.solver_costmap_patch > 0:
+    if cfg.solver_costmap_patch > 0 and scens.costmap.win_cells is None:
         sampler = ProductPatchSampler(scens.costmap, cx, cy,
                                       cfg.solver_costmap_patch)
         return lambda u: objective(u, scens, point_sampler=sampler)

@@ -350,3 +350,97 @@ def test_prox_step_on_the_card_matches_the_cpu(dev):
     cpu = step(*tree_map(lambda t: t.cpu(), args))
     diff = (gpu.cmd_vel.cpu() - cpu.cmd_vel).abs().amax(-1)
     assert float((diff <= 1e-3).float().mean()) >= 0.99
+
+
+@pytest.mark.parametrize("R", [1, 3, 21])
+def test_footprint_cost_kernel_with_a_shift_matches_plain(dev, R):
+    """K3 through a 40x40 rolling-window view (the window's origin, its
+    rectangle, the cell shift) against its plain version, exactly: the
+    synthetic polygons, and grid-aligned rectangles whose corners sit on
+    the window-local cells -1, 0, 1, 39, 40 and 41, so that samples lie on
+    the window's edges and cell boundaries."""
+    rng = np.random.default_rng(40 + R)
+    B = 131
+    data, origin, res, verts, nv = _chip_smoke()._k3_inputs(rng, B, R, dev)
+    lo = torch.as_tensor(rng.integers(0, 25, (B, 2)), dtype=torch.int32,
+                         device=dev)
+    view = cmap.Costmap(data=data, origin=origin, resolution=res, win_lo=lo,
+                        win_cells=40)
+    o, bounds, shift = fpm.kernel_map_arguments(view)
+    ow = o.cpu().numpy()
+    f = np.float32
+    edge = np.asarray([-1, 0, 1, 39, 40, 41])
+    v = verts.cpu().numpy()
+    for b in range(B):
+        for r in range(0, R, 2):
+            k0 = rng.choice(edge, 2)
+            k1 = k0 + rng.integers(1, 4, 2)
+            a = ow[b] + k0.astype(f) * f(0.05)
+            c = ow[b] + k1.astype(f) * f(0.05)
+            v[b, r, :4] = [[c[0], c[1]], [a[0], c[1]], [a[0], a[1]],
+                           [c[0], a[1]]]
+    verts = torch.as_tensor(v, device=dev)
+    for S in (8, 16, 32, 64):
+        t = fpm.edge_parameters(S, dev)
+        args = (data, o.contiguous(), res, bounds.contiguous(), verts, nv, t,
+                shift.contiguous())
+        before = fpm.footprint_cost_batch.launches
+        got = fpm.footprint_cost_batch(*args)
+        torch.cuda.synchronize()
+        assert fpm.footprint_cost_batch.launches == before + 1
+        want = fpm.footprint_cost_batch_plain(*args)
+        assert torch.equal(got, want)
+        assert bool((want == 1.0).any()) and bool((want < 1.0).any())
+        # The view through footprint_cost reads the same.
+        placed = fpm.Footprint(vertices=verts, n_valid=nv)
+        assert torch.equal(fpm.footprint_cost(view, placed, S), got)
+
+
+def test_window_write_and_read_on_the_card_match_the_cpu(dev):
+    """update_window (an indexed write, with the u8 view refreshed) and
+    extract_window (a gather) on the card equal the CPU bit for bit."""
+    rng = np.random.default_rng(7)
+    data = torch.as_tensor(rng.uniform(0, 1, (64, 40, 48)).astype(np.float32))
+    cells = torch.as_tensor(rng.uniform(0, 1, (64, 16, 16)).astype(
+        np.float32))
+    cells[:, 0, 0] = float("nan")
+    lo = torch.as_tensor(rng.integers(-5, 45, (64, 2)), dtype=torch.int32)
+    cm = cmap.Costmap(data=data, origin=torch.zeros(64, 2),
+                      resolution=torch.full((64,), 0.05)).with_flat(u8=True)
+    cpu = cm.update_window(cells, lo)
+    gpu = cmap.Costmap(data=data.to(dev), origin=cm.origin.to(dev),
+                       resolution=cm.resolution.to(dev)).with_flat(
+        u8=True).update_window(cells.to(dev), lo.to(dev))
+    for name in ("data", "flat", "flat_u8"):
+        assert torch.equal(getattr(gpu, name).cpu(), getattr(cpu, name))
+    rows, cols = lo[:, 1] - 3, lo[:, 0] + 2
+    assert torch.equal(
+        cmap.extract_window(data.to(dev), rows.to(dev), cols.to(dev), 16,
+                            9).cpu(),
+        cmap.extract_window(data, rows, cols, 16, 9))
+
+
+@pytest.mark.parametrize("name", ["rolling", "dynamic", "updates"])
+def test_live_map_step_on_the_card_matches_the_cpu(dev, name):
+    """The first tick of each live-map slice of chip_smoke.py on 64 lanes
+    (through the view, the re-synthesized map, the map after its first
+    update), on the card against the CPU: K1 and K3 launched (K3 with the
+    view's shift on the rolling slice), commands within 1e-3 on at least
+    99 % of lanes."""
+    import neo_mpc_planner2_tpu_torch as tp
+    from neo_mpc_planner2_tpu_torch.tree import tree_map
+
+    cs = _chip_smoke()
+    cfg, sb, run = cs.slice_inputs(name, 64, dev, seed=3)
+    qp0, fp0 = sqp.qp_admm.launches, fpm.footprint_cost_batch.launches
+    with cs.K3Recorder() as rec:
+        gpu = tp.batch_simulate(cfg, sb, 1, **run).cmds[:, 0].cpu()
+    assert sqp.qp_admm.launches > qp0
+    assert fpm.footprint_cost_batch.launches > fp0
+    shifted = {key[2] is False for key in rec.args}
+    assert shifted == ({True} if name == "rolling" else {False})
+    to_cpu = lambda t: t.cpu()
+    cpu = tp.batch_simulate(cfg, tree_map(to_cpu, sb), 1,
+                            **tree_map(to_cpu, run)).cmds[:, 0]
+    diff = (gpu - cpu).abs().amax(-1)
+    assert float((diff <= 1e-3).float().mean()) >= 0.99

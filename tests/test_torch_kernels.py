@@ -378,7 +378,8 @@ def test_chip_smoke_kernels_line_covers_every_kernel():
                                 bound_ms=0.002, bound_by="bytes",
                                 library_ms=None)
                 for k in chip_smoke.KERNELS}
-    assert list(chip_smoke.SLICES) == ["fleet", "product", "prox"]
+    assert list(chip_smoke.SLICES) == ["fleet", "product", "prox", "rolling",
+                                       "dynamic", "updates"]
     entries = chip_smoke.kernels_line(
         {name: slice_ for name in chip_smoke.SLICES}, measured)
     required = {"name", "route", "source", "replaces", "launches",
@@ -386,9 +387,9 @@ def test_chip_smoke_kernels_line_covers_every_kernel():
                 "share_of_bound", "launches_per_tick", "library_ms"}
     for e in entries:
         assert set(e) == set(chip_smoke.KERNEL_KEYS) >= required
-        assert e["launches_per_tick"] == {"fleet": 2.0, "product": 2.0,
-                                          "prox": 2.0}
-        assert e["launches"] == 120
+        assert e["launches_per_tick"] == {name: 2.0
+                                          for name in chip_smoke.SLICES}
+        assert e["launches"] == 240
         assert e["share_of_bound"] == pytest.approx(0.2)
 
 
@@ -424,7 +425,8 @@ def test_chip_smoke_last_lines_name_the_card(monkeypatch, capsys):
         "ticks": 20})
     monkeypatch.setattr(chip_smoke, "phase_card_vs_cpu", lambda *a: None)
     monkeypatch.setattr(chip_smoke, "phase_k3_captured",
-                        lambda *a: {"wave_R21": one})
+                        lambda *a, **kw: {"wave_R21": one})
+    monkeypatch.setattr(chip_smoke, "phase_map_refresh", lambda *a: {})
     monkeypatch.setattr(chip_smoke, "phase_launches_per_tick",
                         lambda d, s: {})
     assert chip_smoke.main() == 0
@@ -538,26 +540,35 @@ def test_k2_launch_shape_follows_the_card(monkeypatch, sms, wide_up_to):
 
 
 def test_launch_footprint_cost_packs_operands_in_c_order(stub_library):
+    """binding.launch_footprint_cost hands the sizes, the launch shape, the
+    operands (the optional bounds and the optional view shift as null
+    pointers when absent) and the output it allocates, in the order of
+    neo_footprint_cost_f32's parameters."""
     Bm, R, H, W, V, S = 3, 21, 16, 20, 8, 16
     data = torch.zeros(Bm, H, W)
     origin, res = torch.zeros(Bm, 2), torch.ones(Bm)
     bounds = torch.zeros(Bm, 4, dtype=torch.int32)
+    shift = torch.zeros(Bm, 2, dtype=torch.int32)
     verts = torch.zeros(Bm, R, V, 2)
     nv = torch.zeros(Bm, R, dtype=torch.int32)
     t = torch.zeros(S)
     out = binding.launch_footprint_cost(data, origin, res, bounds, verts, nv,
-                                        t)
+                                        t, shift)
     (name, args), = stub_library.calls
-    assert len(args) == len(_c_signature(name))
+    sig = _c_signature(name)
+    assert len(args) == len(sig)
+    assert [n for _, n in sig[8:-1]] == ["data", "origin", "res", "bounds",
+                                         "shift", "verts", "n_valid", "t",
+                                         "out"]
     assert args[:8] == (Bm, R, H, W, V, S, *binding.k3_launch_shape(R))
     assert list(args[8:-1]) == [a.data_ptr() for a in
-                                (data, origin, res, bounds, verts, nv, t,
-                                 out)]
+                                (data, origin, res, bounds, shift, verts, nv,
+                                 t, out)]
     assert out.shape == (Bm, R)
     binding.launch_footprint_cost(data, origin, res, None, verts, nv, t,
                                   shape=(2, 3))
     args = stub_library.calls[-1][1]
-    assert args[6:8] == (2, 3) and args[11] is None
+    assert args[6:8] == (2, 3) and args[11] is None and args[12] is None
 
 
 @pytest.mark.parametrize("fault", ["lane_minor", "float64", "strided",
@@ -600,6 +611,14 @@ def test_footprint_cost_kernel_limits_are_checked():
     wide = (meta(2, 1, 2 ** 24), *ok[1:])
     with pytest.raises(ValueError, match="too large"):
         tfp._check_kernel_inputs(*wide)
+    # A view's shift: (Bm, 2) int32 on the map's device.
+    tfp._check_kernel_inputs(*ok, meta(2, 2, dt=torch.int32))
+    with pytest.raises(TypeError, match="shift"):
+        tfp._check_kernel_inputs(*ok, meta(2, 2))
+    with pytest.raises(ValueError, match="shift"):
+        tfp._check_kernel_inputs(*ok, meta(2, 4, dt=torch.int32))
+    with pytest.raises(ValueError, match="devices"):
+        tfp._check_kernel_inputs(*ok, torch.zeros(2, 2, dtype=torch.int32))
 
 
 # --- the bound calculator ----------------------------------------------------
@@ -731,3 +750,39 @@ def test_bound_calculator_k3_counts_the_inputs_work():
     assert work["bound_by"] == "bytes"
     # The main-path wave: 4096 lanes x 21 polygons x 4 edges x 16 samples.
     assert 4096 * 21 * 4 * 16 * kb.K3_OPS_PER_SAMPLE == 93585408
+
+
+def test_bound_calculator_k3_counts_a_view_shift():
+    """On a view K3 also reads the (Bm, 2) shift and adds it to both cells
+    of a sample (two operations more); the cells it reads are the shifted
+    ones inside the window, counted against a loop in numpy float32."""
+    from neo_mpc_planner2_tpu_torch.kernels import bounds as kb
+
+    rng = np.random.default_rng(23)
+    B, R, S = 3, 4, 8
+    data, origin, res, _, verts, nv, t = _k3_case(B, R, S, rng, False)
+    shift = torch.as_tensor(rng.integers(0, 6, (B, 2)), dtype=torch.int32)
+    win = torch.cat([shift, shift + 14], -1)
+    args = (data, origin, res, win, verts, nv, t, shift)
+    cells = set()
+    f = np.float32
+    for b in range(B):
+        o, r_ = origin[b].numpy(), f(res[b])
+        sx, sy = shift[b].tolist()
+        for p in range(R):
+            n = int(nv[b, p])
+            for v in range(n):
+                s_ = verts[b, p, v].numpy()
+                e_ = verts[b, p, (v + 1) % n].numpy()
+                for tt in t.numpy():
+                    pt = (s_ + (e_ - s_) * tt).astype(f)
+                    mx, my = np.floor((pt - o).astype(f) / r_).astype(int)
+                    mx, my = mx + sx, my + sy
+                    if sx <= mx < sx + 14 and sy <= my < sy + 14:
+                        cells.add((b, my, mx))
+    assert kb.footprint_cells_touched(*args) == len(cells) > 0
+    work = kb.footprint_cost_work(*args)
+    samples = int(nv.sum()) * S
+    assert work["ops"] == (kb.K3_OPS_PER_SAMPLE + 2) * samples
+    assert work["bytes"] == 4 * (2 * int(nv.sum()) + 2 * B * R + S + 3 * B
+                                 + 4 * B + 2 * B + len(cells))

@@ -4,8 +4,10 @@
   footprints bit for bit; the maps, synthesized in float32 by the port and
   in float64 by the JAX host path, agree within 1e-6.
 - `batch_simulate` on the JAX-built scenario batch, carried over through
-  `interop`, reproduces the JAX package's main-path goldens within their
-  gates (tests/test_golden.py: cmds atol 1e-4, goal_dist atol 1e-3).
+  `interop`, reproduces the JAX package's goldens of the paths the port
+  runs within their gates (tests/test_golden.py: cmds atol 1e-4, goal_dist
+  atol 1e-3): the main path, the uint8 gather source and the rolling
+  window.
 - One direct run against JAX `batch_simulate` at the fleet operating point
   (quadratic-interpolation line search), and one at the product point
   (smooth objective, candidate wave, patch sampler), within the same gates.
@@ -38,8 +40,11 @@ sys.path.insert(0, str(ROOT / "scripts"))
 import record_golden  # noqa: E402
 
 GOLDEN_DIR = ROOT / "tests" / "golden"
-# The main-path goldens: static map, no compaction, sequential line search.
-MAIN_PATH_GOLDENS = ("mpo700_closed_loop", "two_phase_ls", "footprint_live")
+# The goldens of the paths the port runs: static map, no compaction,
+# sequential line search; the uint8 gather source; the rolling window (a
+# 48-cell view of a 96² world).
+PORTED_GOLDENS = ("mpo700_closed_loop", "two_phase_ls", "footprint_live",
+                  "u8_source", "rolling_window")
 
 
 def _tcfg(jc):
@@ -85,7 +90,7 @@ def test_scenario_batch_matches_jax(opts):
                                       N(getattr(want.state, name)))
 
 
-@pytest.mark.parametrize("variant", MAIN_PATH_GOLDENS)
+@pytest.mark.parametrize("variant", PORTED_GOLDENS)
 def test_batch_simulate_reproduces_golden(variant):
     cfg_over, run_over = record_golden.VARIANTS[variant]
     cfg = record_golden.suite_cfg(**cfg_over)
@@ -93,7 +98,8 @@ def test_batch_simulate_reproduces_golden(variant):
                plan_points=32,
                lethal_threshold=run_over.get("lethal_threshold"),
                pose_jitter=run_over.get("pose_jitter", 0.05))
-    res = batch_simulate(_tcfg(cfg), _from_jax(sb), 30)
+    res = batch_simulate(_tcfg(cfg), _from_jax(sb), 30,
+                         window_cells=run_over.get("window_cells"))
     with np.load(GOLDEN_DIR / f"{variant}.npz") as z:
         np.testing.assert_allclose(res.cmds.numpy(), z["cmds"], atol=1e-4,
                                    err_msg=f"{variant}: commands differ")
@@ -224,13 +230,21 @@ def test_mpc_engine_matches_jax():
 
 
 def test_unported_regimes_raise():
+    """What stays unported raises and points at ROADMAP.md: exact footprint
+    mode, lockstep-tail compaction and the solver_ls_wave schedule. (The
+    rolling window and the other live maps run: test_torch_livemap.py.)"""
     cfg = tp.fleet_config().replace(max_plan_points=16)
     sb = make_scenario_batch(cfg, 2, map_size=32, plan_points=8, device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        batch_simulate(cfg, sb, 1, window_cells=8)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
         batch_simulate(cfg.replace(footprint_exact=True), sb, 1,
                        parity=False)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        batch_simulate(cfg.replace(solver_compact_after=2,
+                                   solver_compact_frac=0.5,
+                                   solver_compact_min_batch=2), sb, 1)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        batch_simulate(cfg.replace(solver_ls_wave=2,
+                                   solver_ls_quad_interp=False), sb, 1)
 
 
 def test_importing_the_port_leaves_jax_out():
