@@ -3,22 +3,29 @@
     python3 chip_smoke.py
 
 Builds the CUDA kernels from `neo_mpc_planner2_tpu_torch/csrc/`, checks each
-against its plain PyTorch version on the card, and drives the six slices
-of the port through `batch_simulate` (4096 lanes, control_steps=3, 20
-ticks each): on 64x64 maps the fleet closed loop (parity objective), the
+(K3 in its sampled and its walk mode) against its plain PyTorch version on
+the card, and drives the seven slices of the port through `batch_simulate`
+(4096 lanes, control_steps=3, 20 ticks each): on 64x64 maps the fleet
+closed loop (parity objective), the
 product closed loop (smooth objective, candidate-wave line search, patch
 sampler) and the prox closed loop (the product point with the prox-FISTA
 solver, bench.py's prox row); then the fleet point on the three live maps
 of bench.py: a 64x64 rolling window over 128x128 world maps, six moving
 obstacles re-synthesized every tick, and one 16x16 obstacle update a lane
-a tick. For each slice it compares its first tick on the card with the
-same tick on the CPU, and reads the CUDA launches, the device's busy time
-and its idle share of a tick with torch.profiler; for each live map, the
-device time of the map's refresh a tick.
+a tick; and the fleet point in exact footprint mode (every footprint cost
+a cell walk: K3's walk mode). For each slice it compares its first tick on
+the card with the same tick on the CPU, and reads the CUDA launches, the
+device's busy time and its idle share of a tick with torch.profiler; for
+each live map, the device time of the map's refresh a tick. Then it serves
+over TCP: the port's `serve` on 127.0.0.1, driven by its OptimizerClient
+(`optimizer`, `tick`, `optimizer_batch` and `tick_batch` at fleet sizes,
+checkpoints), with each request's p50/p99 latency, and the same script on
+the card against the CPU.
 K3 is also held to its plain version, and timed, on the arguments of its
 own calls in the product slice (a gate at R = 1, a gradient call at R = 3
-and a wave at R = 21) and in the rolling slice (R = 1 through the view,
-with the window's cell shift), captured during the slices' warm-up runs.
+and a wave at R = 21), in the rolling slice (R = 1 through the view, with
+the window's cell shift) and in the exact slice (the walk), captured
+during the slices' warm-up runs.
 Every phase prints a line; any failure exits non-zero. The `kernels` line
 lists every kernel with its launches, its time beside its bound
 (`kernels/bounds.py`) and, where one PyTorch call computes the same
@@ -77,7 +84,7 @@ SLICE_TICKS = 20
 WARM_TICKS = 2
 LAUNCH_TICKS = {"fleet": (0, 10), "product": (0, 10),
                 "prox": (SLICE_TICKS // 2, 2), "rolling": (0, 10),
-                "dynamic": (0, 10), "updates": (0, 10)}
+                "dynamic": (0, 10), "updates": (0, 10), "exact": (0, 5)}
 
 
 def _nvidia_smi() -> str:
@@ -90,16 +97,21 @@ def _nvidia_smi() -> str:
 
 def _ptxas_report(log: str) -> dict:
     """Registers, stack and spill bytes per kernel instance from nvcc's
-    `-Xptxas -v` output, keyed like "qp_admm_m15", "spd_inv_m9_w4" or
-    "footprint_cost_S16"."""
+    `-Xptxas -v` output, keyed like "qp_admm_m15", "spd_inv_m9_w4",
+    "footprint_cost_S16" or "footprint_walk"."""
     import re
 
     report, name = {}, None
     for line in log.splitlines():
+        walk = re.search(r"Compiling entry function '\w*?"
+                         r"footprint_walk_kernel", line)
         hit = re.search(r"Compiling entry function '\w*?"
                         r"(qp_admm|spd_inv|footprint_cost)_kernelILi(\d+)E"
                         r"(?:Li(\d+)E)?(?:Lb(\d)E)?", line)
-        if hit:
+        if walk:
+            name = "footprint_walk"
+            report[name] = {}
+        elif hit:
             # K1 instances are keyed by m, K2's by m and warps a block, K3's
             # by S (S0: any other S) and "_shift" for a view's.
             key = "S" if hit.group(1) == "footprint_cost" else "m"
@@ -229,7 +241,7 @@ LAUNCH_EVENTS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
 def profile_run(fn) -> dict:
     """One call of fn() under torch.profiler: the CUDA launches (host API
     calls), the kernels that ran on the card, the device time of all of
-    them summed (ms) and that of each hand-written kernel of KERNELS."""
+    them summed (ms) and that of each hand-written kernel (_wrappers)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -245,9 +257,9 @@ def profile_run(fn) -> dict:
     return {"launches": sum(e.name in LAUNCH_EVENTS for e in events),
             "kernels": len(dev),
             "device_ms": sum(ms for _, ms in dev),
-            "kernel_ms": {k["name"]: sum(ms for n, ms in dev
-                                         if f"{k['name']}_kernel" in n)
-                          for k in KERNELS}}
+            "kernel_ms": {name: sum(ms for n, ms in dev
+                                    if f"{name}_kernel" in n)
+                          for name in _wrappers()}}
 
 
 def count_launches(fn, traces: int = 3) -> dict:
@@ -479,6 +491,90 @@ def _k3_inputs(rng, B: int, R: int, device):
             T(verts.reshape(B, R, 8, 2)), T(nv.reshape(B, R), torch.int32))
 
 
+def _walk_inputs(rng, B: int, R: int, device):
+    """_k3_inputs' maps and polygons (placed rectangles, padded triangles,
+    grid-aligned rectangles whose axis-aligned edges end on cell
+    boundaries, corners in the band below the origin, polygons off the
+    map) with two more kinds for the walk: every 7th polygon degenerate
+    (its vertices one point: zero-length edges) and every 11th a
+    diamond with its vertices on cell corners (diagonals through
+    corners)."""
+    import numpy as np
+    import torch
+
+    data, origin, res, verts, nv = _k3_inputs(rng, B, R, device)
+    v = verts.cpu().numpy().reshape(B * R, 8, 2)
+    n = np.arange(B * R)
+    v[n % 7 == 0, :4] = v[n % 7 == 0, :1]
+    o, r = np.float32(-1.6), np.float32(0.05)
+    k = rng.integers(4, 60, ((n % 11 == 0).sum(), 1, 2))
+    step = rng.integers(1, 5, ((n % 11 == 0).sum(), 1, 1))
+    diamond = np.asarray([[1, 0], [0, 1], [-1, 0], [0, -1]])[None] * step
+    v[n % 11 == 0, :4] = o + (k + diamond).astype(np.float32) * r
+    nvv = nv.cpu().numpy().reshape(-1)
+    nvv[n % 11 == 0] = 4
+    return (data, origin, res,
+            torch.as_tensor(v.reshape(B, R, 8, 2), device=device),
+            torch.as_tensor(nvv.reshape(B, R), device=device))
+
+
+def phase_k3_walk(device):
+    """K3's walk mode against the plain walk: exact (torch.equal), at
+    every shape and polygon kind of _walk_inputs, on the whole grid and
+    through a 40x40 rolling-window view at a random corner (the window's
+    origin, its rectangle and the cell shift); one launch a call. Timed at
+    B = 4096, R = 1 on the whole grid (the shape of the exact slice's
+    gate)."""
+    import numpy as np
+    import torch
+
+    from neo_mpc_planner2_tpu_torch.kernels import bounds
+    from neo_mpc_planner2_tpu_torch.ops import costmap as cmap
+    from neo_mpc_planner2_tpu_torch.ops import footprint as fpm
+
+    rng = np.random.default_rng(5)
+    cases, report = 0, {}
+    for B in (1, 131, 4096):
+        for R in (1, 3, 21):
+            data, origin, res, verts, nv = _walk_inputs(rng, B, R, device)
+            cm = cmap.Costmap(data=data, origin=origin, resolution=res)
+            view = cm.replace(win_lo=torch.as_tensor(
+                rng.integers(0, 25, (B, 2)), dtype=torch.int32,
+                device=device), win_cells=40)
+            v_origin, v_bounds, v_shift = fpm.kernel_map_arguments(view)
+            maps = {"grid": (origin, None, None),
+                    "view": (v_origin.contiguous(), v_bounds.contiguous(),
+                             v_shift.contiguous())}
+            for kind, (o, bnd, shift) in maps.items():
+                args = (data, o, res, bnd, verts, nv, shift)
+                before = fpm.footprint_walk_batch.launches
+                got = fpm.footprint_walk_batch(*args)
+                want = fpm.footprint_walk_batch_plain(*args)
+                torch.cuda.synchronize()
+                if fpm.footprint_walk_batch.launches != before + 1:
+                    raise AssertionError("K3 walk: a call is not one launch")
+                if not torch.equal(got, want):
+                    raise AssertionError(
+                        f"K3 walk B={B} R={R} {kind}: differs from the plain "
+                        f"walk by {float((got - want).abs().max())}")
+                cases += 1
+            if B == 4096 and R == 1:
+                args = (data, origin, res, None, verts, nv)
+                ms = _device_ms(lambda: fpm.footprint_walk_batch(*args),
+                                "footprint_walk_kernel")
+                work = bounds.footprint_walk_work(*args)
+                report["walk_synthetic"] = {
+                    "ms": ms, "bound_ms": work["bound_ms"],
+                    "bound_by": work["bound_by"],
+                    "share_of_bound": work["bound_ms"] / ms,
+                    "steps": work["steps"], "cells": work["cells"]}
+    print(json.dumps({"phase": "K3 walk mode vs plain walk",
+                      "tolerance": "exact (torch.equal)", "cases": cases,
+                      "timed_at": "B=4096 R=1 full grid, synthetic",
+                      "timing": TIMING, **report}), flush=True)
+    return report
+
+
 def phase_k3(device):
     """K3 against its plain version: exact (the outputs are picked map
     values), at every shape and polygon kind, full-grid and patch bounds,
@@ -540,8 +636,8 @@ def phase_k3(device):
 class K3Recorder:
     """While active, counts K3's launches by R and keeps a copy of the
     arguments of the first call for each (R, whole grid or bounds, shift or
-    none): it wraps `binding.launch_footprint_cost`, which the port looks
-    up at every call, and restores it on exit."""
+    none, sampled or walk mode): it wraps `binding.launch_footprint_cost`,
+    which the port looks up at every call, and restores it on exit."""
 
     def __init__(self):
         self.by_r = collections.Counter()
@@ -553,10 +649,10 @@ class K3Recorder:
         self._launch = binding.launch_footprint_cost
 
         def launch(*args, **kw):
-            R, bounds = args[4].shape[1], args[3]
-            shift = args[7] if len(args) > 7 else None
+            R, bounds, t, shift = (args[4].shape[1], args[3], args[6],
+                                   args[7])
             self.by_r[R] += 1
-            key = (R, bounds is None, shift is None)
+            key = (R, bounds is None, shift is None, t is None)
             if key not in self.args:
                 self.args[key] = tuple(
                     None if a is None else a.clone() for a in args)
@@ -574,13 +670,14 @@ class K3Recorder:
 
 def captured_k3_cases(recorder: K3Recorder,
                       required=("wave", "gate")) -> dict:
-    """A slice's K3 calls to hold and time: label -> args. A call with a
-    shift reads through a view ("view"), one without bounds the whole grid
-    ("gate"), one with bounds a patch ("wave" above R = 3, else "grad")."""
+    """A slice's K3 calls to hold and time: label -> args. A walk-mode call
+    is a "walk"; of the sampled calls, one with a shift reads through a
+    view ("view"), one without bounds the whole grid ("gate"), one with
+    bounds a patch ("wave" above R = 3, else "grad")."""
     labels = {}
-    for (R, whole, unshifted), args in sorted(recorder.args.items()):
-        name = ("view" if not unshifted else "gate" if whole
-                else "wave" if R > 3 else "grad")
+    for (R, whole, unshifted, walk), args in sorted(recorder.args.items()):
+        name = ("walk" if walk else "view" if not unshifted
+                else "gate" if whole else "wave" if R > 3 else "grad")
         labels[f"{name}_R{R}"] = args
     for name in required:
         if not any(k.startswith(name) for k in labels):
@@ -601,26 +698,35 @@ def phase_k3_captured(recorder: K3Recorder, ticks: int,
 
     report = {}
     for label, args in captured_k3_cases(recorder, required).items():
-        got = fpm.footprint_cost_batch(*args)
-        want = fpm.footprint_cost_batch_plain(*args)
+        # The launcher's arguments: (data, origin, res, bounds, verts,
+        # n_valid, t, shift), t None for the walk mode.
+        t, shift = args[6], args[7]
+        if t is None:
+            args = args[:6] + (shift,)
+            call, plain = (fpm.footprint_walk_batch,
+                           fpm.footprint_walk_batch_plain)
+            work, kernel = bounds.footprint_walk_work(*args), "walk"
+        else:
+            call, plain = (fpm.footprint_cost_batch,
+                           fpm.footprint_cost_batch_plain)
+            work, kernel = bounds.footprint_cost_work(*args), "cost"
+        got = call(*args)
+        want = plain(*args)
         torch.cuda.synchronize()
         if not torch.equal(got, want):
             raise AssertionError(f"K3 on the captured {label} call differs "
                                  "from its plain version by "
                                  f"{float((got - want).abs().max())}")
-        work = bounds.footprint_cost_work(*args)
-        ms = _device_ms(lambda: fpm.footprint_cost_batch(*args),
-                        "footprint_cost_kernel")
+        ms = _device_ms(lambda: call(*args), f"footprint_{kernel}_kernel")
         report[label] = {
-            "shape": list(args[4].shape), "S": int(args[6].shape[0]),
-            "bounds": args[3] is not None,
-            "shift": len(args) > 7 and args[7] is not None, "ms": ms,
-            "plain_ms": _time_ms(
-                lambda: fpm.footprint_cost_batch_plain(*args)),
+            "shape": list(args[4].shape),
+            "S": None if t is None else int(t.shape[0]),
+            "bounds": args[3] is not None, "shift": shift is not None,
+            "ms": ms, "plain_ms": _time_ms(lambda: plain(*args)),
             "bound_ms": work["bound_ms"], "bound_by": work["bound_by"],
             "share_of_bound": work["bound_ms"] / ms,
-            "samples": work["samples"], "cells": work["cells"],
-            "bytes": work["bytes"], "ops": work["ops"]}
+            **{k: work[k] for k in ("samples", "steps", "edges", "cells",
+                                    "bytes", "ops") if k in work}}
     per_tick = {f"R{R}": n / ticks for R, n in sorted(recorder.by_r.items())}
     print(json.dumps({"phase": f"K3 on the {slice_name} slice's inputs",
                       "tolerance": "exact (torch.equal)",
@@ -668,22 +774,31 @@ def product_cfg():
         cfg, 0.05, 0.46))
 
 
-def _launch_counts():
+def exact_cfg():
+    """The fleet point in exact footprint mode: every footprint cost (the
+    pursuit gate, the parity term, the post-solve check) walks the cells
+    its edges cross (K3's walk mode)."""
+    return fleet_cfg().replace(footprint_exact=True)
+
+
+def _wrappers():
+    """Each wrapper that counts its kernel's launches, by the name the
+    phase lines give it: K1, K2, K3's sampled mode and K3's walk mode."""
     from neo_mpc_planner2_tpu_torch import sqp
     from neo_mpc_planner2_tpu_torch.ops import footprint
 
-    return {"qp_admm": sqp.qp_admm.launches,
-            "spd_inv": sqp.chol_inverse.launches,
-            "footprint_cost": footprint.footprint_cost_batch.launches}
+    return {"qp_admm": sqp.qp_admm, "spd_inv": sqp.chol_inverse,
+            "footprint_cost": footprint.footprint_cost_batch,
+            "footprint_walk": footprint.footprint_walk_batch}
+
+
+def _launch_counts():
+    return {name: fn.launches for name, fn in _wrappers().items()}
 
 
 def _reset_launch_counts():
-    from neo_mpc_planner2_tpu_torch import sqp
-    from neo_mpc_planner2_tpu_torch.ops import footprint
-
-    sqp.qp_admm.launches = 0
-    sqp.chol_inverse.launches = 0
-    footprint.footprint_cost_batch.launches = 0
+    for fn in _wrappers().values():
+        fn.launches = 0
 
 
 def prox_solver(cfg):
@@ -715,6 +830,7 @@ SLICES = {
     "rolling": (fleet_cfg, True, None, ("qp_admm", "footprint_cost")),
     "dynamic": (fleet_cfg, True, None, ("qp_admm", "footprint_cost")),
     "updates": (fleet_cfg, True, None, ("qp_admm", "footprint_cost")),
+    "exact": (exact_cfg, True, None, ("qp_admm", "footprint_walk")),
 }
 
 
@@ -920,6 +1036,250 @@ def phase_card_vs_cpu(device, name: str, lanes: int = 256):
     return out
 
 
+# The serving phase: the reference's controller period (30 Hz) and the
+# per-solve budget of BASELINE.md, in ms.
+PERIOD_30HZ_MS = 1000.0 / 30.0
+BUDGET_MS = 20.0
+
+
+def serving_traffic(robots: int, seed: int = 0) -> dict:
+    """Requests for the serving phase, from the scenario generator at the
+    fleet point (one 64x64 map, MPO-700): the map, the footprint, one
+    `optimizer` request a robot (its pose, a carrot 0.4 m ahead, its plan's
+    goal, its velocity), each robot's plan and its tick_batch entry."""
+    import numpy as np
+
+    from neo_mpc_planner2_tpu_torch.scenarios import make_scenario_batch
+
+    sb = make_scenario_batch(fleet_cfg(), robots, seed=seed, map_size=64,
+                             plan_points=64, device="cpu")
+    pose = sb.robot_pose.numpy().astype(float)
+    vel = sb.current_vel.numpy().astype(float)
+    plans = sb.plan.poses.numpy().astype(float)
+    nv = sb.footprint.n_valid[0]
+    return {
+        "costmap": {"op": "set_costmap",
+                    "data": sb.costmap.data[0].numpy().tolist(),
+                    "origin": sb.costmap.origin[0].tolist(),
+                    "resolution": float(sb.costmap.resolution[0])},
+        "footprint": {"op": "set_footprint",
+                      "points": sb.footprint.vertices[0, :nv].tolist()},
+        "robots": [{"current_pose": pose[i].tolist(),
+                    "carrot_pose": [0.4, 0.0, 0.0],
+                    "goal_pose": plans[i, -1].tolist(),
+                    "current_vel": vel[i].tolist()} for i in range(robots)],
+        "plans": [plans[i].tolist() for i in range(robots)],
+        "ticks": [{"pose": pose[i].tolist(), "vel": vel[i].tolist()}
+                  for i in range(robots)]}
+
+
+def _fleet_params() -> dict:
+    """fleet_cfg() as the ROS parameters of a `configure` request."""
+    import dataclasses
+
+    cfg = fleet_cfg()
+    return {f.name: getattr(cfg, f.name) for f in dataclasses.fields(cfg)
+            if f.name != "compat"}
+
+
+def _serve_thread(**kw):
+    """The port's serve() on 127.0.0.1 at a free port, in a daemon thread
+    (it ends with the process); its port once it listens."""
+    import socket
+    import threading
+
+    from neo_mpc_planner2_tpu_torch.serving import serve
+
+    with socket.socket() as sk:
+        sk.bind(("127.0.0.1", 0))
+        port = sk.getsockname()[1]
+    ready = threading.Event()
+    threading.Thread(target=serve, daemon=True,
+                     kwargs=dict(host="127.0.0.1", port=port,
+                                 ready_event=ready, **kw)).start()
+    if not ready.wait(60):
+        raise AssertionError("the server did not start listening")
+    return port
+
+
+def _call(server, msg: dict) -> dict:
+    """server.call(msg) for a client, server.handle(msg) for a session;
+    an error response raises."""
+    resp = (server.call if hasattr(server, "call") else server.handle)(msg)
+    if "error" in resp:
+        raise AssertionError(f"{msg.get('op')}: {resp['error']}")
+    return resp
+
+
+def _timed(server, msg: dict, reps: int, warm: int = 2) -> list:
+    """Wall ms of `reps` answers to msg (after `warm` untimed ones), each
+    checked for an error: a round trip for a client, a handle() call for an
+    in-process session (which returns after its one device-to-host
+    copy)."""
+    for _ in range(warm):
+        _call(server, msg)
+    out = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        _call(server, msg)
+        out.append(1e3 * (time.perf_counter() - t0))
+    return out
+
+
+def _p(ms: list) -> dict:
+    import numpy as np
+
+    return {"p50_ms": float(np.percentile(ms, 50)),
+            "p99_ms": float(np.percentile(ms, 99)), "n": len(ms)}
+
+
+def phase_serving(device, smi: str, fleet: int = 4096, big: int = 8192,
+                  check_lanes: int = 256) -> dict:
+    """The port's TCP server on the card, driven by its OptimizerClient:
+    configure at fleet_cfg(), set_costmap (a 64x64 map from the scenario
+    generator), set_footprint (MPO-700); then, as p50/p99 ms a request,
+    `optimizer` (one robot, 50 requests: the reference's per-tick service
+    call, against the 30 Hz period and the 20 ms budget), set_plan + `tick`
+    (50), `optimizer_batch` at 4096 robots (5) and at 8192 robots in turns
+    with one dispatch and with fleet_chunk=4096 (a second server, 3 each),
+    set_plans + `tick_batch` at 4096 (3); save_state and load_state
+    through a checkpoint directory under build/. The launch counts are set
+    to 0 before this traffic and read after it: K1 and K3 must have run.
+    Then `optimizer` and `optimizer_batch` answered by an in-process
+    session on the card (no socket, no JSON). Last, the same script
+    through a session on the card and one on the
+    CPU at 256 robots: output_vel within 1e-3 on >= 99 % of robots, the
+    collision flags equal."""
+    import pathlib
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from neo_mpc_planner2_tpu_torch.serving import (OptimizerClient,
+                                                    OptimizerSession)
+
+    traffic = serving_traffic(big)
+    build = pathlib.Path(__file__).resolve().parent / "build"
+    build.mkdir(exist_ok=True)
+    ckpt = tempfile.mkdtemp(prefix="serving_ckpt_", dir=build)
+    try:
+        ports = {"one": _serve_thread(device=device, checkpoint_dir=ckpt),
+                 "chunked": _serve_thread(device=device, fleet_chunk=fleet)}
+        clients = {k: OptimizerClient(port=p) for k, p in ports.items()}
+        for c in clients.values():
+            _call(c, {"op": "configure", "params": _fleet_params()})
+            _call(c, traffic["costmap"])
+            _call(c, traffic["footprint"])
+        c = clients["one"]
+        ping = _call(c, {"op": "ping"})
+        if ping["backend"] != ("gpu" if device.type == "cuda" else "cpu"):
+            raise AssertionError(f"the server is not on {device}: {ping}")
+        _reset_launch_counts()
+        robot = traffic["robots"][0]
+        one = {"op": "optimizer", **robot, "control_interval": 1 / 30,
+               "delta_t": 1 / 30}
+        report = {"optimizer": _p(_timed(c, one, 50))}
+        _call(c, {"op": "set_plan", "poses": traffic["plans"][0]})
+        tick = {"op": "tick", **traffic["ticks"][0], "delta_t": 1 / 30}
+        report["tick"] = _p(_timed(c, tick, 50))
+
+        def batch(n):
+            return {"op": "optimizer_batch", "robots": traffic["robots"][:n],
+                    "control_interval": 1 / 30, "delta_t": 1 / 30}
+
+        report["optimizer_batch"] = _p(_timed(c, batch(fleet), 5, 1))
+        turns = {"one": [], "chunked": []}
+        for k in ("one", "chunked"):
+            _call(clients[k], batch(big))
+        for _ in range(3):
+            for k in ("one", "chunked"):
+                turns[k] += _timed(clients[k], batch(big), 1, 0)
+        report["optimizer_batch_big_one_dispatch"] = _p(turns["one"])
+        report["optimizer_batch_big_chunked"] = _p(turns["chunked"])
+        _call(c, {"op": "set_plans", "plans": traffic["plans"][:fleet]})
+        report["tick_batch"] = _p(_timed(
+            c, {"op": "tick_batch", "robots": traffic["ticks"][:fleet],
+                "delta_t": 1 / 30}, 3, 1))
+        for name, n in (("optimizer_batch", fleet), ("tick_batch", fleet),
+                        ("optimizer_batch_big_one_dispatch", big),
+                        ("optimizer_batch_big_chunked", big)):
+            report[name].update(robots=n,
+                                per_robot_ms=report[name]["p50_ms"] / n)
+        saved = _call(c, {"op": "save_state", "path": "fleet.npz",
+                          "fleet": True})
+        loaded = _call(c, {"op": "load_state", "path": "fleet.npz",
+                           "fleet": True})
+        _call(c, {"op": "save_state", "path": "one.npz"})
+        _call(c, {"op": "load_state", "path": "one.npz", "robot": "copy"})
+        if not saved["lanes"] == saved["robots"] == loaded["lanes"] == big:
+            raise AssertionError(f"fleet checkpoint: {saved}, {loaded}")
+        launches = _launch_counts()
+        for kernel in ("qp_admm", "footprint_cost"):
+            if launches[kernel] <= 0:
+                raise AssertionError(f"serving: {kernel} was never launched")
+        for c_ in clients.values():
+            c_.close()
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+
+    # The same requests answered in-process (no socket, no JSON): what the
+    # round trips above spend outside the session.
+    session = OptimizerSession(device=device)
+    for msg in ({"op": "configure", "params": _fleet_params()},
+                traffic["costmap"], traffic["footprint"]):
+        _call(session, msg)
+    report["in_process"] = {"optimizer": _p(_timed(session, one, 20)),
+                            "optimizer_batch": _p(_timed(session,
+                                                         batch(fleet), 3, 1))}
+
+    # The same script on the card and on the CPU, in-process.
+    lanes = check_lanes
+    script = [{"op": "configure", "params": _fleet_params()},
+              traffic["costmap"], traffic["footprint"],
+              {"op": "optimizer_batch", "robots": traffic["robots"][:lanes],
+               "delta_t": 1 / 30},
+              {"op": "optimizer_batch", "robots": traffic["robots"][:lanes],
+               "delta_t": 1 / 30},
+              {"op": "set_plans", "plans": traffic["plans"][:lanes]},
+              {"op": "tick_batch", "robots": traffic["ticks"][:lanes],
+               "delta_t": 1 / 30}]
+    answers = {}
+    for dev in (device, "cpu"):
+        session = OptimizerSession(device=dev)
+        answers[str(dev)] = [session.handle(m) for m in script][3:]
+    card, cpu = answers[str(device)], answers["cpu"]
+    diff, flags_equal = [], True
+    for a, b in zip(card, cpu):
+        if "results" not in a:
+            continue
+        for x, y in zip(a["results"], b["results"]):
+            diff.append(float(np.abs(np.subtract(x["output_vel"],
+                                                 y["output_vel"])).max()))
+            flags_equal &= all(x[k] == y[k] for k in (
+                "collision", "collision_footprint", "lethal", "plan_empty")
+                if k in x)
+    frac = float(np.mean(np.asarray(diff) <= 1e-3))
+    report["card_vs_cpu"] = {"robots": lanes, "responses": len(diff),
+                             "max_output_vel_diff": max(diff),
+                             "frac_within_1e-3": frac,
+                             "flags_equal": bool(flags_equal)}
+    out = {"phase": "serving (TCP, the port's serve and OptimizerClient)",
+           "config": "fleet_cfg()", "map": 64, "footprint": "MPO-700",
+           "period_30hz_ms": PERIOD_30HZ_MS, "budget_ms": BUDGET_MS,
+           "optimizer_meets_30hz": report["optimizer"]["p99_ms"]
+           < PERIOD_30HZ_MS,
+           "optimizer_meets_budget": report["optimizer"]["p99_ms"]
+           < BUDGET_MS,
+           "fleet_chunk": fleet, "launches": launches, **report,
+           "card": smi}
+    print(json.dumps(out), flush=True)
+    if frac < 0.99 or not flags_equal:
+        raise AssertionError(f"serving card vs CPU: {frac:.4f} of robots "
+                             f"within 1e-3, flags equal: {flags_equal}")
+    return out
+
+
 def kernels_line(slices: dict, measured: dict) -> list:
     """The `kernels` line's entries, one per KERNELS entry, with the keys
     of KERNEL_KEYS. slices: name -> that slice phase's output; measured:
@@ -974,11 +1334,14 @@ def main() -> int:
     k1 = phase_kernels(device)
     k2 = phase_k2(device)
     k3 = phase_k3(device)
+    phase_k3_walk(device)
     progress("kernel phases")
     slices = {}
     # K3's calls are captured in the product slice's warm-up (the gate, the
-    # gradient calls, the wave) and in the rolling slice's (through views).
-    recorders = {"product": K3Recorder(), "rolling": K3Recorder()}
+    # gradient calls, the wave), in the rolling slice's (through views) and
+    # in the exact slice's (the walk mode).
+    recorders = {"product": K3Recorder(), "rolling": K3Recorder(),
+                 "exact": K3Recorder()}
     for name in SLICES:
         slices[name] = phase_slice(device, smi, name,
                                    recorder=recorders.get(name))
@@ -988,8 +1351,12 @@ def main() -> int:
     wave = next(v for k, v in captured.items() if k.startswith("wave"))
     phase_k3_captured(recorders["rolling"], WARM_TICKS, "rolling",
                       required=("view",))
+    phase_k3_captured(recorders["exact"], WARM_TICKS, "exact",
+                      required=("walk",))
     phase_map_refresh(device, smi)
     progress("captured K3 and map refresh")
+    phase_serving(device, smi)
+    progress("serving")
     phase_launches_per_tick(device, slices)
     progress("launches a tick")
 

@@ -9,10 +9,13 @@ and the batched SQP solver) in both modes: the parity objective
 line search (`product_config`, parity=False), and with the prox-FISTA
 solver of `solver.py` in its place (`make_solver_batched`, passed as
 `solver_batch`); on a static map or a live one: a rolling window
-(`rolling_view`), dynamic obstacles, or incremental map updates. On the
-card the QP runs in the CUDA kernel `csrc/qp_admm.cu`, every footprint
-cost in `csrc/footprint_cost.cu`, and `sqp.chol_inverse` in
-`csrc/spd_inv.cu`.
+(`rolling_view`), dynamic obstacles, or incremental map updates; with
+sampled footprint edges or the exact cell walk (`footprint_exact`). One
+robot's tick is `controller_step` / `solve_step`; `serving` is the JSON
+optimization server and `checkpoint` saves and loads the control state.
+On the card the QP runs in the CUDA kernel `csrc/qp_admm.cu`, every
+footprint cost in `csrc/footprint_cost.cu` (its sampled or its walk mode),
+and `sqp.chol_inverse` in `csrc/spd_inv.cu`.
 """
 
 import torch as _torch
@@ -23,12 +26,13 @@ _torch.backends.cudnn.allow_tf32 = False
 
 from .config import (CompatConfig, MpcConfig, config_from_ros_params,
                      default_config, fleet_config, product_config)
-from .engine import (ControlState, MpcEngine, StepResult, init_state,
-                     make_batched_controller_step)
-from .ops.costmap import Costmap, cost_at_world
-from .ops.footprint import Footprint, footprint_cost, transform_footprint
-from .ops.objective import (Scenario, make_objective, objective_parity,
-                            objective_product)
+from .engine import (ControlState, MpcEngine, StepResult, controller_step,
+                     init_state, make_batched_controller_step, solve_step)
+from .ops.costmap import Costmap, cost_at_world, cost_at_world_bilinear
+from .ops.footprint import (Footprint, footprint_cost, footprint_cost_at_pose,
+                            transform_footprint)
+from .ops.objective import (Scenario, Weights, make_objective,
+                            objective_parity, objective_product)
 from .ops.pursuit import Plan, PursuitResult, pursuit_tick
 from .ops.rollout import rollout
 from .scenarios import ScenarioBatch, make_scenario_batch
@@ -42,10 +46,11 @@ from .sqp import (chol_inverse, make_sqp_solver, make_sqp_solver_batched,
 __all__ = [
     "CompatConfig", "MpcConfig", "config_from_ros_params", "default_config",
     "fleet_config", "product_config",
-    "ControlState", "MpcEngine", "StepResult", "init_state",
-    "make_batched_controller_step",
-    "Costmap", "cost_at_world", "Footprint", "footprint_cost",
-    "transform_footprint", "Scenario", "make_objective", "objective_parity",
+    "ControlState", "MpcEngine", "StepResult", "controller_step",
+    "init_state", "make_batched_controller_step", "solve_step",
+    "Costmap", "cost_at_world", "cost_at_world_bilinear", "Footprint",
+    "footprint_cost", "footprint_cost_at_pose", "transform_footprint",
+    "Scenario", "Weights", "make_objective", "objective_parity",
     "objective_product",
     "Plan", "PursuitResult", "pursuit_tick", "rollout",
     "ScenarioBatch", "make_scenario_batch", "SimResult", "batch_simulate",

@@ -56,6 +56,28 @@
 //     32 a lane's sample index never changes).
 //   - The map is read in place through the read-only path (__ldg), not
 //     staged: a wave touches fewer cells than its patch holds.
+//
+// The walk mode (footprint_walk_kernel, neo_footprint_walk_f32) computes
+// the exact footprint cost: per polygon, the max over its valid edges of
+// the cost of every cell the edge crosses, an Amanatides-Woo walk. It
+// replaces no TPU kernel: the JAX package runs its walk as an XLA scan of
+// H + W steps (neo_mpc_planner2_tpu/ops/footprint.py::line_cost_exact). It
+// computes what the port's plain walk (footprint_walk_batch_plain)
+// computes, bit for bit: every boundary expression rounded op by op
+// (o + f32(cell + (d > 0)) * res, (edge - p0) / d, res / |d|, the t_max
+// sums), the cell floor((p - o) / res) of an IEEE division, a tie taking
+// the y step, a crossing at t > 1 not taken, 1.0 folded in where the end
+// cell is outside the bounds. On a view the cells are counted from the
+// window's origin and shifted by win_lo, as in the sampled mode.
+//
+// What bounds it: the bytes it must move are the valid vertices, the
+// output and the distinct cells the walks visit; on an MPO-700 footprint
+// at 0.05 m an edge crosses ~15-25 cells, each a dependent step of ~12
+// instructions and a scattered read. The design: one thread walks one
+// (polygon, edge) with early exit at its end cell or past t = 1, and a
+// polygon's edges sit on 2^k adjacent threads of one warp, whose maximum
+// is a shuffle reduction; no shared memory. The steps of a warp's walks
+// run in lockstep to its longest walk.
 #include <cuda_runtime.h>
 #include <math.h>
 
@@ -260,6 +282,106 @@ cudaError_t launch_footprint_s(unsigned blocks, int threads, long long smem,
                 lanes_per_block, warps_per_lane);
 }
 
+// The cost of world-frame cell (x, y): the map value inside the bounds
+// rectangle, lethal outside it.
+__device__ __forceinline__ float walk_cell_cost(const float* map, int x, int y,
+                                                int lo_x, int lo_y, int hi_x,
+                                                int hi_y, int W) {
+  return (x >= lo_x && x < hi_x && y >= lo_y && y < hi_y)
+             ? __ldg(map + static_cast<size_t>(y) * W + x)
+             : kLethal;
+}
+
+// One edge's walk from (x0, y0) to (x1, y1): the max cost over the cells
+// it crosses (cells local to the origin o, world-frame after adding the
+// shift), at most H + W steps as the JAX package's scan.
+__device__ float walk_edge(const float* map, float x0, float y0, float x1,
+                           float y1, float ox, float oy, float rs, int sh_x,
+                           int sh_y, int lo_x, int lo_y, int hi_x, int hi_y,
+                           int H, int W) {
+  int mx = static_cast<int>(cell_of(x0, ox, rs));
+  int my = static_cast<int>(cell_of(y0, oy, rs));
+  const int ex = static_cast<int>(cell_of(x1, ox, rs));
+  const int ey = static_cast<int>(cell_of(y1, oy, rs));
+  const float dx = __fsub_rn(x1, x0), dy = __fsub_rn(y1, y0);
+  const int step_x = dx > 0.0f ? 1 : -1, step_y = dy > 0.0f ? 1 : -1;
+  float t_max_x = INFINITY, t_max_y = INFINITY;
+  float t_delta_x = INFINITY, t_delta_y = INFINITY;
+  if (dx != 0.0f) {
+    const float edge = __fadd_rn(
+        ox, __fmul_rn(static_cast<float>(mx + (dx > 0.0f ? 1 : 0)), rs));
+    t_max_x = __fdiv_rn(__fsub_rn(edge, x0), dx);
+    t_delta_x = __fdiv_rn(rs, fabsf(dx));
+  }
+  if (dy != 0.0f) {
+    const float edge = __fadd_rn(
+        oy, __fmul_rn(static_cast<float>(my + (dy > 0.0f ? 1 : 0)), rs));
+    t_max_y = __fdiv_rn(__fsub_rn(edge, y0), dy);
+    t_delta_y = __fdiv_rn(rs, fabsf(dy));
+  }
+  float best = walk_cell_cost(map, mx + sh_x, my + sh_y, lo_x, lo_y, hi_x,
+                              hi_y, W);
+  const int wex = ex + sh_x, wey = ey + sh_y;
+  if (!(wex >= lo_x && wex < hi_x && wey >= lo_y && wey < hi_y))
+    best = fmaxf(best, kLethal);
+  for (int k = 0; k < H + W; ++k) {
+    if (mx == ex && my == ey) break;
+    const bool take_x = t_max_x < t_max_y;   // a tie takes the y step
+    if ((take_x ? t_max_x : t_max_y) > 1.0f) break;
+    if (take_x) {
+      mx += step_x;
+      t_max_x = __fadd_rn(t_max_x, t_delta_x);
+    } else {
+      my += step_y;
+      t_max_y = __fadd_rn(t_max_y, t_delta_y);
+    }
+    best = fmaxf(best, walk_cell_cost(map, mx + sh_x, my + sh_y, lo_x, lo_y,
+                                      hi_x, hi_y, W));
+  }
+  return best;
+}
+
+// Thread g walks edge g mod 2^log_vp of polygon g >> log_vp (2^log_vp >= V,
+// so a polygon's edges are adjacent threads of one warp); every thread
+// reaches the shuffles.
+__global__ void footprint_walk_kernel(
+    const float* __restrict__ data, const float* __restrict__ origin,
+    const float* __restrict__ res, const int* __restrict__ bounds,
+    const int* __restrict__ shift, const float* __restrict__ verts,
+    const int* __restrict__ n_valid, float* __restrict__ out,
+    long long polys, int R, int H, int W, int V, int log_vp) {
+  const long long g =
+      static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  const long long q = g >> log_vp;
+  const int v = static_cast<int>(g & ((1 << log_vp) - 1));
+  float best = -INFINITY;
+  if (q < polys) {
+    const int nv = min(__ldg(n_valid + q), V);
+    if (v < nv) {
+      const long long b = q / R;
+      const int e = (v + 1 < nv) ? v + 1 : 0;
+      const float* vp = verts + q * V * 2;
+      int lo_x = 0, lo_y = 0, hi_x = W, hi_y = H;
+      if (bounds != nullptr) {
+        lo_x = max(__ldg(bounds + 4 * b), 0);
+        lo_y = max(__ldg(bounds + 4 * b + 1), 0);
+        hi_x = min(__ldg(bounds + 4 * b + 2), W);
+        hi_y = min(__ldg(bounds + 4 * b + 3), H);
+      }
+      const int sh_x = shift != nullptr ? __ldg(shift + 2 * b) : 0;
+      const int sh_y = shift != nullptr ? __ldg(shift + 2 * b + 1) : 0;
+      best = walk_edge(data + b * H * W, __ldg(vp + 2 * v),
+                       __ldg(vp + 2 * v + 1), __ldg(vp + 2 * e),
+                       __ldg(vp + 2 * e + 1), __ldg(origin + 2 * b),
+                       __ldg(origin + 2 * b + 1), __ldg(res + b), sh_x, sh_y,
+                       lo_x, lo_y, hi_x, hi_y, H, W);
+    }
+  }
+  for (int off = (1 << log_vp) >> 1; off > 0; off >>= 1)
+    best = fmaxf(best, __shfl_xor_sync(0xffffffffu, best, off));
+  if (q < polys && v == 0) out[q] = best;
+}
+
 }  // namespace neo_mpc
 
 // Shared memory a block of the launch needs, in bytes (as
@@ -308,4 +430,32 @@ extern "C" int neo_footprint_cost_f32(int Bm, int R, int H, int W, int V,
   return static_cast<int>(neo_mpc::launch_footprint_s<false>(
       blocks, threads, smem, cs, d, o, r, bo, sh, v, nv, tt, ou, Bm, R, H, W,
       V, S, lanes_per_block, warps_per_lane));
+}
+
+// K3's walk mode. data (Bm, H, W), origin (Bm, 2), res (Bm,), bounds
+// (Bm, 4) int32 or null (the whole grid), shift (Bm, 2) int32 or null,
+// verts (Bm, R, V, 2), n_valid (Bm, R) int32; out (Bm, R). All contiguous.
+// `threads` a block, a multiple of 32. Returns cudaGetLastError().
+extern "C" int neo_footprint_walk_f32(int Bm, int R, int H, int W, int V,
+                                      int threads, const void* data,
+                                      const void* origin, const void* res,
+                                      const void* bounds, const void* shift,
+                                      const void* verts, const void* n_valid,
+                                      void* out, void* stream) {
+  const long long polys = static_cast<long long>(Bm) * R;
+  if (polys == 0) return 0;
+  if (V < 1 || V > 32 || threads < 32 || threads > 1024 || threads % 32)
+    return static_cast<int>(cudaErrorInvalidValue);
+  int log_vp = 0;
+  while ((1 << log_vp) < V) ++log_vp;
+  const long long total = polys << log_vp;
+  const unsigned blocks = static_cast<unsigned>((total + threads - 1) / threads);
+  neo_mpc::footprint_walk_kernel<<<blocks, threads, 0,
+                                   static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(data), static_cast<const float*>(origin),
+      static_cast<const float*>(res), static_cast<const int*>(bounds),
+      static_cast<const int*>(shift), static_cast<const float*>(verts),
+      static_cast<const int*>(n_valid), static_cast<float*>(out), polys, R,
+      H, W, V, log_vp);
+  return static_cast<int>(cudaGetLastError());
 }

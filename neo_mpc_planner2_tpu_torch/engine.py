@@ -4,7 +4,9 @@ The reference's two-process tick — plugin geometry (NeoMpcPlanner.cpp:
 202-254), then the SLSQP server's solve and post-processing
 (mpc_optimization_server.py:349-403) — as one function of (config, state,
 inputs). The control-loop memory of both halves lives in `ControlState`.
-Every tensor carries a leading batch dim of lanes.
+Every tensor of the batched functions carries a leading batch dim of
+lanes; `solve_step` and `controller_step` take one lane without it and run
+the batched path at batch 1 (lanes are independent).
 """
 
 from __future__ import annotations
@@ -23,7 +25,8 @@ from .ops.rollout import rollout
 from .tree import tree_map
 
 __all__ = ["ControlState", "StepResult", "init_state", "batch_state",
-           "make_batched_controller_step", "MpcEngine"]
+           "solve_step", "controller_step", "make_batched_controller_step",
+           "MpcEngine"]
 
 
 @dataclasses.dataclass
@@ -169,6 +172,78 @@ def _post_solve(cfg: MpcConfig, state: ControlState, scen: Scenario,
         plan_window_begin=zi, plan_window_end=zi)
 
 
+def _solve_lanes(cfg: MpcConfig, state: ControlState, scen: Scenario,
+                 delta_t: torch.Tensor, solve_batch,
+                 fp_cost: "torch.Tensor | None" = None) -> StepResult:
+    """The optimization-server half of the tick (py:349-403) on a batch of
+    lanes: the new-goal reset, the solve, the post-processing."""
+    with torch.no_grad():
+        guess, last_control, waiting_time = _pre_solve(cfg, state, scen)
+    res = solve_batch(guess, scen)
+    with torch.no_grad():
+        return _post_solve(cfg, state, scen, delta_t, res, last_control,
+                           waiting_time, fp_cost=fp_cost)
+
+
+def _lane(x):
+    return x[None]
+
+
+def _unlane(x):
+    return x[0]
+
+
+def _batched_solver(cfg: MpcConfig, parity: bool, solver):
+    """solve_batch(x0s, scens) at batch 1 for a single-lane `solver`
+    (x0 (3N,), scen) -> SolveResult; the batched SQP when it is None."""
+    if solver is None:
+        from .sqp import make_sqp_solver_batched
+
+        return make_sqp_solver_batched(cfg, make_objective(cfg, parity))
+
+    def solve_batch(x0s, scens):
+        return tree_map(_lane, solver(x0s[0], tree_map(_unlane, scens)))
+
+    return solve_batch
+
+
+def solve_step(cfg: MpcConfig, state: ControlState, scen: Scenario,
+               delta_t, *, parity: bool = True, solver=None,
+               fp_cost=None) -> StepResult:
+    """The optimization-server half of the tick (py:349-403) for one lane:
+    state and scen without a batch dim. delta_t: wall-clock seconds since
+    the previous tick (py:369-371). solver: optional single-lane solve(x0,
+    scen) -> SolveResult (sqp.make_sqp_solver); the SQP on the chosen
+    objective by default. fp_cost: optional precomputed current-pose
+    footprint cost (the pursuit gate's)."""
+    dt = torch.as_tensor(delta_t, dtype=torch.float32,
+                         device=scen.current_pose.device)
+    out = _solve_lanes(cfg, tree_map(_lane, state), tree_map(_lane, scen),
+                       dt[None], _batched_solver(cfg, parity, solver),
+                       None if fp_cost is None else _lane(fp_cost))
+    return tree_map(_unlane, out)
+
+
+def controller_step(cfg: MpcConfig, state: ControlState, plan: Plan,
+                    robot_pose, current_vel, costmap: Costmap,
+                    base_footprint: Footprint, delta_t, *,
+                    parity: bool = True, solver=None,
+                    limits=None) -> StepResult:
+    """The full tick (computeVelocityCommands, cpp:202-254, with the
+    service hop in-process) for one lane, no batch dims: pursuit, solve,
+    post-processing; the plugin gates come back as the `lethal` and
+    `plan_empty` flags. solver: optional single-lane solver as in
+    solve_step; limits: optional runtime Limits of this lane."""
+    dt = torch.as_tensor(delta_t, dtype=torch.float32,
+                         device=robot_pose.device)
+    step = make_batched_controller_step(
+        cfg, parity, None if solver is None
+        else _batched_solver(cfg, parity, solver))
+    args = tree_map(_lane, (state, plan, robot_pose, current_vel, costmap,
+                            base_footprint, dt, limits))
+    return tree_map(_unlane, step(*args))
+
+
 def _tick_pre(cfg, state: ControlState, plan: Plan, robot_pose, current_vel,
               costmap: Costmap, base_footprint: Footprint, limits):
     """Plugin-side geometry + hysteresis-state update for one tick."""
@@ -229,11 +304,9 @@ def make_batched_controller_step(cfg: MpcConfig, parity: bool = True,
                 costmap = costmap.with_flat(u8=u8)
             pr, scen, st2 = _tick_pre(cfg, state, plan, robot_pose,
                                       current_vel, costmap, footprint, limits)
-            guess, lc, wt = _pre_solve(cfg, st2, scen)
-        res = solver_batch(guess, scen)
+        out = _solve_lanes(cfg, st2, scen, delta_t, solver_batch,
+                           fp_cost=pr.footprint_cost)
         with torch.no_grad():
-            out = _post_solve(cfg, st2, scen, delta_t, res, lc, wt,
-                              fp_cost=pr.footprint_cost)
             return _tick_post(pr, st2, out)
 
     return step

@@ -14,7 +14,8 @@ import torch
 from .build import load_library
 
 __all__ = ["SUPPORTED_M", "QP_INPUTS", "QP_OUTPUTS", "qp_rows",
-           "K3_MAX_SMEM", "k3_launch_shape", "k3_smem_bytes",
+           "K3_MAX_SMEM", "K3_WALK_THREADS", "k3_launch_shape",
+           "k3_smem_bytes",
            "K2_WIDTHS", "K2_WIDE_BLOCKS_PER_SM", "k2_launch_shape",
            "launch_qp_admm", "launch_spd_inv", "launch_footprint_cost"]
 
@@ -47,6 +48,11 @@ def k3_launch_shape(R: int) -> tuple[int, int]:
     split a polygon's few samples further and ran slower."""
     warps = 1 if R <= 3 else 2
     return 4 // warps, warps
+
+
+# Threads a block of K3's walk mode (one an edge; a polygon's edges on
+# adjacent threads of one warp).
+K3_WALK_THREADS = 128
 
 
 def k3_smem_bytes(R: int, V: int, S: int, lanes_per_block: int) -> int:
@@ -124,19 +130,28 @@ def launch_footprint_cost(data, origin, res, bounds, verts, n_valid, t,
                           shift=None, shape: tuple[int, int] | None = None):
     """data (Bm, H, W), origin (Bm, 2), res (Bm,), bounds (Bm, 4) int32 or
     None (the whole grid), verts (Bm, R, V, 2), n_valid (Bm, R) int32,
-    t (S,), shift (Bm, 2) int32 or None (a view's win_lo). shape:
-    (lanes_per_block, warps_per_lane), k3_launch_shape(R) by default.
-    Returns the (Bm, R) costs."""
+    t (S,) or None, shift (Bm, 2) int32 or None (a view's win_lo).
+    With t, K3's sampled mode (neo_footprint_cost_f32) at shape =
+    (lanes_per_block, warps_per_lane), k3_launch_shape(R) by default;
+    with t None, its walk mode (neo_footprint_walk_f32) at K3_WALK_THREADS
+    a block. Returns the (Bm, R) costs."""
     lib = load_library()
     Bm, H, W = data.shape
     R, V = verts.shape[1], verts.shape[2]
-    lanes, warps = k3_launch_shape(R) if shape is None else shape
     out = torch.empty((Bm, R), dtype=torch.float32, device=data.device)
+    maps = (data.data_ptr(), origin.data_ptr(), res.data_ptr(),
+            None if bounds is None else bounds.data_ptr(),
+            None if shift is None else shift.data_ptr(), verts.data_ptr(),
+            n_valid.data_ptr())
+    if t is None:
+        rc = lib.neo_footprint_walk_f32(Bm, R, H, W, V, K3_WALK_THREADS,
+                                        *maps, out.data_ptr(),
+                                        _stream(data.device))
+        _check(rc, "footprint_cost (walk)")
+        return out
+    lanes, warps = k3_launch_shape(R) if shape is None else shape
     rc = lib.neo_footprint_cost_f32(
-        Bm, R, H, W, V, t.shape[0], lanes, warps, data.data_ptr(),
-        origin.data_ptr(), res.data_ptr(),
-        None if bounds is None else bounds.data_ptr(),
-        None if shift is None else shift.data_ptr(), verts.data_ptr(),
-        n_valid.data_ptr(), t.data_ptr(), out.data_ptr(), _stream(data.device))
+        Bm, R, H, W, V, t.shape[0], lanes, warps, *maps, t.data_ptr(),
+        out.data_ptr(), _stream(data.device))
     _check(rc, "footprint_cost")
     return out

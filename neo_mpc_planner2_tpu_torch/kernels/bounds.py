@@ -5,8 +5,8 @@ input read once, each output written once) over the card's memory rate, and
 the operations it must do over the card's float32 rate outside the tensor
 cores (NVIDIA's data sheet, H100 SXM at 700 W). The operation counts follow
 the plain versions' arithmetic; where the work depends on the data (K3's
-valid edges and the map cells its samples touch) the count is taken from
-the inputs. Nothing here times anything or needs a card.
+valid edges, the map cells its samples touch, the steps and cells of its
+walks) the count is taken from the inputs. Nothing here times anything or needs a card.
 """
 
 from __future__ import annotations
@@ -14,11 +14,13 @@ from __future__ import annotations
 import torch
 
 from ..ops.costmap import Costmap, _in_bounds_clipped, _lane, world_to_map
+from ..ops.footprint import footprint_walk_batch_plain
 
 __all__ = ["H100_BYTES_PER_S", "H100_F32_OPS_PER_S", "bound",
            "inverse_ops", "qp_admm_work", "spd_inv_work",
            "K3_OPS_PER_SAMPLE", "footprint_cost_work",
-           "footprint_cells_touched"]
+           "footprint_cells_touched", "K3_WALK_OPS_PER_EDGE",
+           "K3_WALK_OPS_PER_STEP", "footprint_walk_work"]
 
 H100_BYTES_PER_S = 3.35e12
 H100_F32_OPS_PER_S = 67e12
@@ -128,4 +130,41 @@ def footprint_cost_work(data, origin, res, bounds, verts, n_valid, t,
     ops = K3_OPS_PER_SAMPLE + (2 if shift is not None else 0)
     out = bound(samples * ops, nbytes)
     out.update(samples=samples, cells=cells)
+    return out
+
+
+# A walk's set-up: the start and end cells (sub, div, floor in x and y: 12),
+# the direction (2), the boundaries and t_max (4 in x and y: 8), t_delta
+# (2 in x and y: 4), the start cell's and the end cell's bounds tests (8)
+# and the first max (1).
+K3_WALK_OPS_PER_EDGE = 35
+# A step: the end-cell test (2), the t_max compare and pick (2), the
+# threshold (1), the cell and t_max updates (2), the bounds test (4) and
+# the max (1).
+K3_WALK_OPS_PER_STEP = 12
+
+
+def footprint_walk_work(data, origin, res, bounds, verts, n_valid,
+                        shift=None) -> dict:
+    """K3's walk mode on these inputs: the valid vertices, the counts, the
+    output, the per-lane origin, resolution, bounds and shift, and the
+    distinct cells the walks visit (read once); the operations of each
+    valid edge's set-up and of the steps the walks take (from the plain
+    walk on the same inputs)."""
+    Bm, R, V = verts.shape[0], verts.shape[1], verts.shape[2]
+    record = {"cells": [], "steps": 0}
+    footprint_walk_batch_plain(data, origin, res, bounds, verts, n_valid,
+                               shift, record=record)
+    cells = int(torch.unique(torch.cat(record["cells"])).numel())
+    edges = int(n_valid.clamp(0, V).sum())
+    nbytes = F32 * (2 * edges                  # valid vertices
+                    + 2 * Bm * R               # n_valid, out
+                    + 3 * Bm                   # origin, res
+                    + (4 * Bm if bounds is not None else 0)
+                    + (2 * Bm if shift is not None else 0)
+                    + cells)
+    ops = (edges * K3_WALK_OPS_PER_EDGE
+           + record["steps"] * K3_WALK_OPS_PER_STEP)
+    out = bound(ops, nbytes)
+    out.update(edges=edges, steps=record["steps"], cells=cells)
     return out

@@ -270,7 +270,8 @@ def objective_product(cmd_flat: torch.Tensor, scen: Scenario, cfg: MpcConfig,
 
     point_sampler: optional per-solve ProductPatchSampler; the bilinear
     point costs and the footprint samples then read through its window
-    (the same values inside its coverage guarantee). The footprint costs of
+    (the same values inside its coverage guarantee); in exact mode the
+    footprint walk reads the whole map instead. The footprint costs of
     all (B, *cand, N) predicted poses are one footprint_cost call; they
     carry no gradient, as in JAX."""
     n = cfg.control_steps
@@ -283,10 +284,12 @@ def objective_product(cmd_flat: torch.Tensor, scen: Scenario, cfg: MpcConfig,
 
     if point_sampler is None:
         pc = cost_at_world_bilinear(cm, odom_traj[..., 0], odom_traj[..., 1])
-        bounds = None
     else:
         pc = point_sampler.bilinear(odom_traj[..., 0], odom_traj[..., 1])
-        bounds = point_sampler.bounds
+    # The footprint reads go through the patch too, except in exact mode:
+    # the walk reads the whole map (objective.py:333-335 in JAX).
+    bounds = (None if point_sampler is None or cfg.footprint_mode == "exact"
+              else point_sampler.bounds)
 
     lanes = lambda v, tail: v.reshape(
         v.shape[:1] + (1,) * (odom_traj.dim() - 2) + tail)

@@ -444,3 +444,82 @@ def test_live_map_step_on_the_card_matches_the_cpu(dev, name):
                             **tree_map(to_cpu, run)).cmds[:, 0]
     diff = (gpu - cpu).abs().amax(-1)
     assert float((diff <= 1e-3).float().mean()) >= 0.99
+
+
+@pytest.mark.parametrize("R", [1, 3, 21])
+@pytest.mark.parametrize("B", [1, 131, 4096])
+def test_footprint_walk_kernel_matches_plain(dev, B, R):
+    """K3's walk mode against the plain walk, bit for bit: placed and
+    grid-aligned rectangles, padded triangles, degenerate polygons
+    (zero-length edges), diamonds through cell corners, corners below the
+    origin, polygons off the map; on the whole grid and through a view
+    with its shift. One launch a call."""
+    rng = np.random.default_rng(7 * B + R)
+    data, origin, res, verts, nv = _chip_smoke()._walk_inputs(rng, B, R, dev)
+    view = cmap.Costmap(data=data, origin=origin, resolution=res).replace(
+        win_lo=torch.as_tensor(rng.integers(0, 25, (B, 2)),
+                               dtype=torch.int32, device=dev), win_cells=40)
+    v_origin, v_bounds, v_shift = fpm.kernel_map_arguments(view)
+    for o, bounds, shift in ((origin, None, None),
+                             (v_origin.contiguous(), v_bounds.contiguous(),
+                              v_shift.contiguous())):
+        args = (data, o, res, bounds, verts, nv, shift)
+        before = fpm.footprint_walk_batch.launches
+        got = fpm.footprint_walk_batch(*args)
+        torch.cuda.synchronize()
+        assert fpm.footprint_walk_batch.launches == before + 1
+        assert got.is_cuda and got.shape == (B, R)
+        assert torch.equal(got, fpm.footprint_walk_batch_plain(*args))
+
+
+def test_exact_step_on_the_card_matches_the_cpu(dev):
+    """One fleet controller step in exact footprint mode on the card (K3's
+    walk mode) against the CPU (the plain walk): commands within 1e-3 on at
+    least 99 % of lanes, lethal flags equal."""
+    import neo_mpc_planner2_tpu_torch as tp
+    from neo_mpc_planner2_tpu_torch.tree import tree_map
+
+    cfg = tp.fleet_config().replace(max_plan_points=64, footprint_exact=True)
+    sb = tp.make_scenario_batch(cfg, 64, seed=5, map_size=48, plan_points=32,
+                                lethal_threshold=0.8, device=dev)
+    step = tp.make_batched_controller_step(cfg)
+    args = (sb.state, sb.plan, sb.robot_pose, sb.current_vel, sb.costmap,
+            sb.footprint, sb.delta_t)
+    before = fpm.footprint_walk_batch.launches
+    gpu = step(*args)
+    assert fpm.footprint_walk_batch.launches > before
+    cpu = step(*tree_map(lambda t: t.cpu(), args))
+    diff = (gpu.cmd_vel.cpu() - cpu.cmd_vel).abs().amax(-1)
+    assert float((diff <= 1e-3).float().mean()) >= 0.99
+    assert torch.equal(gpu.lethal.cpu(), cpu.lethal)
+
+
+def test_serving_session_on_the_card_matches_the_cpu(dev):
+    """A batch-1 OptimizerSession on the card (K1, K3) against one on the
+    CPU: the same script of optimizer and tick requests gives the same
+    response keys, output_vel within 1e-3 and equal flags; ping names the
+    backend."""
+    from neo_mpc_planner2_tpu_torch.serving import OptimizerSession
+
+    chip_smoke = _chip_smoke()
+    traffic = chip_smoke.serving_traffic(4, seed=2)
+    script = [{"op": "configure", "params": chip_smoke._fleet_params()},
+              traffic["costmap"], traffic["footprint"]]
+    script += [{"op": "optimizer", **traffic["robots"][i % 2],
+                "delta_t": 1 / 30} for i in range(4)]
+    script += [{"op": "set_plan", "poses": traffic["plans"][0]}]
+    script += [{"op": "tick", **traffic["ticks"][0], "delta_t": 1 / 30}] * 3
+    card = OptimizerSession(device=dev)
+    cpu = OptimizerSession(device="cpu")
+    before = sqp.qp_admm.launches
+    for msg in script:
+        a, b = card.handle(msg), cpu.handle(msg)
+        assert set(a) == set(b) and "error" not in a, (a, b)
+        if "output_vel" in a:
+            np.testing.assert_allclose(a["output_vel"], b["output_vel"],
+                                       atol=1e-3)
+            for k in ("collision", "collision_footprint", "lethal",
+                      "plan_empty"):
+                assert a.get(k) == b.get(k)
+    assert sqp.qp_admm.launches > before
+    assert card.handle({"op": "ping"})["backend"] == "gpu"

@@ -379,7 +379,7 @@ def test_chip_smoke_kernels_line_covers_every_kernel():
                                 library_ms=None)
                 for k in chip_smoke.KERNELS}
     assert list(chip_smoke.SLICES) == ["fleet", "product", "prox", "rolling",
-                                       "dynamic", "updates"]
+                                       "dynamic", "updates", "exact"]
     entries = chip_smoke.kernels_line(
         {name: slice_ for name in chip_smoke.SLICES}, measured)
     required = {"name", "route", "source", "replaces", "launches",
@@ -389,7 +389,7 @@ def test_chip_smoke_kernels_line_covers_every_kernel():
         assert set(e) == set(chip_smoke.KERNEL_KEYS) >= required
         assert e["launches_per_tick"] == {name: 2.0
                                           for name in chip_smoke.SLICES}
-        assert e["launches"] == 240
+        assert e["launches"] == 40 * len(chip_smoke.SLICES)
         assert e["share_of_bound"] == pytest.approx(0.2)
 
 
@@ -420,6 +420,8 @@ def test_chip_smoke_last_lines_name_the_card(monkeypatch, capsys):
         "spd_inv_m9_bound_by": "bytes", "spd_inv_library_m9_ms": 0.05})
     monkeypatch.setattr(chip_smoke, "phase_k3",
                         lambda d: {"footprint_cost_max_abs_err": 0.0})
+    monkeypatch.setattr(chip_smoke, "phase_k3_walk", lambda d: {})
+    monkeypatch.setattr(chip_smoke, "phase_serving", lambda d, smi: {})
     monkeypatch.setattr(chip_smoke, "phase_slice", lambda *a, **kw: {
         "launches": {k["name"]: 40 for k in chip_smoke.KERNELS},
         "ticks": 20})
@@ -786,3 +788,98 @@ def test_bound_calculator_k3_counts_a_view_shift():
     assert work["ops"] == (kb.K3_OPS_PER_SAMPLE + 2) * samples
     assert work["bytes"] == 4 * (2 * int(nv.sum()) + 2 * B * R + S + 3 * B
                                  + 4 * B + 2 * B + len(cells))
+
+
+# --- K3's walk mode (exact footprint mode) -----------------------------------
+
+def test_launch_footprint_walk_packs_operands_in_c_order(stub_library):
+    """With t=None binding.launch_footprint_cost launches K3's walk mode:
+    neo_footprint_walk_f32 takes the sizes, the threads a block, the map
+    operands (the optional bounds and shift as null pointers when absent)
+    and the output it allocates, in the order of its parameters."""
+    Bm, R, H, W, V = 3, 5, 16, 20, 8
+    data = torch.zeros(Bm, H, W)
+    origin, res = torch.zeros(Bm, 2), torch.ones(Bm)
+    shift = torch.zeros(Bm, 2, dtype=torch.int32)
+    bounds = torch.zeros(Bm, 4, dtype=torch.int32)
+    verts = torch.zeros(Bm, R, V, 2)
+    nv = torch.zeros(Bm, R, dtype=torch.int32)
+    out = binding.launch_footprint_cost(data, origin, res, bounds, verts, nv,
+                                        None, shift)
+    (name, args), = stub_library.calls
+    assert name == "neo_footprint_walk_f32"
+    sig = _c_signature(name)
+    assert len(args) == len(sig) == len(build.SIGNATURES[name][1])
+    assert [n for _, n in sig[6:-1]] == ["data", "origin", "res", "bounds",
+                                         "shift", "verts", "n_valid", "out"]
+    assert args[:6] == (Bm, R, H, W, V, binding.K3_WALK_THREADS)
+    assert list(args[6:-1]) == [a.data_ptr() for a in
+                                (data, origin, res, bounds, shift, verts, nv,
+                                 out)]
+    assert args[-1] == 1234 and out.shape == (Bm, R)
+    binding.launch_footprint_cost(data, origin, res, None, verts, nv, None)
+    args = stub_library.calls[-1][1]
+    assert args[9] is None and args[10] is None
+
+
+def test_footprint_walk_batch_checks_and_refuses_other_devices():
+    meta = lambda *s, dt=torch.float32: torch.empty(s, dtype=dt,
+                                                    device="meta")
+    args = (meta(2, 8, 8), meta(2, 2), meta(2), None, meta(2, 1, 8, 2),
+            meta(2, 1, dt=torch.int32))
+    with pytest.raises(ValueError, match="unsupported device"):
+        tfp.footprint_walk_batch(*args)
+    # The walk takes no t and no shared memory: any R a lane fits.
+    tfp._check_kernel_inputs(meta(2, 8, 8), meta(2, 2), meta(2), None,
+                             meta(2, 5000, 16, 2),
+                             meta(2, 5000, dt=torch.int32), None)
+    with pytest.raises(ValueError, match="footprint_walk_batch.*vertices"):
+        tfp._check_kernel_inputs(meta(2, 8, 8), meta(2, 2), meta(2), None,
+                                 meta(2, 1, 17, 2),
+                                 meta(2, 1, dt=torch.int32), None)
+
+
+def test_k3_walk_cells_match_a_brute_force_count():
+    """The cells the walks visit, as footprint_walk_work counts them,
+    against a probe of every cell: a cell is visited by a polygon's walk
+    when a 0.5 placed there (the rest of the map 0) raises its cost. The
+    polygons lie inside the map, so no walk reads lethal."""
+    from neo_mpc_planner2_tpu_torch.kernels import bounds as kb
+
+    rng = np.random.default_rng(24)
+    B, R, H, W = 2, 3, 9, 11
+    origin = torch.tensor([[0.0, 0.0], [-0.2, 0.1]])
+    res = torch.tensor([0.1, 0.1])
+    verts = torch.as_tensor(rng.uniform(0.15, 0.85, (B, R, 8, 2)),
+                            dtype=torch.float32)
+    nv = torch.as_tensor(rng.integers(1, 6, (B, R)), dtype=torch.int32)
+    want = set()
+    for b in range(B):
+        for c in range(H * W):
+            data = torch.zeros(B, H, W)
+            data[b].view(-1)[c] = 0.5
+            hit = tfp.footprint_walk_batch_plain(data, origin, res, None,
+                                                 verts, nv)
+            if bool((hit[b] == 0.5).any()):
+                want.add(b * H * W + c)
+    work = kb.footprint_walk_work(torch.zeros(B, H, W), origin, res, None,
+                                  verts, nv)
+    assert work["cells"] == len(want) > 0
+    assert work["edges"] == int(nv.clamp(0, 8).sum())
+
+
+def test_bound_calculator_k3_walk_counts_steps_and_cells():
+    """A 3 x 2 cell rectangle's walk: edges of 3, 2, 3 and 2 steps visit
+    the rectangle's 10 rim cells once each."""
+    from neo_mpc_planner2_tpu_torch.kernels import bounds as kb
+
+    verts = torch.tensor([[[[1.5, 1.5], [4.5, 1.5], [4.5, 3.5],
+                            [1.5, 3.5]]]])
+    args = (torch.zeros(1, 10, 10), torch.zeros(1, 2), torch.ones(1), None,
+            verts, torch.tensor([[4]], dtype=torch.int32))
+    work = kb.footprint_walk_work(*args)
+    assert (work["edges"], work["steps"], work["cells"]) == (4, 10, 10)
+    assert work["bytes"] == 4 * (2 * 4 + 2 + 3 + 10)
+    assert work["ops"] == (4 * kb.K3_WALK_OPS_PER_EDGE
+                           + 10 * kb.K3_WALK_OPS_PER_STEP)
+    assert work["bound_by"] == "bytes"

@@ -230,14 +230,12 @@ def test_mpc_engine_matches_jax():
 
 
 def test_unported_regimes_raise():
-    """What stays unported raises and points at ROADMAP.md: exact footprint
-    mode, lockstep-tail compaction and the solver_ls_wave schedule. (The
-    rolling window and the other live maps run: test_torch_livemap.py.)"""
+    """What stays unported raises and points at ROADMAP.md: lockstep-tail
+    compaction and the solver_ls_wave schedule. (The rolling window and the
+    other live maps run: test_torch_livemap.py; exact footprint mode:
+    test_torch_exact.py.)"""
     cfg = tp.fleet_config().replace(max_plan_points=16)
     sb = make_scenario_batch(cfg, 2, map_size=32, plan_points=8, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        batch_simulate(cfg.replace(footprint_exact=True), sb, 1,
-                       parity=False)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         batch_simulate(cfg.replace(solver_compact_after=2,
                                    solver_compact_frac=0.5,
@@ -258,7 +256,9 @@ def test_importing_the_port_leaves_jax_out():
         "             if k == 'jax' or k.startswith(('jax.', 'jaxlib',\n"
         "                                            'neo_mpc_planner2_tpu.')))\n"
         "print(len(list(pkgutil.walk_packages(p.__path__))), bad)\n"
-        "sys.exit(1 if bad or 'neo_mpc_planner2_tpu' in sys.modules else 0)\n")
+        "shells = {p.__name__ + '.serving', p.__name__ + '.checkpoint'}\n"
+        "sys.exit(1 if bad or 'neo_mpc_planner2_tpu' in sys.modules\n"
+        "         or not shells <= set(sys.modules) else 0)\n")
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
                           text=True, timeout=120, cwd=ROOT)
     assert proc.returncode == 0, proc.stdout + proc.stderr

@@ -172,3 +172,40 @@ def test_wave_takes_the_sequential_alpha():
                                rtol=0, atol=2e-5)
     np.testing.assert_array_equal(runs[0].iters.numpy(),
                                   runs[1].iters.numpy())
+
+
+@pytest.mark.parametrize("parallel_ls", [False, True], ids=["sequential",
+                                                            "wave"])
+def test_warm_alpha_solve_matches_jax(cfg, empty_costmap, footprint,
+                                      parallel_ls):
+    """solver_ls_warm_alpha (the first trial step min(1, 2·α₀) and the carry
+    of α₀) on both line-search branches, at tests/test_solver.py's
+    warm-alpha setup: the same three x0 from default_rng(17),
+    opt_tolerance 1e-6, 100 iterations; x within the golden gate (1e-4).
+    (solver_ls_wave > 1 stays refused: test_unported_solver_options_raise.)"""
+    warm = cfg.replace(opt_tolerance=1e-6, solver_ls_warm_alpha=True)
+    scen = mpc.Scenario.create([0.1, -0.2, 0.3], [0.5, -0.1, 0.1],
+                               [1.0, 0.5, 0.3], [0.2, 0.0, 0.1],
+                               footprint, empty_costmap)
+    want_solve = jax.jit(mpc.make_sqp_solver(
+        warm, mpc.make_objective(warm), max_iters=100,
+        parallel_ls=parallel_ls))
+    tcfg = _tcfg(warm)
+    n = lambda tree: jax.tree.map(np.asarray, tree)
+    T = lambda a: torch.as_tensor(np.array(a))
+    tscen = tobj.Scenario(
+        current_pose=T(scen.current_pose), carrot_pose=T(scen.carrot_pose),
+        goal_pose=T(scen.goal_pose), current_vel=T(scen.current_vel),
+        footprint=interop.footprint_from_numpy(n(footprint), device="cpu"),
+        costmap=interop.costmap_from_numpy(n(empty_costmap), device="cpu"),
+        switch_opt=torch.tensor(False))
+    got_solve = tsqp.make_sqp_solver(tcfg, tobj.make_objective(tcfg),
+                                     max_iters=100, parallel_ls=parallel_ls)
+    rng = np.random.default_rng(17)
+    for _ in range(3):
+        x0 = rng.uniform(-0.5, 0.5, 9).astype(np.float32)
+        want = want_solve(jnp.asarray(x0), scen)
+        got = got_solve(torch.as_tensor(x0), tscen)
+        np.testing.assert_allclose(got.x.numpy(), np.asarray(want.x),
+                                   rtol=0, atol=1e-4)
+        assert got.x.shape == (9,)
