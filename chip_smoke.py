@@ -20,7 +20,14 @@ each live map, the device time of the map's refresh a tick. Then it serves
 over TCP: the port's `serve` on 127.0.0.1, driven by its OptimizerClient
 (`optimizer`, `tick`, `optimizer_batch` and `tick_batch` at fleet sizes,
 checkpoints), with each request's p50/p99 latency, and the same script on
-the card against the CPU.
+the card against the CPU. Then the single-robot controller
+(`NeoMpcController`, fleet point, a 64x64 map, MPO-700) on its fused route
+and with the C++ host's geometry (built with g++ from the port's copy):
+30 closed-loop ticks a route, p50/p99 ms a tick, CUDA launches and host
+syncs a tick from the port's device_trace, its first 10 ticks against the
+CPU, K1's and K3's batch-1 calls held against their plain versions; the
+ROS adapter's core on the card, and the console script
+(`cli.server_main --device cuda`) answering one request.
 K3 is also held to its plain version, and timed, on the arguments of its
 own calls in the product slice (a gate at R = 1, a gradient call at R = 3
 and a wave at R = 21), in the rolling slice (R = 1 through the view, with
@@ -689,8 +696,19 @@ def captured_k3_cases(recorder: K3Recorder,
 def phase_k3_captured(recorder: K3Recorder, ticks: int,
                       slice_name: str = "product",
                       required=("wave", "gate")):
-    """K3 on a slice's own inputs: exactly equal to its plain version,
-    timed, its bound from the cells these samples read."""
+    """K3 on a slice's own inputs (hold_k3_captured), one line."""
+    report = hold_k3_captured(recorder, required)
+    per_tick = {f"R{R}": n / ticks for R, n in sorted(recorder.by_r.items())}
+    print(json.dumps({"phase": f"K3 on the {slice_name} slice's inputs",
+                      "tolerance": "exact (torch.equal)",
+                      "launches_per_tick_by_R": per_tick,
+                      "timing": TIMING, **report}), flush=True)
+    return report
+
+
+def hold_k3_captured(recorder: K3Recorder, required=("wave", "gate")):
+    """K3 on a path's own captured calls: exactly equal to its plain
+    version, timed, its bound from the cells these samples read."""
     import torch
 
     from neo_mpc_planner2_tpu_torch.kernels import bounds
@@ -727,11 +745,6 @@ def phase_k3_captured(recorder: K3Recorder, ticks: int,
             "share_of_bound": work["bound_ms"] / ms,
             **{k: work[k] for k in ("samples", "steps", "edges", "cells",
                                     "bytes", "ops") if k in work}}
-    per_tick = {f"R{R}": n / ticks for R, n in sorted(recorder.by_r.items())}
-    print(json.dumps({"phase": f"K3 on the {slice_name} slice's inputs",
-                      "tolerance": "exact (torch.equal)",
-                      "launches_per_tick_by_R": per_tick,
-                      "timing": TIMING, **report}), flush=True)
     return report
 
 
@@ -1280,6 +1293,428 @@ def phase_serving(device, smi: str, fleet: int = 4096, big: int = 8192,
     return out
 
 
+# The controller phase: closed-loop ticks a route, the ticks its card-vs-CPU
+# check compares, and the ticks whose traces it reads (one tick a trace).
+CONTROLLER_TICKS = 30
+CONTROLLER_CHECK_TICKS = 10
+CONTROLLER_TRACED_TICKS = 3
+SYNC_EVENTS = ("cudaStreamSynchronize", "cudaDeviceSynchronize")
+
+
+class K1Recorder:
+    """While active, counts K1's launches and keeps a copy of the arguments
+    of its first call for each (B, m): it wraps `binding.launch_qp_admm`,
+    which `sqp.qp_admm` looks up at every call, and restores it on exit."""
+
+    def __init__(self):
+        self.launches = 0
+        self.args = {}
+
+    def __enter__(self):
+        from neo_mpc_planner2_tpu_torch.kernels import binding
+
+        self._launch = binding.launch_qp_admm
+
+        def launch(ins, m, iters, rho, sigma):
+            self.launches += 1
+            key = (ins[0].shape[0], m)
+            if key not in self.args:
+                self.args[key] = ([a.clone() for a in ins],
+                                  dict(iters=iters, rho=rho, sigma=sigma))
+            return self._launch(ins, m, iters, rho, sigma)
+
+        binding.launch_qp_admm = launch
+        return self
+
+    def __exit__(self, *exc):
+        from neo_mpc_planner2_tpu_torch.kernels import binding
+
+        binding.launch_qp_admm = self._launch
+        return False
+
+
+def phase_k1_captured(recorder: K1Recorder, label: str) -> dict:
+    """K1 on a path's own captured calls, held against its plain version
+    within rtol 2e-4 / atol 2e-5, timed, its bound from the call's
+    shape."""
+    import torch
+
+    from neo_mpc_planner2_tpu_torch import sqp
+    from neo_mpc_planner2_tpu_torch.kernels import bounds
+
+    if not recorder.args:
+        raise AssertionError(f"{label}: no K1 call was captured")
+    rtol, atol = 2e-4, 2e-5
+    report = {}
+    for (B, m), (args, kw) in sorted(recorder.args.items()):
+        plain_args = (args[:4] + [sqp._cone_jacobian(args[4], m)]
+                      + args[5:])
+        got = sqp.qp_admm(*args, **kw)
+        want = sqp.qp_admm_plain(*plain_args, **kw)
+        torch.cuda.synchronize()
+        worst = 0.0
+        for g, w in zip(got, want):
+            if _excess(g, w, rtol, atol) > 0:
+                raise AssertionError(f"K1 on the {label} call B={B} m={m} "
+                                     "differs from its plain version by "
+                                     f"{float((g - w).abs().max())}")
+            worst = max(worst, float((g - w).abs().max()))
+        ms = _device_ms(lambda: sqp.qp_admm(*args, **kw), "qp_admm_kernel")
+        work = bounds.qp_admm_work(B, m, kw["iters"])
+        report[f"B{B}_m{m}"] = {
+            "iters": kw["iters"], "max_abs_err": worst, "ms": ms,
+            "plain_ms": _time_ms(lambda: sqp.qp_admm_plain(*plain_args,
+                                                           **kw)),
+            "bound_ms": work["bound_ms"], "bound_by": work["bound_by"],
+            "share_of_bound": work["bound_ms"] / ms}
+    return report
+
+
+def controller_scene(seed: int = 0) -> dict:
+    """One robot from the scenario generator at the fleet point (a 64x64
+    map, MPO-700, one plan of 64 points), as host arrays."""
+    from neo_mpc_planner2_tpu_torch.scenarios import make_scenario_batch
+
+    sb = make_scenario_batch(fleet_cfg(), 1, seed=seed, map_size=64,
+                             plan_points=64, device="cpu")
+    nv = int(sb.footprint.n_valid[0])
+    return dict(grid=sb.costmap.data[0].numpy(),
+                origin=tuple(sb.costmap.origin[0].tolist()),
+                res=float(sb.costmap.resolution[0]),
+                plan=sb.plan.poses[0].numpy(),
+                pose=sb.robot_pose[0].numpy().astype(float),
+                vel=sb.current_vel[0].numpy().astype(float),
+                fp=sb.footprint.vertices[0, :nv].numpy())
+
+
+def make_controller(scene: dict, device, native: bool):
+    """A NeoMpcController on `device` at fleet_cfg(), configured with the
+    scene's map and footprint (the C++ host's geometry when native),
+    activated, its plan set."""
+    from neo_mpc_planner2_tpu_torch import Costmap, Footprint
+    from neo_mpc_planner2_tpu_torch.controller import NeoMpcController
+
+    ctrl = NeoMpcController(device=device)
+    ctrl.configure(fleet_cfg(),
+                   costmap=Costmap.create(scene["grid"], scene["origin"],
+                                          scene["res"], device=device),
+                   footprint=Footprint.create(scene["fp"], device=device),
+                   native_geometry=native)
+    ctrl.activate()
+    ctrl.set_plan(scene["plan"])
+    return ctrl
+
+
+def drive(ctrl, pose, vel, ticks: int, shadow=None, tracker=None):
+    """`ticks` closed-loop ticks of ctrl from (pose, vel) at 30 Hz, the
+    robot integrating its commands; a `shadow` controller is fed the same
+    pose and velocity each tick. Returns (commands, shadow's commands,
+    last pose, last velocity)."""
+    import contextlib
+
+    import numpy as np
+
+    from neo_mpc_planner2_tpu_torch.utils.se2_np import integrate_cmd_np
+
+    cmds, shadowed = [], []
+    pose, vel = np.array(pose, float), np.array(vel, float)
+    for _ in range(ticks):
+        with tracker.measure() if tracker else contextlib.nullcontext():
+            cmd = ctrl.compute_velocity_commands(pose, vel, 1 / 30)
+        cmds.append(cmd)
+        if shadow is not None:
+            shadowed.append(shadow.compute_velocity_commands(pose, vel,
+                                                             1 / 30))
+        pose = integrate_cmd_np(pose, cmd, 1 / 30)
+        vel = np.asarray(cmd, float)
+    return np.array(cmds), np.array(shadowed), pose, vel
+
+
+def trace_ticks(ctrl, pose, vel, ticks: int, logdir: str) -> dict:
+    """`ticks` more ticks, each under the port's device_trace: per tick the
+    CUDA launches, host synchronizations and host-device copies (the
+    host's runtime calls, less those of a trace of nothing, which closes
+    with synchronizes of its own), the device's kernels and their summed
+    device time, and the device ms by kernel name over all the ticks
+    (device_module_durations_ms; the profiler may drop some device records
+    of a short trace, so the names are pooled over the ticks)."""
+    import os
+
+    from neo_mpc_planner2_tpu_torch.utils import profiling
+
+    def counted(tick_dir):
+        calls = profiling.host_call_counts(tick_dir)
+        return calls, {
+            "launches": sum(calls.get(n, 0) for n in LAUNCH_EVENTS),
+            "syncs": sum(calls.get(n, 0) for n in SYNC_EVENTS),
+            "memcpys": calls.get("cudaMemcpyAsync", 0)}
+
+    with profiling.device_trace(os.path.join(logdir, "empty")):
+        pass
+    _, empty = counted(os.path.join(logdir, "empty"))
+    per = {k: [] for k in empty}
+    kernels, busy, names, first = [], [], {}, None
+    for k in range(ticks):
+        tick_dir = os.path.join(logdir, f"tick{k}")
+        with profiling.device_trace(tick_dir):
+            _, _, pose, vel = drive(ctrl, pose, vel, 1)
+        calls, n = counted(tick_dir)
+        first = calls if first is None else first
+        for key, v in n.items():
+            per[key].append(v - empty[key])
+        durations = profiling.device_module_durations_ms(tick_dir)
+        kernels.append(sum(len(v) for v in durations.values()))
+        busy.append(sum(sum(v) for v in durations.values()))
+        for name, ms in durations.items():
+            names[name] = names.get(name, 0.0) + sum(ms)
+    return {"cuda_launches_per_tick": per["launches"],
+            "host_syncs_per_tick": per["syncs"],
+            "host_memcpys_per_tick": per["memcpys"],
+            "device_kernels_per_tick": kernels,
+            "device_busy_ms_per_tick": busy,
+            "device_ms_by_kernel": names,
+            "host_calls_first_tick": first,
+            "empty_trace_counts": empty}
+
+
+def phase_adapter_and_cli(device, smi: str) -> dict:
+    """The ROS adapter's pure core and the console script on the card:
+    `ros_adapter.costmap_refresh_op` stages a map and its dirty box into a
+    session on the card, `optimizer_callback_core` answers a duck-typed
+    Optimizer request (held against a CPU session within 1e-3); then
+    `cli.server_main --device cuda` in a thread on a free port answers one
+    `optimizer` request from the port's OptimizerClient."""
+    import socket
+    import threading
+    from types import SimpleNamespace as NS
+
+    import numpy as np
+
+    from neo_mpc_planner2_tpu_torch import cli, ros_adapter
+    from neo_mpc_planner2_tpu_torch.serving import (OptimizerClient,
+                                                    OptimizerSession)
+
+    scene = controller_scene()
+    meta = (scene["origin"], scene["res"])
+    grid = scene["grid"]
+    changed = grid.copy()
+    changed[5:9, 40:47] = 0.5
+    q = lambda yaw: NS(x=0.0, y=0.0, z=float(np.sin(yaw / 2)),
+                       w=float(np.cos(yaw / 2)))
+    pose = lambda p: NS(position=NS(x=float(p[0]), y=float(p[1]), z=0.0),
+                        orientation=q(p[2]))
+    request = NS(current_pose=NS(pose=pose(scene["pose"])),
+                 carrot_pose=NS(pose=pose([0.4, 0.0, 0.0])),
+                 goal_pose=pose(scene["plan"][-1]),
+                 current_vel=NS(linear=NS(x=scene["vel"][0],
+                                          y=scene["vel"][1], z=0.0),
+                                angular=NS(x=0.0, y=0.0, z=scene["vel"][2])),
+                 switch_opt=False, control_interval=1 / 30)
+    answers, ops = {}, []
+    for dev in (device, "cpu"):
+        session = OptimizerSession(fleet_cfg(), device=dev)
+        _call(session, {"op": "set_footprint",
+                        "points": scene["fp"].tolist()})
+        prev = None
+        for g in (grid, changed):
+            op = ros_adapter.costmap_refresh_op(prev, meta, g, meta)
+            _call(session, op)
+            if dev is device:
+                ops.append((op["op"], list(op["data"].shape)))
+            prev = g
+        staged = session.costmap.data.cpu().numpy()
+        if not np.array_equal(staged, changed):
+            raise AssertionError("adapter: the staged map is not the grid")
+        response = NS(output_vel=NS(twist=NS(linear=NS(x=0.0, y=0.0, z=0.0),
+                                             angular=NS(x=0.0, y=0.0,
+                                                        z=0.0))))
+        tw = ros_adapter.optimizer_callback_core(
+            session, request, response, delta_t=1 / 30).output_vel.twist
+        answers[str(dev)] = [tw.linear.x, tw.linear.y, tw.angular.z]
+    diff = float(np.abs(np.subtract(answers[str(device)],
+                                    answers["cpu"])).max())
+    if not np.isfinite(answers[str(device)]).all() or diff > 1e-3:
+        raise AssertionError(f"adapter: card {answers[str(device)]} vs cpu "
+                             f"{answers['cpu']}")
+
+    with socket.socket() as sk:
+        sk.bind(("127.0.0.1", 0))
+        port = sk.getsockname()[1]
+    threading.Thread(target=cli.server_main, daemon=True, args=(
+        ["--port", str(port), "--device", "cuda"],)).start()
+    client = OptimizerClient(port=port, wait_timeout=60)
+    try:
+        backend = _call(client, {"op": "ping"})["backend"]
+        for msg in ({"op": "configure", "params": _fleet_params()},
+                    ros_adapter.occupancy_grid_to_costmap_msg(NS(
+                        info=NS(height=64, width=64, resolution=scene["res"],
+                                origin=NS(position=NS(x=scene["origin"][0],
+                                                      y=scene["origin"][1]))),
+                        data=np.rint(grid * 100).astype(np.int8))),
+                    {"op": "set_footprint",
+                     "points": scene["fp"].tolist()}):
+            _call(client, msg)
+        t0 = time.perf_counter()
+        cli_answer = _call(client, ros_adapter.request_to_msg(
+            request, delta_t=1 / 30))["output_vel"]
+        cli_ms = 1e3 * (time.perf_counter() - t0)
+    finally:
+        client.close()
+    if backend != "gpu" or not np.isfinite(cli_answer).all():
+        raise AssertionError(f"cli: backend {backend}, answer {cli_answer}")
+    out = {"phase": "controller path: ROS adapter core and CLI on the card",
+           "adapter_ops": ops, "adapter_output_vel": answers[str(device)],
+           "adapter_card_vs_cpu_max_diff": diff,
+           "cli": {"backend": backend, "output_vel": cli_answer,
+                   "first_optimizer_ms": cli_ms}, "card": smi}
+    print(json.dumps(out), flush=True)
+    return out
+
+
+def timed_routes(scene: dict, device, routes: dict, ticks: int) -> dict:
+    """`ticks` closed-loop ticks of a fresh controller a route, the routes
+    in turns (ABBA: the order flips every tick, so that the host's drift
+    falls on both), each controller carrying its own robot. Around each
+    tick the launch counts are set to 0 just before it and read just
+    after. Returns route -> (RateTracker, launches summed over its ticks,
+    commands, last pose, last velocity, controller)."""
+    import collections
+
+    import numpy as np
+
+    from neo_mpc_planner2_tpu_torch.utils.profiling import RateTracker
+
+    run = {name: dict(ctrl=make_controller(scene, device, native),
+                      tracker=RateTracker(), launches=collections.Counter(),
+                      cmds=[], pose=scene["pose"], vel=scene["vel"])
+           for name, native in routes.items()}
+    order = list(routes)
+    for t in range(ticks):
+        for name in (order if t % 2 == 0 else order[::-1]):
+            r = run[name]
+            _reset_launch_counts()
+            cmds, _, r["pose"], r["vel"] = drive(r["ctrl"], r["pose"],
+                                                 r["vel"], 1,
+                                                 tracker=r["tracker"])
+            r["launches"].update(_launch_counts())
+            r["cmds"].append(cmds[0])
+    return {name: (r["tracker"], dict(r["launches"]), np.array(r["cmds"]),
+                   r["pose"], r["vel"], r["ctrl"])
+            for name, r in run.items()}
+
+
+def phase_controller(device, smi: str) -> dict:
+    """The single-robot controller on the card, on each route: fused (the
+    whole tick on the card) and native (the C++ host's geometry, built
+    with g++ from the port's copy, and the solve on the card). On the
+    scene of controller_scene(): a 2-tick warm-up a route on a fresh
+    controller that captures K1's and K3's batch-1 calls; then
+    CONTROLLER_TICKS closed-loop ticks a route, the routes in turns
+    (timed_routes), p50/p99 ms a tick (RateTracker) against the 33.3 ms
+    period of 30 Hz; CONTROLLER_TRACED_TICKS more ticks, one a trace,
+    through the port's device_trace: CUDA launches and host syncs a tick,
+    and K1's and K3's kernels seen on the device; the first
+    CONTROLLER_CHECK_TICKS ticks on the card against a CPU controller fed
+    the same poses, within 1e-3; the captured K1 and K3 calls held against
+    their plain versions. One line a route; returns name -> its output,
+    shaped as a slice phase's (launches, ticks) for the `kernels` line."""
+    import pathlib
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from neo_mpc_planner2_tpu_torch.native import host
+
+    t0 = time.perf_counter()
+    built = not host.library_path().exists()
+    lib = host.build_library()
+    native_build = {"library": str(lib.relative_to(
+        pathlib.Path(__file__).resolve().parent)), "built": built,
+        "seconds": time.perf_counter() - t0}
+    scene = controller_scene()
+    cfg = fleet_cfg()
+    routes = {"fused": False, "native": True}
+    captured = {}
+    for route, native in routes.items():
+        with K1Recorder() as k1, K3Recorder() as k3:
+            drive(make_controller(scene, device, native), scene["pose"],
+                  scene["vel"], WARM_TICKS)
+        captured[route] = (k1, k3)
+    timed = timed_routes(scene, device, routes, CONTROLLER_TICKS)
+    build = pathlib.Path(__file__).resolve().parent / "build"
+    build.mkdir(exist_ok=True)
+    logdir = tempfile.mkdtemp(prefix="controller_trace_", dir=build)
+    out_routes = {}
+    try:
+        for route, native in routes.items():
+            tracker, launches, cmds, pose, vel, ctrl = timed[route]
+            k1, k3 = captured[route]
+            if not np.isfinite(cmds).all():
+                raise AssertionError(f"controller {route}: non-finite "
+                                     "commands")
+            speed = float(np.hypot(cmds[:, 0], cmds[:, 1]).max())
+            if speed > cfg.max_vel_trans + 1e-5:
+                raise AssertionError(f"controller {route}: |cmd_xy| {speed}")
+            for kernel in ("qp_admm", "footprint_cost"):
+                if launches[kernel] <= 0:
+                    raise AssertionError(f"controller {route}: {kernel} was "
+                                         "never launched")
+            traced = trace_ticks(ctrl, pose, vel, CONTROLLER_TRACED_TICKS,
+                                 f"{logdir}/{route}")
+            seen = list(traced["device_ms_by_kernel"])
+            for kernel in ("qp_admm_kernel", "footprint_cost_kernel"):
+                if not any(kernel in name for name in seen):
+                    raise AssertionError(f"controller {route}: the traces "
+                                         f"saw no {kernel}: {seen}")
+            traced["device_ms_by_kernel"] = {
+                name: ms for name, ms in traced["device_ms_by_kernel"].items()
+                if name.startswith("void neo_mpc::")}
+            card, cpu, _, _ = drive(
+                make_controller(scene, device, native), scene["pose"],
+                scene["vel"], CONTROLLER_CHECK_TICKS,
+                shadow=make_controller(scene, "cpu", native))
+            diff = float(np.abs(card - cpu).max())
+            if diff > 1e-3:
+                raise AssertionError(f"controller {route}: card vs CPU "
+                                     f"{diff} over 1e-3")
+            stats = tracker.stats()
+            out = {"phase": f"controller ({route} route, batch 1)",
+                   "config": "fleet_cfg()", "map": 64,
+                   "footprint": "MPO-700", "ticks": CONTROLLER_TICKS,
+                   "timed": "in turns with the other route", "tick": stats,
+                   "period_30hz_ms": PERIOD_30HZ_MS,
+                   "meets_30hz": stats["p99_ms"] < PERIOD_30HZ_MS,
+                   "launches": launches,
+                   "launches_per_tick": {k: v / CONTROLLER_TICKS
+                                         for k, v in launches.items()},
+                   "traced_ticks": traced,
+                   "device_idle_share": 1.0 - (
+                       sum(traced["device_busy_ms_per_tick"])
+                       / len(traced["device_busy_ms_per_tick"])
+                       / stats["mean_ms"]),
+                   "card_vs_cpu": {"ticks": CONTROLLER_CHECK_TICKS,
+                                   "max_cmd_diff": diff},
+                   "k1_captured": phase_k1_captured(k1,
+                                                    f"controller {route}"),
+                   "k1_launches_per_tick_warm_up": k1.launches / WARM_TICKS,
+                   "k3_launches_per_tick_warm_up": {
+                       f"R{R}": n / WARM_TICKS
+                       for R, n in sorted(k3.by_r.items())},
+                   "k3_captured": hold_k3_captured(k3, required=("gate",)),
+                   "final_pose": pose.tolist(),
+                   "goal_dist": float(np.hypot(*(pose[:2]
+                                                 - scene["plan"][-1, :2]))),
+                   "timing": TIMING, "card": smi}
+            if native:
+                out["native_library"] = native_build
+            print(json.dumps(out), flush=True)
+            out_routes[f"controller_{route}"] = out
+    finally:
+        shutil.rmtree(logdir, ignore_errors=True)
+    return out_routes
+
+
 def kernels_line(slices: dict, measured: dict) -> list:
     """The `kernels` line's entries, one per KERNELS entry, with the keys
     of KERNEL_KEYS. slices: name -> that slice phase's output; measured:
@@ -1357,6 +1792,9 @@ def main() -> int:
     progress("captured K3 and map refresh")
     phase_serving(device, smi)
     progress("serving")
+    controller = phase_controller(device, smi)
+    phase_adapter_and_cli(device, smi)
+    progress("controller")
     phase_launches_per_tick(device, slices)
     progress("launches a tick")
 
@@ -1378,8 +1816,9 @@ def main() -> int:
                                bound_ms=wave["bound_ms"],
                                bound_by=wave["bound_by"], library_ms=None),
     }
-    print(json.dumps({"kernels": kernels_line(slices, measured)}),
-          flush=True)
+    # The launches of the slices' and the controller routes' timed runs.
+    print(json.dumps({"kernels": kernels_line({**slices, **controller},
+                                              measured)}), flush=True)
     print(_nvidia_smi(), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -11,8 +11,12 @@ solver of `solver.py` in its place (`make_solver_batched`, passed as
 `solver_batch`); on a static map or a live one: a rolling window
 (`rolling_view`), dynamic obstacles, or incremental map updates; with
 sampled footprint edges or the exact cell walk (`footprint_exact`). One
-robot's tick is `controller_step` / `solve_step`; `serving` is the JSON
-optimization server and `checkpoint` saves and loads the control state.
+robot's tick is `controller_step` / `solve_step`, and `NeoMpcController`
+its nav2_core::Controller lifecycle in-process (the whole tick on the
+device, or with `native_geometry=True` the C++ host's pursuit and the solve
+on the device); `serving` is the JSON optimization server (`cli` its
+console script, `ros_adapter` its rclpy node) and `checkpoint` saves and
+loads the control state.
 On the card the QP runs in the CUDA kernel `csrc/qp_admm.cu`, every
 footprint cost in `csrc/footprint_cost.cu` (its sampled or its walk mode),
 and `sqp.chol_inverse` in `csrc/spd_inv.cu`.
@@ -26,6 +30,7 @@ _torch.backends.cudnn.allow_tf32 = False
 
 from .config import (CompatConfig, MpcConfig, config_from_ros_params,
                      default_config, fleet_config, product_config)
+from .controller import ControllerException, NeoMpcController
 from .engine import (ControlState, MpcEngine, StepResult, controller_step,
                      init_state, make_batched_controller_step, solve_step)
 from .ops.costmap import Costmap, cost_at_world, cost_at_world_bilinear
@@ -46,6 +51,7 @@ from .sqp import (chol_inverse, make_sqp_solver, make_sqp_solver_batched,
 __all__ = [
     "CompatConfig", "MpcConfig", "config_from_ros_params", "default_config",
     "fleet_config", "product_config",
+    "ControllerException", "NeoMpcController",
     "ControlState", "MpcEngine", "StepResult", "controller_step",
     "init_state", "make_batched_controller_step", "solve_step",
     "Costmap", "cost_at_world", "cost_at_world_bilinear", "Footprint",

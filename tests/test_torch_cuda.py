@@ -1,6 +1,7 @@
 """The CUDA kernels K1 (qp_admm), K2 (chol_inverse) and K3
-(footprint_cost_batch) on the card, and one step of each slice against the
-CPU.
+(footprint_cost_batch) on the card, one step of each slice against the
+CPU, and the single-robot controller's ticks (both routes) against the
+CPU, with K1 and K3 read from a traced tick.
 
 Every test here needs an NVIDIA GPU: it carries the `cuda` marker and skips
 where `torch.cuda.is_available()` is false (decided inside the `dev`
@@ -523,3 +524,44 @@ def test_serving_session_on_the_card_matches_the_cpu(dev):
                 assert a.get(k) == b.get(k)
     assert sqp.qp_admm.launches > before
     assert card.handle({"op": "ping"})["backend"] == "gpu"
+
+
+@pytest.mark.parametrize("native", [False, True])
+def test_controller_on_the_card_matches_the_cpu(dev, native):
+    """NeoMpcController on the card (fused: the whole tick; native: the C++
+    host's geometry and the solve) against one on the CPU fed the same
+    poses: every command of 10 closed-loop ticks within 1e-3; K1 and K3
+    launched."""
+    from neo_mpc_planner2_tpu_torch.ops import footprint as fpm
+
+    chip_smoke = _chip_smoke()
+    scene = chip_smoke.controller_scene(seed=1)
+    before = (sqp.qp_admm.launches, fpm.footprint_cost_batch.launches)
+    card, cpu, _, _ = chip_smoke.drive(
+        chip_smoke.make_controller(scene, dev, native), scene["pose"],
+        scene["vel"], 10,
+        shadow=chip_smoke.make_controller(scene, "cpu", native))
+    assert sqp.qp_admm.launches > before[0]
+    assert fpm.footprint_cost_batch.launches > before[1]
+    assert np.isfinite(card).all() and np.abs(card[:, 0]).max() > 0.05
+    np.testing.assert_allclose(card, cpu, rtol=0, atol=1e-3)
+
+
+def test_device_trace_reads_k1_and_k3_from_a_controller_tick(dev, tmp_path):
+    """A traced controller tick on the card: device_module_durations_ms
+    names K1's and K3's kernels (pooled over three one-tick traces, since
+    the profiler may drop device records of a short trace), and
+    host_call_counts counts the tick's launches and synchronizations."""
+    from neo_mpc_planner2_tpu_torch.utils import profiling
+
+    chip_smoke = _chip_smoke()
+    scene = chip_smoke.controller_scene()
+    ctrl = chip_smoke.make_controller(scene, dev, False)
+    _, _, pose, vel = chip_smoke.drive(ctrl, scene["pose"], scene["vel"], 2)
+    traced = chip_smoke.trace_ticks(ctrl, pose, vel, 3, str(tmp_path))
+    names = list(traced["device_ms_by_kernel"])
+    assert any("qp_admm_kernel" in n for n in names), names
+    assert any("footprint_cost_kernel" in n for n in names), names
+    assert min(traced["cuda_launches_per_tick"]) > 100
+    assert min(traced["host_syncs_per_tick"]) >= 3
+    assert profiling.device_module_durations_ms(str(tmp_path / "tick2"))

@@ -133,3 +133,45 @@ def test_prox_solver_follows_its_inputs_device():
                                 cfg, tp.make_objective(cfg, parity=False)))
     assert all(t.device.type == "cpu" for t in _leaves(res))
     assert fpm.footprint_cost_batch.launches == before
+
+
+def test_controller_runs_on_the_card_unless_asked_for_the_cpu():
+    """NeoMpcController() is for the card: its configure raises without
+    one; device="cpu" keeps its state on the CPU."""
+    cfg = _cfg()
+    ctrl = tp.NeoMpcController()
+    if torch.cuda.is_available():
+        ctrl.configure(cfg)
+        assert all(t.is_cuda for t in _leaves(ctrl._state))
+    else:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            ctrl.configure(cfg)
+    cpu = tp.NeoMpcController(device="cpu")
+    cpu.configure(cfg)
+    assert all(t.device.type == "cpu" for t in _leaves(cpu._state))
+
+
+def test_server_main_runs_on_the_card_unless_asked_for_the_cpu():
+    """The console script's default --device is the card: without one it
+    refuses to start (the session raises before the socket listens); with
+    one it serves from the card."""
+    import socket
+    import threading
+
+    from neo_mpc_planner2_tpu_torch import cli
+    from neo_mpc_planner2_tpu_torch.serving import OptimizerClient
+
+    with socket.socket() as sk:
+        sk.bind(("127.0.0.1", 0))
+        port = sk.getsockname()[1]
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            cli.server_main(["--port", str(port)])
+        return
+    threading.Thread(target=cli.server_main, args=(["--port", str(port)],),
+                     daemon=True).start()
+    client = OptimizerClient(port=port, wait_timeout=60)
+    try:
+        assert client.call({"op": "ping"})["backend"] == "gpu"
+    finally:
+        client.close()

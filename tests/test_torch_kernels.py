@@ -431,6 +431,12 @@ def test_chip_smoke_last_lines_name_the_card(monkeypatch, capsys):
     monkeypatch.setattr(chip_smoke, "phase_map_refresh", lambda *a: {})
     monkeypatch.setattr(chip_smoke, "phase_launches_per_tick",
                         lambda d, s: {})
+    monkeypatch.setattr(chip_smoke, "phase_controller", lambda d, smi: {
+        f"controller_{route}": {
+            "launches": {k["name"]: 30 for k in chip_smoke.KERNELS},
+            "ticks": 30} for route in ("fused", "native")})
+    monkeypatch.setattr(chip_smoke, "phase_adapter_and_cli",
+                        lambda d, smi: {})
     assert chip_smoke.main() == 0
     lines = capsys.readouterr().out.strip().splitlines()
     assert lines[-2] == "Card X, 700 W"
@@ -439,6 +445,10 @@ def test_chip_smoke_last_lines_name_the_card(monkeypatch, capsys):
     kernels = json.loads(lines[-3])["kernels"]
     assert [k["name"] for k in kernels] == [k["name"]
                                             for k in chip_smoke.KERNELS]
+    # The launches of the slices' and the controller routes' timed runs.
+    assert [k["launches"] for k in kernels] == [
+        40 * len(chip_smoke.SLICES) + 60] * len(kernels)
+    assert kernels[0]["launches_per_tick"]["controller_native"] == 1.0
 
 
 # --- the C interface, read against the sources -----------------------------

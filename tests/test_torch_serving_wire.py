@@ -42,8 +42,8 @@ from neo_mpc_planner2_tpu_torch.serving import OptimizerSession, serve
 from test_torch_serving import (FOOTPRINT, STAGE, _batch, _map, _opt,
                                 _params)
 
-# Names of the JAX package that wait for the port's controller.py.
-NOT_YET_PORTED = {"NeoMpcController", "ControllerException"}
+# Names of the JAX package that wait for a module still to port.
+NOT_YET_PORTED = set()
 
 
 def _free_port():

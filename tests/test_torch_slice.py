@@ -256,7 +256,9 @@ def test_importing_the_port_leaves_jax_out():
         "             if k == 'jax' or k.startswith(('jax.', 'jaxlib',\n"
         "                                            'neo_mpc_planner2_tpu.')))\n"
         "print(len(list(pkgutil.walk_packages(p.__path__))), bad)\n"
-        "shells = {p.__name__ + '.serving', p.__name__ + '.checkpoint'}\n"
+        "shells = {p.__name__ + '.' + m for m in ('serving', 'checkpoint',\n"
+        "          'controller', 'ros_adapter', 'cli', 'native.host',\n"
+        "          'utils.viz', 'utils.se2_np', 'utils.profiling')}\n"
         "sys.exit(1 if bad or 'neo_mpc_planner2_tpu' in sys.modules\n"
         "         or not shells <= set(sys.modules) else 0)\n")
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
