@@ -28,6 +28,17 @@ syncs a tick from the port's device_trace, its first 10 ticks against the
 CPU, K1's and K3's batch-1 calls held against their plain versions; the
 ROS adapter's core on the card, and the console script
 (`cli.server_main --device cuda`) answering one request.
+Then the SQP's schedules at the fleet point, each group in turns:
+lockstep-tail compaction (off, adaptive, fixed after 3 iterations: solves/s,
+the solves that took the compact branch, K1 on a sub-batch, card vs CPU on
+the adaptive arm) and the K-wide wave line search (K = 1, 2, 4: solves/s,
+line-search trips a solve); the MPO-700 suite gate (64 scenarios, the
+port's solve on the card against its scipy oracle on the host: >= 0.9 of
+the commands within 1e-2 m/s, worst objective gap < 5e-4); the sharded
+engine (`parallel.sharding`, NCCL over the visible cards: its commands
+equal to the one-process engine's, its metrics to local reductions, the
+all-reduce's wall); and the server's fleet ops sharded over the visible
+cards, answering as one card does.
 K3 is also held to its plain version, and timed, on the arguments of its
 own calls in the product slice (a gate at R = 1, a gradient call at R = 3
 and a wave at R = 21), in the rolling slice (R = 1 through the view, with
@@ -86,12 +97,12 @@ SLICE_TICKS = 20
 # captured there) and, per slice, the ticks that the launch count
 # profiles, as (first tick, ticks). Reading the profiler's records takes
 # longer than the ticks they record (a fleet tick makes ~10^4 launches,
-# a prox tick ~3·10^4), so the SQP slices profile their first 10 ticks
+# a prox tick ~3·10^4), so the SQP slices profile their first 5 ticks
 # and the prox slice 2 ticks from the middle of a run.
 WARM_TICKS = 2
-LAUNCH_TICKS = {"fleet": (0, 10), "product": (0, 10),
-                "prox": (SLICE_TICKS // 2, 2), "rolling": (0, 10),
-                "dynamic": (0, 10), "updates": (0, 10), "exact": (0, 5)}
+LAUNCH_TICKS = {"fleet": (0, 5), "product": (0, 5),
+                "prox": (SLICE_TICKS // 2, 2), "rolling": (0, 5),
+                "dynamic": (0, 5), "updates": (0, 5), "exact": (0, 5)}
 
 
 def _nvidia_smi() -> str:
@@ -243,6 +254,7 @@ def _device_total_ms(fn, reps: int = 20) -> float:
 
 LAUNCH_EVENTS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
                  "cuLaunchKernelEx")
+SYNC_EVENTS = ("cudaStreamSynchronize", "cudaDeviceSynchronize")
 
 
 def profile_run(fn) -> dict:
@@ -262,6 +274,7 @@ def profile_run(fn) -> dict:
     dev = [(e.name, e.time_range.elapsed_us() / 1e3) for e in events
            if e.device_type == DeviceType.CUDA]
     return {"launches": sum(e.name in LAUNCH_EVENTS for e in events),
+            "syncs": sum(e.name in SYNC_EVENTS for e in events),
             "kernels": len(dev),
             "device_ms": sum(ms for _, ms in dev),
             "kernel_ms": {name: sum(ms for n, ms in dev
@@ -1024,16 +1037,20 @@ def phase_launches_per_tick(device, slices: dict, batch: int = 4096) -> dict:
     return out
 
 
-def phase_card_vs_cpu(device, name: str, lanes: int = 256):
+def phase_card_vs_cpu(device, name: str, lanes: int = 256, cfg=None,
+                      label: str | None = None):
     """The slice's first tick on the card against the same tick on the CPU
     (plain versions), through batch_simulate: on a live map the tick reads
     the view, the re-synthesized map or the map after its first update. At
     least 99 % of lanes within 1e-3 (a 1-ulp tie in f may move a lane's
-    termination by one iteration)."""
+    termination by one iteration). cfg: a config in place of the slice's
+    (an arm's), reported under `label`."""
     from neo_mpc_planner2_tpu_torch.simulation import batch_simulate
     from neo_mpc_planner2_tpu_torch.tree import tree_map
 
-    cfg, sb, run = slice_inputs(name, lanes, device, seed=1)
+    cfg0, sb, run = slice_inputs(name, lanes, device, seed=1)
+    cfg = cfg0 if cfg is None else cfg
+    name = name if label is None else label
     gpu = batch_simulate(cfg, sb, 1, **run).cmds[:, 0].cpu()
     to_cpu = lambda t: t.cpu()
     cpu = batch_simulate(cfg, tree_map(to_cpu, sb), 1,
@@ -1046,6 +1063,445 @@ def phase_card_vs_cpu(device, name: str, lanes: int = 256):
     if frac < 0.99:
         raise AssertionError(f"{name} card vs CPU: only {frac:.4f} of lanes "
                              "within 1e-3")
+    return out
+
+
+# The SQP's schedules at the fleet point, each arm a config:
+# lockstep-tail compaction off (the slice's config), adaptive, and fixed
+# after 3 iterations; the K-wide wave at K = 1, 2, 4 (quadratic
+# interpolation off: a wave refuses it). Each group runs in turns (A B C C
+# B A), 20 ticks a run; its launches a tick are profiled over ARM_PROFILE =
+# (first tick, ticks) with the slices, at the end.
+COMPACT_ARMS = {
+    "compact_plain": lambda: fleet_cfg(),
+    "compact_adaptive": lambda: fleet_cfg().replace(
+        solver_compact_adaptive=True),
+    "compact_fixed": lambda: fleet_cfg().replace(solver_compact_after=3),
+}
+WAVE_ARMS = {
+    f"wave_K{k}": (lambda k=k: fleet_cfg().replace(
+        solver_ls_quad_interp=False, solver_ls_wave=k))
+    for k in (1, 2, 4)}
+ARM_PROFILE = (2, 2)
+
+
+class TripCounter:
+    """The SQP's objective, counting its calls without autograd: the line
+    search's merit evaluations, one a trip (the gradient's calls run with
+    autograd on)."""
+
+    def __init__(self, objective):
+        self.objective = objective
+        self.parity = objective.parity
+        self.trips = 0
+
+    def __call__(self, *args, **kw):
+        import torch
+
+        if not torch.is_grad_enabled():
+            self.trips += 1
+        return self.objective(*args, **kw)
+
+
+class SolveRecorder:
+    """While active, counts the batched solves of `batch` lanes and keeps
+    the size of each sub-batch that lockstep-tail compaction finishes: both
+    build their SQP machinery through `sqp._make_sqp`, which the batched
+    front end looks up at every solve, at the full batch or at the alive
+    lanes' count. Restores it on exit."""
+
+    def __init__(self, batch: int):
+        self.batch = batch
+        self.solves = 0
+        self.sub = []
+
+    def __enter__(self):
+        from neo_mpc_planner2_tpu_torch import sqp
+
+        self._make = sqp._make_sqp
+
+        def make(f, cfg, batch, *args, **kw):
+            if batch < self.batch:
+                self.sub.append(batch)
+            else:
+                self.solves += 1
+            return self._make(f, cfg, batch, *args, **kw)
+
+        sqp._make_sqp = make
+        return self
+
+    def __exit__(self, *exc):
+        from neo_mpc_planner2_tpu_torch import sqp
+
+        sqp._make_sqp = self._make
+        return False
+
+
+def arm_inputs(make_cfg, batch: int, device):
+    """An arm's config, its counted objective, the fleet slice's scenario
+    batch and the batch_simulate arguments with the arm's solver."""
+    from neo_mpc_planner2_tpu_torch.ops.objective import make_objective
+    from neo_mpc_planner2_tpu_torch.sqp import make_sqp_solver_batched
+
+    _, sb, run = slice_inputs("fleet", batch, device)
+    cfg = make_cfg()
+    obj = TripCounter(make_objective(cfg, parity=True))
+    return cfg, obj, sb, dict(run, solver_batch=make_sqp_solver_batched(
+        cfg, obj))
+
+
+def phase_arms(device, smi: str, arms: dict, label: str,
+               batch: int = 4096, ticks: int = SLICE_TICKS) -> dict:
+    """A group of arms at the fleet point: per arm a warm-up run of
+    WARM_TICKS (K1's calls recorded), then two timed runs in turns (A B C C
+    B A), the launch counts set to 0 just before each and read just after.
+    Per arm: solves/s (each run, and their median), the kernels' launches,
+    the batched solves and the compact branch's sub-batches (their count and
+    sizes), line-search trips a solve, and the largest command difference
+    from the group's first arm; K1 on the largest sub-batch call recorded
+    in the warm-up (where the compact branch ran), held against its plain
+    version and timed."""
+    import torch
+
+    from neo_mpc_planner2_tpu_torch.simulation import batch_simulate
+
+    runs = {}
+    for name, make_cfg in arms.items():
+        cfg, obj, sb, run = arm_inputs(make_cfg, batch, device)
+        with K1Recorder() as rec:
+            batch_simulate(cfg, sb, WARM_TICKS, **run)
+        sub = {k: v for k, v in rec.args.items() if k[0] < batch}
+        runs[name] = dict(cfg=cfg, obj=obj, sb=sb, run=run, walls=[],
+                          solves=0, sub=[], trips=0, sub_k1=sub,
+                          launches=collections.Counter())
+    first = next(iter(arms))
+    for name in list(arms) + list(reversed(arms)):
+        r = runs[name]
+        torch.cuda.synchronize()
+        r["obj"].trips = 0
+        _reset_launch_counts()
+        with SolveRecorder(batch) as solves:
+            t0 = time.perf_counter()
+            res = batch_simulate(r["cfg"], r["sb"], ticks, **r["run"])
+            torch.cuda.synchronize()
+            r["walls"].append(time.perf_counter() - t0)
+        r["launches"].update(_launch_counts())
+        r["solves"] += solves.solves
+        r["sub"] += solves.sub
+        r["trips"] += r["obj"].trips
+        r["cmds"] = res.cmds
+        r["res"] = res
+        if not bool(torch.isfinite(res.cmds).all()):
+            raise AssertionError(f"{name}: non-finite commands")
+    report = {}
+    for name, r in runs.items():
+        for kernel in ("qp_admm", "footprint_cost"):
+            if r["launches"][kernel] <= 0:
+                raise AssertionError(f"{name}: {kernel} was never launched")
+        k1 = None
+        if r["sub_k1"]:
+            rec = K1Recorder()
+            rec.args = dict([max(r["sub_k1"].items())])
+            k1 = phase_k1_captured(rec, f"{name} sub-batch")
+        res = r["res"]
+        diff = float((r["cmds"] - runs[first]["cmds"]).abs().max())
+        out = {"phase": f"{label}: {name}", "batch": batch, "ticks": ticks,
+               "runs": len(r["walls"]),
+               "solves_per_s": [batch * ticks / w for w in r["walls"]],
+               "solves_per_s_median": batch * ticks
+               / statistics.median(r["walls"]),
+               "wall_ms_per_tick": 1e3 * statistics.median(r["walls"])
+               / ticks,
+               "launches": dict(r["launches"]),
+               "batched_solves": r["solves"],
+               "compact_solves": len(r["sub"]),
+               "sub_batch_lanes": ({"min": min(r["sub"]),
+                                    "median": statistics.median(r["sub"]),
+                                    "max": max(r["sub"])}
+                                   if r["sub"] else None),
+               "ls_trips_per_solve": r["trips"] / max(r["solves"], 1),
+               "converged_frac": float(res.converged.float().mean()),
+               "mean_solver_iters": float(res.solver_iters.float().mean()),
+               f"max_cmd_diff_vs_{first}": diff,
+               "k1_sub_batch": k1, "card": smi}
+        print(json.dumps(out), flush=True)
+        report[name] = dict(out, ticks=ticks * len(r["walls"]))
+    return report
+
+
+def phase_arm_launches(device, arms: dict, batch: int = 4096) -> dict:
+    """Each arm again under torch.profiler over ARM_PROFILE = (first, n):
+    `first` ticks unprofiled, then n: CUDA launches, host syncs
+    (cudaStreamSynchronize) and device busy ms a tick, each kernel's device
+    ms a tick, and the device's idle share against the arm's timed wall
+    (arms: name -> that arm's phase_arms output)."""
+    from neo_mpc_planner2_tpu_torch.simulation import batch_simulate
+
+    first, ticks = ARM_PROFILE
+    out = {"phase": "CUDA launches a tick: SQP schedules", "batch": batch,
+           "ticks": ARM_PROFILE}
+    makers = {**COMPACT_ARMS, **WAVE_ARMS}
+    for name in arms:
+        cfg, _, sb, run = arm_inputs(makers[name], batch, device)
+        head = batch_simulate(cfg, sb, first, **run)
+        init = (head.final_state, head.poses[:, -1], head.cmds[:, -1])
+        p = profile_run(lambda: batch_simulate(cfg, sb, ticks, init=init,
+                                               **run))
+        busy = p["device_ms"] / ticks
+        wall = arms[name]["wall_ms_per_tick"]
+        out[name] = {"cuda_launches_per_tick": p["launches"] / ticks,
+                     "host_syncs_per_tick": p["syncs"] / ticks,
+                     "device_busy_ms_per_tick": busy,
+                     "kernel_ms_per_tick": {k: v / ticks for k, v in
+                                            p["kernel_ms"].items()},
+                     "timed_run_wall_ms_per_tick": wall,
+                     "device_idle_share": 1.0 - busy / wall}
+    print(json.dumps(out), flush=True)
+    return out
+
+
+def phase_oracle(device, smi: str, n: int = 64) -> dict:
+    """The north-star gate on the card: the MPO-700 suite of
+    tests/test_mpo700_suite.py (n scenarios, seed 123) through the port's
+    batched pursuit and solve on the card, against the port's scipy oracle
+    on the host (parity.run_suite). Passes at a matched fraction >= 0.9
+    (1e-2 m/s) with the worst objective gap < 5e-4 over at least 3n/4
+    checked scenarios (48 of 64, as the JAX test asks); K1 and K3 must
+    have run."""
+    from neo_mpc_planner2_tpu_torch import parity
+
+    _reset_launch_counts()
+    t0 = time.perf_counter()
+    rep = parity.run_suite(parity.suite_config(), n, seed=123, device=device)
+    wall = time.perf_counter() - t0
+    launches = _launch_counts()
+    out = {"phase": "oracle gate: MPO-700 suite, the solve on the card",
+           "n": n, **rep, "wall_s": wall, "launches": launches,
+           "gate": {"match_tol": parity.MATCH_TOL,
+                    "frac": parity.MATCH_FRAC_GATE,
+                    "gap": parity.UNMATCHED_GAP_TOL,
+                    "checked_min": 3 * n // 4},
+           "card": smi}
+    print(json.dumps(out), flush=True)
+    if not rep["passed"] or rep["checked"] < 3 * n // 4:
+        raise AssertionError(f"the MPO-700 gate failed: {rep}")
+    for kernel in ("qp_admm", "footprint_cost"):
+        if launches[kernel] <= 0:
+            raise AssertionError(f"oracle gate: {kernel} was never launched")
+    return out
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as sk:
+        sk.bind(("127.0.0.1", 0))
+        return sk.getsockname()[1]
+
+
+def phase_sharded(device, smi: str, batch: int = 4096,
+                  ticks: int = 5) -> dict:
+    """The sharded engine over a world of the visible cards. With one card:
+    a world of one in this process (NCCL at tcp://127.0.0.1), ShardedEngine
+    stepping the fleet slice's batch `ticks` times with the launch counts
+    set to 0 just before and read just after; each tick's commands equal to
+    MpcEngine.batch_step's on the same inputs and its metrics equal to the
+    same reductions taken locally; the metrics' wall with its all-reduces
+    and without them, per step. With more cards: one process a card
+    (`neo_mpc_planner2_tpu_torch.parallel.smoke`), every rank's metrics
+    equal."""
+    import torch
+    import torch.distributed as dist
+
+    import neo_mpc_planner2_tpu_torch as tp
+    from neo_mpc_planner2_tpu_torch.parallel import sharding
+
+    world = torch.cuda.device_count()
+    if world > 1:
+        return _sharded_processes(smi, world, batch, ticks)
+    sharding.initialize_distributed(
+        device="cuda", init_method=f"tcp://127.0.0.1:{_free_port()}",
+        world_size=1, rank=0)
+    try:
+        mesh = sharding.make_mesh()
+        cfg, sb, _ = slice_inputs("fleet", batch, device)
+        eng = sharding.ShardedEngine(cfg, mesh)
+        args = eng.shard((sb.plan, sb.robot_pose, sb.current_vel,
+                          sb.costmap, sb.footprint, sb.delta_t))
+        state = eng.init_state(batch)
+        outs, metrics, walls = [], [], []
+        torch.cuda.synchronize()
+        _reset_launch_counts()
+        for _ in range(ticks):
+            t0 = time.perf_counter()
+            out, m = eng.step(state, *args)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+            state = out.state
+            outs.append(out)
+            metrics.append(m)
+        launches = _launch_counts()
+        reduce_ms = {True: [], False: []}
+        for out in outs:
+            for distributed in (True, False, False, True):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                sharding.fleet_metrics(out, distributed)
+                torch.cuda.synchronize()
+                reduce_ms[distributed].append(
+                    1e3 * (time.perf_counter() - t0))
+        ref = tp.MpcEngine(cfg, device=device)
+        st = ref.init_batch_state(batch)
+        worst = 0.0
+        for out, m in zip(outs, metrics):
+            r = ref.batch_step(st, sb.plan, sb.robot_pose, sb.current_vel,
+                               sb.costmap, sb.footprint, sb.delta_t)
+            st = r.state
+            if not torch.equal(out.cmd_vel, r.cmd_vel):
+                worst = max(worst, float((out.cmd_vel - r.cmd_vel).abs()
+                                         .max()))
+            local = sharding.fleet_metrics(out, distributed=False)
+            if any(not torch.equal(a, b) for a, b in zip(m, local)):
+                raise AssertionError(f"sharded metrics {m} differ from the "
+                                     f"local reductions {local}")
+        out = {"phase": "sharded engine (NCCL)", "world_size": world,
+               "mesh": list(mesh.shape), "batch": batch, "ticks": ticks,
+               "step_ms": [1e3 * w for w in walls],
+               "metrics_ms_with_all_reduce": statistics.median(
+                   reduce_ms[True]),
+               "metrics_ms_local": statistics.median(reduce_ms[False]),
+               "max_cmd_diff_vs_one_process": worst,
+               "metrics": {k: float(v) for k, v in
+                           metrics[-1]._asdict().items()},
+               "launches": launches, "card": smi}
+        print(json.dumps(out), flush=True)
+        if worst:
+            raise AssertionError("the sharded engine's commands differ from "
+                                 f"MpcEngine.batch_step's by {worst}")
+        for kernel in ("qp_admm", "footprint_cost"):
+            if launches[kernel] <= 0:
+                raise AssertionError(f"sharded engine: {kernel} was never "
+                                     "launched")
+        return dict(out, ticks=ticks)
+    finally:
+        dist.destroy_process_group()
+
+
+def _sharded_processes(smi: str, world: int, batch: int, ticks: int) -> dict:
+    """The sharded engine as one process a card, at the rank script's own
+    small config (`parallel.smoke`): every rank must finish and print the same
+    metrics each step, and each rank's commands must agree with the
+    one-process engine's on card 0 for the same lanes (at least 99 % of
+    lanes within 1e-3; the fraction bit-equal is reported)."""
+    import re
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    import neo_mpc_planner2_tpu_torch as tp
+    from neo_mpc_planner2_tpu_torch.parallel.smoke import smoke_config
+    from neo_mpc_planner2_tpu_torch.scenarios import make_scenario_batch
+
+    port = _free_port()
+    with tempfile.TemporaryDirectory() as tmp:
+        procs = [subprocess.Popen(
+            [sys.executable, "-m",
+             "neo_mpc_planner2_tpu_torch.parallel.smoke", str(r), str(world),
+             str(port), f"{tmp}/rank{r}.npz", "--device", "cuda",
+             "--batch", str(batch), "--steps", str(ticks)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for r in range(world)]
+        outs = []
+        try:
+            for p in procs:
+                outs.append(p.communicate(timeout=300)[0])
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+        for r, (p, o) in enumerate(zip(procs, outs)):
+            if p.returncode != 0 or f"[rank {r}] OK" not in o:
+                raise AssertionError(f"rank {r} failed:\n{o}")
+        cmds = [np.concatenate([np.load(f"{tmp}/rank{r}.npz")[f"cmd_vel{s}"]
+                                for r in range(world)])
+                for s in range(ticks)]
+    lines = [re.findall(r"step\d .*", o) for o in outs]
+    cfg = smoke_config()
+    sb = make_scenario_batch(cfg, batch, seed=0, map_size=48, plan_points=24,
+                             device="cuda:0")
+    eng = tp.MpcEngine(cfg, device="cuda:0")
+    st = eng.init_batch_state(batch)
+    diffs = []
+    for s in range(ticks):
+        o = eng.batch_step(st, sb.plan, sb.robot_pose, sb.current_vel,
+                           sb.costmap, sb.footprint, sb.delta_t)
+        st = o.state
+        diffs.append(np.abs(cmds[s] - o.cmd_vel.cpu().numpy()).max(-1))
+    diff = np.concatenate(diffs)
+    torch.cuda.synchronize()
+    out = {"phase": "sharded engine (NCCL)", "world_size": world,
+           "batch": batch, "ticks": ticks, "rank0": lines[0],
+           "max_cmd_diff_vs_one_process": float(diff.max()),
+           "frac_bit_equal": float((diff == 0).mean()),
+           "frac_within_1e-3": float((diff <= 1e-3).mean()), "card": smi}
+    print(json.dumps(out), flush=True)
+    if any(ln != lines[0] or len(ln) != ticks for ln in lines):
+        raise AssertionError(f"the ranks' metrics differ: {lines}")
+    if out["frac_within_1e-3"] < 0.99:
+        raise AssertionError("the ranks' commands leave the one-process "
+                             f"engine's: {out}")
+    return out
+
+
+def phase_server_shards(device, smi: str, fleet: int = 4096) -> dict:
+    """OptimizerSession(device="cuda"), the fleet ops over every visible
+    card, against one on "cuda:0": the same staging (the serving phase's
+    map and MPO-700), then two optimizer_batch requests at `fleet` robots
+    each, the launch counts set to 0 just before the sharded session's and
+    read just after; the answers must be equal. Prints the shard count
+    and the wall of each request."""
+    from neo_mpc_planner2_tpu_torch.serving import OptimizerSession
+
+    traffic = serving_traffic(fleet)
+    msg = {"op": "optimizer_batch", "robots": traffic["robots"],
+           "delta_t": 1 / 30}
+    replies, walls = {}, {}
+    for name in ("cuda:0", "cuda"):
+        sess = OptimizerSession(fleet_cfg(), device=name)
+        _call(sess, traffic["costmap"])
+        _call(sess, traffic["footprint"])
+        if name == "cuda":
+            _reset_launch_counts()
+        walls[name] = []
+        replies[name] = []
+        for _ in range(2):
+            t0 = time.perf_counter()
+            replies[name].append(_call(sess, msg))
+            walls[name].append(1e3 * (time.perf_counter() - t0))
+        if name == "cuda":
+            launches = _launch_counts()
+            shards = [(str(d), hi - lo) for d, lo, hi in
+                      sess._bounds(fleet)]
+    import numpy as np
+
+    vel = lambda name: np.array([[r["output_vel"] for r in rep["results"]]
+                                 for rep in replies[name]])
+    out = {"phase": "server: fleet ops sharded over the visible cards",
+           "robots": fleet, "devices": [str(d) for d in sess.devices],
+           "shards": shards, "wall_ms": walls,
+           "equal_to_one_card": replies["cuda"] == replies["cuda:0"],
+           "max_output_vel_diff": float(np.abs(vel("cuda")
+                                               - vel("cuda:0")).max()),
+           "launches": launches, "card": smi}
+    print(json.dumps(out), flush=True)
+    if not out["equal_to_one_card"]:
+        raise AssertionError("the sharded server's answers differ from one "
+                             "card's")
+    for kernel in ("qp_admm", "footprint_cost"):
+        if launches[kernel] <= 0:
+            raise AssertionError(f"server shards: {kernel} was never "
+                                 "launched")
     return out
 
 
@@ -1098,14 +1554,11 @@ def _fleet_params() -> dict:
 def _serve_thread(**kw):
     """The port's serve() on 127.0.0.1 at a free port, in a daemon thread
     (it ends with the process); its port once it listens."""
-    import socket
     import threading
 
     from neo_mpc_planner2_tpu_torch.serving import serve
 
-    with socket.socket() as sk:
-        sk.bind(("127.0.0.1", 0))
-        port = sk.getsockname()[1]
+    port = _free_port()
     ready = threading.Event()
     threading.Thread(target=serve, daemon=True,
                      kwargs=dict(host="127.0.0.1", port=port,
@@ -1298,7 +1751,6 @@ def phase_serving(device, smi: str, fleet: int = 4096, big: int = 8192,
 CONTROLLER_TICKS = 30
 CONTROLLER_CHECK_TICKS = 10
 CONTROLLER_TRACED_TICKS = 3
-SYNC_EVENTS = ("cudaStreamSynchronize", "cudaDeviceSynchronize")
 
 
 class K1Recorder:
@@ -1790,12 +2242,23 @@ def main() -> int:
                       required=("walk",))
     phase_map_refresh(device, smi)
     progress("captured K3 and map refresh")
+    compact = phase_arms(device, smi, COMPACT_ARMS, "compaction")
+    phase_card_vs_cpu(device, "fleet", cfg=COMPACT_ARMS["compact_adaptive"](),
+                      label="compact_adaptive")
+    waves = phase_arms(device, smi, WAVE_ARMS, "wave")
+    progress("compaction and wave")
+    phase_oracle(device, smi)
+    progress("oracle gate")
+    sharded = phase_sharded(device, smi)
+    phase_server_shards(device, smi)
+    progress("sharded engine and server")
     phase_serving(device, smi)
     progress("serving")
     controller = phase_controller(device, smi)
     phase_adapter_and_cli(device, smi)
     progress("controller")
     phase_launches_per_tick(device, slices)
+    phase_arm_launches(device, {**compact, **waves})
     progress("launches a tick")
 
     measured = {
@@ -1816,9 +2279,10 @@ def main() -> int:
                                bound_ms=wave["bound_ms"],
                                bound_by=wave["bound_by"], library_ms=None),
     }
-    # The launches of the slices' and the controller routes' timed runs.
-    print(json.dumps({"kernels": kernels_line({**slices, **controller},
-                                              measured)}), flush=True)
+    # The launches of the timed runs: the slices, the SQP schedules' arms,
+    # the sharded engine and the controller routes.
+    runs = {**slices, **compact, **waves, "sharded": sharded, **controller}
+    print(json.dumps({"kernels": kernels_line(runs, measured)}), flush=True)
     print(_nvidia_smi(), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -1,13 +1,14 @@
 """Console entry point of the port (port of `cli.py`).
 
-- neo-mpc-server-torch: the standalone optimization server on one device
+- neo-mpc-server-torch: the standalone optimization server
   (`ros2 run neo_mpc_planner2 mpc_optimization_server.py --ros-args
   --params-file …` analogue, README.md:92) with --params-file support for
-  the reference's navigation.yaml layout, and --device (the card unless the
-  caller asks for the CPU).
+  the reference's navigation.yaml layout, and --device: "cuda" (the
+  default) shards the fleet ops over every visible card, "cuda:k" serves
+  on that card, "cpu" on the CPU.
 
-The JAX package's `neo-mpc-bench` runs its own bench.py and has no
-counterpart here yet.
+The JAX package's `neo-mpc-bench` runs the JAX package's own bench.py, the
+benchmark of the earlier work, and has no counterpart here.
 """
 
 from __future__ import annotations
@@ -19,7 +20,7 @@ from typing import Any, Mapping
 
 # The H100 reading behind --fleet-chunk's default (PERF.md, serving).
 _FLEET_CHUNK_HELP = (
-    "max lanes per device dispatch for the fleet ops; larger fleets run as "
+    "max lanes per device dispatch for the fleet ops; larger shards run as "
     "sequential chunks of at most this many lanes. 0 (default) = always one "
     "dispatch: at 8192 robots on an NVIDIA H100 80GB HBM3 at a 700 W power "
     "limit, chunks of 4096 were 1.20x slower than one dispatch (PERF.md)")
@@ -72,9 +73,10 @@ def server_main(argv=None) -> None:
     ap.add_argument("--host", default="127.0.0.1")
     ap.add_argument("--port", type=int, default=7180)
     ap.add_argument("--device", default="cuda",
-                    help="torch device of the session (default: cuda; "
-                         "without a card the server refuses to start "
-                         "unless given --device cpu)")
+                    help="torch device of the session (default: cuda, "
+                         "the fleet ops sharded over every visible card; "
+                         "cuda:k for one card; without a card the server "
+                         "refuses to start unless given --device cpu)")
     ap.add_argument("--params-file", default=None)
     ap.add_argument("--pipelined", action="store_true",
                     help="advanced-step mode: reply with the previous tick's "

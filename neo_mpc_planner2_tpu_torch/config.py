@@ -46,9 +46,8 @@ class MpcConfig:
     """All tunables of the engine. Field names match the reference ROS params.
 
     The engine-only solver knobs are documented in the JAX package's
-    `config.py`; the port accepts the same values and raises
-    NotImplementedError for the ones whose code paths it does not carry yet
-    (see ROADMAP.md)."""
+    `config.py`; the port accepts the same values and runs every path they
+    select."""
 
     # --- acceleration limits (py:49-51) ---
     acc_x_limit: float = 0.5

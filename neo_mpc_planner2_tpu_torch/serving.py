@@ -1,6 +1,6 @@
 """Standalone optimization server (port of `serving.py`): the deployment twin
 of the reference's `mpc_optimization_server` node
-(mpc_optimization_server.py:441-447), on one device.
+(mpc_optimization_server.py:441-447).
 
 The wire protocol is the JAX package's, byte for byte: newline-delimited
 JSON over TCP, the same ops, request fields, response keys and error
@@ -31,9 +31,15 @@ parameters that need no rebuild (RUNTIME_PARAMS), checkpoints confined to
 `checkpoint_dir`. What differs here, each a deliberate divergence
 (ROADMAP.md, Queue 3):
 
-- One device. The JAX package shards the fleet lanes over every visible
-  device; this server runs them on `device` (the card unless the caller
-  asks for the CPU).
+- The fleet ops (`optimizer_batch`, `tick_batch`) split their lanes into
+  contiguous shards, one a device of `device`, as the JAX package shards
+  them over every visible device: each shard's state and its copy of the
+  staged map stay on its device, each shard is dispatched from its own
+  host thread, and the results are gathered back in lane order.
+  `device="cuda"` (no index) is every visible card, `"cuda:k"` that card,
+  `"cpu"` the CPU; a tuple names the devices. Shards may differ by one
+  lane (the JAX package pads the fleet to a multiple of the device count).
+  The single-robot ops run on the first device.
 - No lane padding. The JAX package pads a fleet to a power of two so that
   fleet-size churn reuses one compiled executable; eager PyTorch compiles
   nothing, so the fleet state holds exactly the robots. What a client sees
@@ -41,8 +47,8 @@ parameters that need no rebuild (RUNTIME_PARAMS), checkpoints confined to
   fleet checkpoint's "lanes" is the lanes its state holds (the robots,
   unless a padded JAX checkpoint was loaded).
 - `fleet_chunk` defaults to 0: one batch a call (the JAX default of 4096
-  is a TPU measurement). A positive value splits the lanes into chunks of
-  at most that many, the last one shorter.
+  is a TPU measurement). A positive value splits each shard's lanes into
+  chunks of at most that many, the last one shorter.
 - Pipelined mode keeps the semantics (a response carries the previous
   tick's result; the first is the warm-up response), but it hides no time:
   eager PyTorch launches the whole solve from the host, whose masked loops
@@ -54,9 +60,9 @@ parameters that need no rebuild (RUNTIME_PARAMS), checkpoints confined to
   batch for the kernels (K3 reads a lane's map at lane × H × W), where the
   JAX package reads one map in place for every lane.
 
-Per response, one packed vector (a fleet: one (lanes, width) array) crosses
-from the device to the host; each request's floats cross the other way as
-one array.
+Per response, one packed vector (a fleet: one (lanes, width) array a
+shard) crosses from the device to the host; each request's floats cross the
+other way as one array a shard.
 """
 
 from __future__ import annotations
@@ -66,7 +72,9 @@ import json
 import os
 import socket
 import socketserver
+import threading
 import time
+from concurrent.futures import ThreadPoolExecutor
 from typing import Optional
 
 import numpy as np
@@ -97,23 +105,34 @@ RUNTIME_PARAMS = frozenset({
 __all__ = ["OptimizerSession", "serve", "OptimizerClient"]
 
 
-def _resolve_device(device) -> torch.device:
-    dev = torch.device(device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
+def _resolve_devices(device) -> tuple:
+    """The fleet's devices: every visible card for "cuda" without an index,
+    that card for "cuda:k", the CPU for "cpu", or each of a tuple/list."""
+    devs = ([torch.device(d) for d in device]
+            if isinstance(device, (tuple, list)) else [torch.device(device)])
+    if not devs:
+        raise ValueError("no device given")
+    if any(d.type == "cuda" for d in devs) and not torch.cuda.is_available():
         raise RuntimeError("no CUDA device: the server runs on the card "
                            "unless it is asked for the CPU (device='cpu')")
-    return dev
+    if len(devs) == 1 and devs[0].type == "cuda" and devs[0].index is None:
+        devs = [torch.device("cuda", i)
+                for i in range(torch.cuda.device_count())]
+    return tuple(devs)
 
 
 class OptimizerSession:
     """Transport-independent request handler (used directly in-process and
-    behind `serve`). Its state and every solve live on `device`."""
+    behind `serve`). The single-robot ops run on the first of its devices
+    (`device`); the fleet ops shard their lanes over all of them
+    (`devices`)."""
 
     def __init__(self, cfg: Optional[MpcConfig] = None, pipelined: bool = False,
                  checkpoint_dir: Optional[str] = None, max_slots: int = 1024,
                  slot_ttl: Optional[float] = None, parity: bool = True,
                  fleet_chunk: int = 0, device="cuda"):
-        self.device = _resolve_device(device)
+        self.devices = _resolve_devices(device)
+        self.device = self.devices[0]
         self.cfg = cfg or default_config()
         self.fleet_chunk = int(fleet_chunk)
         self.parity = parity
@@ -132,21 +151,22 @@ class OptimizerSession:
         self._fleet_last_time = 0.0
         self.pipelined = pipelined
         # optimizer_batch lanes: a batched ControlState of _fleet_n robots
-        # (or of a loaded checkpoint's lanes) and the pipelined pending
-        # (packed, n).
-        self._fleet_state = None
+        # (or of a loaded checkpoint's lanes) as a list of shards (_split;
+        # `_fleet_state` joins them), and the pipelined pending (packed, n).
+        self._fleet_shards = None
         self._fleet_pending = None
         self._fleet_n = 0
-        # set_plans/tick_batch lanes.
-        self._ftick_state = None
-        self._ftick_plans = None
+        # set_plans/tick_batch lanes, the state and plans as shards.
+        self._ftick_shards = None
+        self._ftick_plan_shards = None
         self._ftick_goals = None
         self._ftick_n = 0
         self._ftick_last_time = 0.0
         self._tick_step = None
-        # Per lane count: the staged map and footprint as contiguous lane
-        # batches, and the Weights/Limits of the current config.
+        # Per lane count and device: the staged map and footprint as
+        # contiguous lane batches, and the Weights/Limits of the config.
         self._lane_cache: dict = {}
+        self._lane_lock = threading.Lock()   # shard threads fill the cache
         self._rebuild()
 
     # ---- slots ----
@@ -221,32 +241,77 @@ class OptimizerSession:
     def _fresh(self, lanes: int):
         return batch_state(init_state(self.cfg, self.device), lanes)
 
-    def _lanes(self, lanes: int) -> dict:
+    def _lanes(self, lanes: int, device) -> dict:
         """The staged map, footprint, weights and limits as `lanes`-lane
-        batches, built once per lane count and staging."""
-        got = self._lane_cache.get(lanes)
-        if got is not None:
-            return got
+        batches on `device`, built once per lane count, device and
+        staging."""
+        with self._lane_lock:
+            got = self._lane_cache.get((lanes, device))
+            if got is None:
+                got = self._lane_cache[(lanes, device)] = self._build_lanes(
+                    lanes, device)
+        return got
+
+    def _build_lanes(self, lanes: int, device) -> dict:
         cm, fp = self.costmap, self.footprint
-        rep = lambda t: t.expand((lanes,) + t.shape).contiguous()
+        rep = lambda t: t.to(device).expand((lanes,) + t.shape).contiguous()
         h, w = cm.data.shape
         lane_cm = Costmap(data=rep(cm.data), origin=rep(cm.origin),
                           resolution=rep(cm.resolution),
                           win_lo=None if cm.win_lo is None else rep(cm.win_lo),
                           win_cells=cm.win_cells).with_flat(
             u8=u8_source_enabled(self.cfg.solver_costmap_u8, h * w))
-        got = self._lane_cache[lanes] = {
-            "costmap": lane_cm,
-            "footprint": Footprint(vertices=rep(fp.vertices),
-                                   n_valid=rep(fp.n_valid)),
-            "weights": Weights.from_config(self.cfg, lanes, self.device),
-            "limits": Limits.from_config(self.cfg, lanes, self.device)}
-        return got
+        return {"costmap": lane_cm,
+                "footprint": Footprint(vertices=rep(fp.vertices),
+                                       n_valid=rep(fp.n_valid)),
+                "weights": Weights.from_config(self.cfg, lanes, device),
+                "limits": Limits.from_config(self.cfg, lanes, device)}
 
-    def _dispatch(self, fn, lane_args, lanes: int):
-        """fn(*lane_args) -> (packed, state) over `lanes` lanes, in chunks of
-        at most fleet_chunk lanes when it is positive (lanes are
-        independent, so the results are the single call's)."""
+    # ---- fleet shards ----
+    def _bounds(self, lanes: int) -> list:
+        """The fleet's contiguous shards, one a device while there are lanes
+        for it: [(device, lo, hi)], the first lanes % shards one longer."""
+        shards = max(1, min(len(self.devices), lanes))
+        base, extra = divmod(lanes, shards)
+        out, lo = [], 0
+        for i in range(shards):
+            hi = lo + base + (i < extra)
+            out.append((self.devices[i], lo, hi))
+            lo = hi
+        return out
+
+    def _split(self, tree, lanes: int) -> list:
+        """A lane-batched tree as the fleet's shards, each on its device."""
+        return [tree_map(lambda x: x[lo:hi].to(dev), tree)
+                for dev, lo, hi in self._bounds(lanes)]
+
+    def _join(self, shards: list):
+        """The shards as one lane-batched tree on the first device."""
+        if len(shards) == 1:
+            return shards[0]
+        return tree_map(lambda *xs: torch.cat([x.to(self.device)
+                                               for x in xs]), *shards)
+
+    @property
+    def _fleet_state(self):
+        """The optimizer_batch state as one lane batch on the first device
+        (None before the first fleet request)."""
+        return (None if self._fleet_shards is None
+                else self._join(self._fleet_shards))
+
+    @_fleet_state.setter
+    def _fleet_state(self, st) -> None:
+        self._fleet_shards = (None if st is None
+                              else self._split(st, st.initial_guess.shape[0]))
+
+    @staticmethod
+    def _shard_lanes(shards: list) -> int:
+        return sum(int(s.initial_guess.shape[0]) for s in shards)
+
+    def _chunked(self, fn, lane_args, lanes: int):
+        """fn(*lane_args) -> (packed, state) over `lanes` lanes of one
+        shard, in chunks of at most fleet_chunk lanes when it is positive
+        (lanes are independent, so the results are the single call's)."""
         chunk = self.fleet_chunk
         if chunk <= 0 or lanes <= chunk:
             return fn(*lane_args)
@@ -258,6 +323,28 @@ class OptimizerSession:
             states.append(s)
         return (torch.cat(packs), tree_map(lambda *xs: torch.cat(xs),
                                            *states))
+
+    def _dispatch(self, fn, shard_args: list, reqs: np.ndarray):
+        """fn over every shard: shard_args[i] are shard i's lane arguments
+        on its device, reqs the fleet's (lanes, width) requests, split the
+        same way. Each shard runs from its own host thread on its device.
+        -> (packed (lanes, width) on the host, the new state's shards)."""
+        def run(i, dev, lo, hi):
+            args = (*shard_args[i], torch.as_tensor(reqs[lo:hi], device=dev))
+            if dev.type != "cuda":
+                return self._chunked(fn, args, hi - lo)
+            with torch.cuda.device(dev):
+                return self._chunked(fn, args, hi - lo)
+
+        bounds = self._bounds(reqs.shape[0])
+        if len(bounds) == 1:
+            outs = [run(0, *bounds[0])]
+        else:
+            with ThreadPoolExecutor(len(bounds)) as pool:
+                outs = list(pool.map(lambda ib: run(ib[0], *ib[1]),
+                                     enumerate(bounds)))
+        packed = np.concatenate([p.cpu().numpy() for p, _ in outs])
+        return packed, [st for _, st in outs]
 
     # Request vector: [pose(3), carrot(3), goal(3), vel(3), switch_opt,
     # control_interval, delta_t] = 15 floats. Response vector: the
@@ -296,7 +383,7 @@ class OptimizerSession:
         """The optimizer ops on len(reqs) lanes: reqs (B, 15) on the device,
         state (B, ...). -> (packed (B, 8 + 3(N + 1)), new state)."""
         B = reqs.shape[0]
-        lanes = self._lanes(B)
+        lanes = self._lanes(B, reqs.device)
         scen = Scenario(
             current_pose=reqs[:, 0:3], carrot_pose=reqs[:, 3:6],
             goal_pose=reqs[:, 6:9], current_vel=reqs[:, 9:12],
@@ -312,16 +399,21 @@ class OptimizerSession:
         """The full tick on len(reqs) lanes: reqs (B, 7) = [pose(3),
         vel(3), delta_t]. -> (packed (B, 15 + 3(N + 1)), new state)."""
         B = reqs.shape[0]
-        if self._tick_step is None:
-            self._tick_step = make_batched_controller_step(
-                self.cfg, parity=self.parity)
-        lanes = self._lanes(B)
-        o = self._tick_step(state, plans, reqs[:, 0:3], reqs[:, 3:6],
+        lanes = self._lanes(B, reqs.device)
+        o = self._tick_fn()(state, plans, reqs[:, 0:3], reqs[:, 3:6],
                             lanes["costmap"], lanes["footprint"],
                             reqs[:, 6])
         packed = torch.cat(self._pack_common(o) + self._pack_tick_extras(o)
                            + [o.local_plan.reshape(B, -1)], dim=-1)
         return packed, o.state
+
+    def _tick_fn(self):
+        """The batched full tick of the current config, built at first
+        use."""
+        if self._tick_step is None:
+            self._tick_step = make_batched_controller_step(
+                self.cfg, parity=self.parity)
+        return self._tick_step
 
     def _rebuild(self) -> None:
         cfg = self.cfg
@@ -336,14 +428,14 @@ class OptimizerSession:
             if slot["state"] is None or slot["state"].initial_guess.shape[0] != m:
                 slot["state"] = init_state(cfg, self.device)
                 slot["pending"] = None
-        if (self._fleet_state is not None
-                and self._fleet_state.initial_guess.shape[-1] != m):
-            self._fleet_state = None
+        if (self._fleet_shards is not None
+                and self._fleet_shards[0].initial_guess.shape[-1] != m):
+            self._fleet_shards = None
             self._fleet_pending = None
-        if (self._ftick_state is not None
-                and self._ftick_state.initial_guess.shape[-1] != m):
-            self._ftick_state = None
-            self._ftick_plans = None
+        if (self._ftick_shards is not None
+                and self._ftick_shards[0].initial_guess.shape[-1] != m):
+            self._ftick_shards = None
+            self._ftick_plan_shards = None
             self._ftick_goals = None
             self._ftick_n = 0
 
@@ -470,12 +562,12 @@ class OptimizerSession:
         """New-mission reset: every slot (state, clock, plan, pending) and
         both fleets."""
         self._slots = {}
-        self._fleet_state = None
+        self._fleet_shards = None
         self._fleet_pending = None
         self._fleet_n = 0
         self._fleet_last_time = 0.0
-        self._ftick_state = None
-        self._ftick_plans = None
+        self._ftick_shards = None
+        self._ftick_plan_shards = None
         self._ftick_goals = None
         self._ftick_n = 0
         self._ftick_last_time = 0.0
@@ -502,11 +594,11 @@ class OptimizerSession:
         under checkpoint_dir."""
         path = self._checkpoint_path(msg)
         if msg.get("fleet"):
-            if self._fleet_state is None:
+            if self._fleet_shards is None:
                 return {"error": "no fleet state to save"}
             save_state(path, self._fleet_state)
             return {"ok": True, "fleet": True,
-                    "lanes": int(self._fleet_state.initial_guess.shape[0]),
+                    "lanes": self._shard_lanes(self._fleet_shards),
                     "robots": self._fleet_n}
         # Looked up without _slot(): saving creates no slot.
         rid = str(msg.get("robot", ""))
@@ -687,7 +779,8 @@ class OptimizerSession:
                                 [len(b) for b in built], self.device)
         new_goals = np.stack([b[-1] for b in built])
         st = self._fresh(n)
-        old = self._ftick_state
+        old = (None if self._ftick_shards is None
+               else self._join(self._ftick_shards))
         keep = (min(self._ftick_n, n, int(old.initial_guess.shape[0]))
                 if old is not None else 0)
         if keep:
@@ -700,8 +793,8 @@ class OptimizerSession:
                                  axis=-1)
         st = st.replace(plan_start=torch.zeros_like(st.plan_start),
                         slow_down=st.slow_down | self._to_device(changed))
-        self._ftick_state = st
-        self._ftick_plans = plans
+        self._ftick_shards = self._split(st, n)
+        self._ftick_plan_shards = self._split(plans, n)
         self._ftick_goals = new_goals
         self._ftick_n = n
         return {"ok": True, "n_plans": n, "lanes": n}
@@ -713,7 +806,7 @@ class OptimizerSession:
             return {"error": "no costmap set"}
         if self.footprint is None:
             return {"error": "no footprint set"}
-        if self._ftick_plans is None:
+        if self._ftick_plan_shards is None:
             return {"error": "no plans staged (op set_plans first)"}
         robots = msg.get("robots", [])
         if len(robots) != self._ftick_n:
@@ -736,10 +829,10 @@ class OptimizerSession:
                                  "[x, y, yaw]/[vx, vy, wz]"}
             reqs[i, 0:3] = pose
             reqs[i, 3:6] = vel
-        packed, self._ftick_state = self._dispatch(
+        self._tick_fn()     # built here, not in the shards' threads
+        vecs, self._ftick_shards = self._dispatch(
             self._tick_lanes,
-            (self._ftick_state, self._ftick_plans, self._to_device(reqs)), n)
-        vecs = packed.cpu().numpy()
+            list(zip(self._ftick_shards, self._ftick_plan_shards)), reqs)
         results = []
         for vec in vecs:
             resp = self._resp_from_vec(vec, lp_off=15)
@@ -748,9 +841,10 @@ class OptimizerSession:
         return {"results": results}
 
     def op_optimizer_batch(self, msg: dict) -> dict:
-        """Fleet tick: n robots on the staged map and footprint, one batch
-        (or fleet_chunk-sized chunks) a call. Robots are positional; new
-        lanes start from init_state, a shrink drops the tail."""
+        """Fleet tick: n robots on the staged map and footprint, one batch a
+        shard (or fleet_chunk-sized chunks of it) a call. Robots are
+        positional; new lanes start from init_state, a shrink drops the
+        tail."""
         if self.costmap is None:
             return {"error": "no costmap set"}
         if self.footprint is None:
@@ -776,19 +870,18 @@ class OptimizerSession:
             self._fleet_last_time = now
         reqs[:, 14] = delta_t
 
-        old = self._fleet_state
-        if old is None or int(old.initial_guess.shape[0]) != n \
-                or n > self._fleet_n:
+        old = self._fleet_shards
+        if old is None or self._shard_lanes(old) != n or n > self._fleet_n:
             st = self._fresh(n)
-            keep = (min(self._fleet_n, n, int(old.initial_guess.shape[0]))
-                    if old is not None else 0)
-            if keep:
-                st = tree_map(lambda f, o: torch.cat([o[:keep], f[keep:]]),
-                              st, old)
+            if old is not None:
+                old = self._join(old)
+                keep = min(self._fleet_n, n, int(old.initial_guess.shape[0]))
+                if keep:
+                    st = tree_map(
+                        lambda f, o: torch.cat([o[:keep], f[keep:]]), st, old)
             self._fleet_state = st
-        packed, self._fleet_state = self._dispatch(
-            self._solve_requests, (self._fleet_state, self._to_device(reqs)),
-            n)
+        packed, self._fleet_shards = self._dispatch(
+            self._solve_requests, [(s,) for s in self._fleet_shards], reqs)
         self._fleet_n = n
 
         n_out = n
@@ -800,8 +893,7 @@ class OptimizerSession:
             # warm-up entry.
             packed, prev_n = prev
             n_out = min(prev_n, n)
-        vecs = packed[:n_out].cpu().numpy()
-        results = [self._resp_from_vec(v) for v in vecs]
+        results = [self._resp_from_vec(v) for v in packed[:n_out]]
         results += [self._warmup_resp() for _ in range(n - n_out)]
         return {"results": results}
 
@@ -827,10 +919,8 @@ def serve(host: str = "127.0.0.1", port: int = 7180,
     """Blocking server loop. Connections are threaded; requests serialize on
     one lock, the discipline of the reference's single-threaded executor
     (py:441-444). checkpoint_dir enables save_state/load_state inside it.
-    The session lives on `device`, the card unless the caller asks for the
-    CPU."""
-    import threading
-
+    The session lives on `device` (every visible card for "cuda"), the card
+    unless the caller asks for the CPU."""
     session = OptimizerSession(cfg, pipelined=pipelined,
                                checkpoint_dir=checkpoint_dir,
                                max_slots=max_slots, slot_ttl=slot_ttl,

@@ -11,7 +11,10 @@ loops over the batch: each runs while any lane is alive, every carry update
 is `torch.where(alive, new, old)` (what vmap's while batching rule does), and
 a lane's result does not depend on when the other lanes finish. With
 `parallel_line_search` the inner loop is one merit evaluation of all its
-candidates at once (the wave), which takes the same alpha.
+candidates at once (the fused wave); with `solver_ls_wave` = K > 1 it
+evaluates K candidates a trip (the K-wide wave). Both take the alpha that
+sequential backtracking takes. The batched front end can also finish the
+slowest lanes as a sub-batch of their own (lockstep-tail compaction).
 
 The QP goes through `qp_admm`, which launches the CUDA kernel K1 for CUDA
 tensors and runs `qp_admm_plain` for CPU tensors. `chol_inverse` does the
@@ -33,6 +36,7 @@ from .kernels import binding
 from .ops.costmap import ProductPatchSampler, _lane, make_point_sampler
 from .ops.objective import parity_footprint_term
 from .solver import SolveResult
+from .tree import tree_map
 
 __all__ = ["qp_admm", "qp_admm_plain", "chol_inverse", "chol_inverse_plain",
            "sqp_solve", "make_sqp_solver", "make_sqp_solver_batched"]
@@ -264,7 +268,8 @@ def _make_sqp(f: Callable[[torch.Tensor], torch.Tensor], cfg: MpcConfig,
 
     parallel_ls: the fused candidate wave instead of sequential
     backtracking; f must then take (B, K, m) candidates, K the backtrack
-    budget."""
+    budget. ls_wave = K > 1 (without parallel_ls): K candidates a trip, f
+    taking (B, K, m)."""
     ftol = cfg.opt_tolerance if ftol is None else ftol
     qp_iters = cfg.qp_iters if qp_iters is None else qp_iters
     max_backtracks = (cfg.solver_max_backtracks if max_backtracks is None
@@ -281,9 +286,6 @@ def _make_sqp(f: Callable[[torch.Tensor], torch.Tensor], cfg: MpcConfig,
         raise ValueError(
             "solver_ls_quad_interp is only implemented for the sequential "
             "line search; disable it to use parallel_line_search/ls_wave")
-    if ls_wave > 1:
-        raise NotImplementedError(
-            "solver_ls_wave > 1 is not ported yet (ROADMAP.md)")
 
     n = cfg.control_steps
     m = 3 * n
@@ -320,10 +322,15 @@ def _make_sqp(f: Callable[[torch.Tensor], torch.Tensor], cfg: MpcConfig,
             return bt
         return torch.where(j < coarse_after, bt, coarse)
 
-    # The wave's schedule: candidate j is bt^min(j, F) · coarse^max(j−F, 0)
+    # The candidate schedule: candidate j is bt^min(j, F) · coarse^max(j−F, 0)
     # (single-phase when F = coarse_after is 0), as float32 powers like the
     # JAX package's; at the product schedule (0.5, 0.0625) they are exact.
-    jf = torch.arange(max_backtracks, **f32)
+    # The K-wide wave's last trip may overhang the budget, so its schedule
+    # runs on to a multiple of K (candidates past the budget are never
+    # acceptable).
+    n_sched = (max_backtracks if parallel_ls
+               else -(-max_backtracks // ls_wave) * ls_wave)
+    jf = torch.arange(n_sched, **f32)
     fine = jf if coarse_after <= 0 else jf.clamp(max=float(coarse_after))
     ls_alphas = (torch.pow(torch.tensor(bt, **f32), fine)
                  * torch.pow(torch.tensor(coarse, **f32), jf - fine))
@@ -358,6 +365,35 @@ def _make_sqp(f: Callable[[torch.Tensor], torch.Tensor], cfg: MpcConfig,
             sel = torch.argmax(ok_mask.to(torch.int32), dim=-1, keepdim=True)
             alpha = alphas.gather(-1, sel)[:, 0]
             f_ls = fs.gather(-1, sel)[:, 0]
+        elif ls_wave > 1:
+            # The K-wide wave: each trip evaluates K consecutive candidates
+            # of the schedule in one merit call of (B, K, m) and accepts the
+            # first one in schedule order, so it takes the alpha sequential
+            # backtracking takes, in ceil(trips / K) trips at the slowest
+            # lane. Done (and inactive) lanes accept at once.
+            K = ls_wave
+            ok = s.done | ~active
+            f_ls = s.f
+            a_init = alpha
+            j = 0
+            while j < max_backtracks:
+                go = ~ok
+                if not bool(go.any()):
+                    break
+                alphas = a_init[:, None] * ls_alphas[j:j + K]     # (B, K)
+                cands = s.x[:, None, :] + alphas[..., None] * d[:, None, :]
+                phis, fs = merit(cands, mu)
+                okm = (phis <= phi0[:, None] + 1e-4 * alphas * dphi[:, None]
+                       + 1e-12)
+                if j + K > max_backtracks:
+                    okm[:, max_backtracks - j:] = False
+                hit = go & okm.any(-1)
+                sel = torch.argmax(okm.to(torch.int32), dim=-1, keepdim=True)
+                alpha = torch.where(hit, alphas.gather(-1, sel)[:, 0], alpha)
+                f_ls = torch.where(hit, fs.gather(-1, sel)[:, 0], f_ls)
+                ok = ok | hit
+                j += K
+            ls_ok = ok
         else:
             # Sequential Armijo backtracking, masked per lane. Done (and
             # inactive) lanes accept at once, so they cost no merit
@@ -465,16 +501,26 @@ def sqp_solve(f, x0: torch.Tensor, cfg: MpcConfig, ftol: float | None = None,
     return SolveResult(x=fin.x, fun=fin.f, converged=fin.done, iters=fin.k)
 
 
-def _batch_fobj(cfg: MpcConfig, objective, scens):
-    """The per-solve objective over all lanes, with the per-solve constants
-    hoisted: in parity mode the footprint term and the point sampler; in
-    product mode, with solver_costmap_patch > 0, the patch sampler around
-    each lane's pose, except on a rolling-window view, which reads the
-    whole map through its window as the JAX package does."""
-    cx, cy = scens.current_pose[:, 0], scens.current_pose[:, 1]
+def _batch_hoist(cfg: MpcConfig, objective, scens):
+    """The per-solve constant tensor the objective hoists out of the
+    solver's loops: the parity footprint term (B,), or None in product
+    mode. Computed once a solve, outside every loop, and indexed for a
+    compact sub-batch."""
     if getattr(objective, "parity", True):
         with torch.no_grad():
-            fp_term = parity_footprint_term(scens, cfg)
+            return parity_footprint_term(scens, cfg)
+    return None
+
+
+def _batch_fobj(cfg: MpcConfig, objective, scens, fp_term):
+    """The per-solve objective over all lanes, with the per-solve constants
+    hoisted: in parity mode the footprint term (`fp_term`, _batch_hoist's)
+    and the point sampler; in product mode, with solver_costmap_patch > 0,
+    the patch sampler around each lane's pose, except on a rolling-window
+    view, which reads the whole map through its window as the JAX package
+    does."""
+    cx, cy = scens.current_pose[:, 0], scens.current_pose[:, 1]
+    if getattr(objective, "parity", True):
         sampler = make_point_sampler(scens.costmap, cx, cy,
                                      cfg.solver_costmap_patch)
         return lambda u: objective(u, scens, fp_term, point_sampler=sampler)
@@ -490,28 +536,79 @@ def make_sqp_solver_batched(cfg: MpcConfig, objective,
                             max_iters: int | None = None,
                             qp_iters: int | None = None,
                             parallel_ls: bool | None = None):
-    """Batched SQP solve, plain path: solve_batch(x0s (B, 3N), scens) ->
-    SolveResult. The JAX package's lockstep-tail compaction is not ported;
-    a config that would take it raises."""
+    """Batched SQP solve with the JAX package's lockstep-tail compaction:
+    solve_batch(x0s (B, 3N), scens) -> SolveResult.
+
+    With compact_n = ceil(B · solver_compact_frac), eligible when
+    0 < compact_n < B and B >= solver_compact_min_batch:
+    - adaptive (solver_compact_adaptive, max_iters > 1, no costmap patch):
+      full-batch iterations while more than compact_n lanes are alive, then
+      the alive lanes are gathered into a sub-batch, finished, and scattered
+      back;
+    - fixed (0 < solver_compact_after < max_iters): solver_compact_after
+      full-batch iterations, then the same gather, finish and scatter when
+      at most compact_n lanes are alive, else the full batch runs on;
+    - otherwise the plain path: one masked solve of the whole batch.
+    The sub-batch holds exactly the alive lanes (the JAX package pads it to
+    compact_n with lane 0 for a static shape). A lane's iterations are the
+    same in every grouping; only an `improved < ftol` tie within ~1 ulp of
+    `fun` could move its termination by one iteration."""
     max_iters_ = cfg.solver_max_iters if max_iters is None else max_iters
     pls = cfg.parallel_line_search if parallel_ls is None else parallel_ls
 
+    def machinery(scens, fp_term, batch, device):
+        fobj = _batch_fobj(cfg, objective, scens, fp_term)
+        return _make_sqp(fobj, cfg, batch, device, ftol=ftol,
+                         qp_iters=qp_iters, parallel_ls=pls,
+                         ls_wave=cfg.solver_ls_wave, limits=scens.limits)
+
+    def finish(st, scens, fp_term, idx):
+        """Gather the lanes `idx` of st and scens, run them to the end as
+        their own batch, and scatter them back into st."""
+        if idx.numel() == 0:
+            return st
+        pick = lambda t: t[idx]
+        sub_fp = None if fp_term is None else fp_term[idx]
+        _, run, _ = machinery(tree_map(pick, scens), sub_fp, idx.numel(),
+                              st.x.device)
+        fin = run(tree_map(pick, st), max_iters_)
+        return tree_map(lambda full, sub: full.index_copy(0, idx, sub),
+                        st, fin)
+
     def solve_batch(x0s, scens):
         batch = x0s.shape[0]
+        k1 = cfg.solver_compact_after
         frac = cfg.solver_compact_frac
         compact_n = math.ceil(batch * frac) if frac > 0 else batch
         eligible = (0 < compact_n < batch
                     and batch >= cfg.solver_compact_min_batch)
         adaptive = (cfg.solver_compact_adaptive and eligible
                     and max_iters_ > 1 and cfg.solver_costmap_patch == 0)
-        if adaptive or (eligible and 0 < cfg.solver_compact_after
-                        < max_iters_):
-            raise NotImplementedError(
-                "lockstep-tail compaction is not ported yet (ROADMAP.md)")
-        fobj = _batch_fobj(cfg, objective, scens)
-        return sqp_solve(fobj, x0s, cfg, ftol=ftol, max_iters=max_iters_,
-                         qp_iters=qp_iters, parallel_ls=pls,
-                         limits=scens.limits)
+        use = eligible and 0 < k1 < max_iters_
+        fp_term = _batch_hoist(cfg, objective, scens)
+        init, run, body = machinery(scens, fp_term, batch, x0s.device)
+        with torch.no_grad():
+            st = init(x0s)
+            if adaptive:
+                # Masked full-batch iterations while more than compact_n
+                # lanes are alive: one host read a trip (the alive lanes'
+                # indices), as the plain loop reads whether any is alive.
+                while True:
+                    alive = ~st.done & (st.k < max_iters_)
+                    idx = alive.nonzero()[:, 0]
+                    if idx.numel() <= compact_n:
+                        break
+                    st = _select(alive, body(st, alive), st)
+                st = finish(st, scens, fp_term, idx)
+            else:
+                st = run(st, k1 if use else max_iters_)
+                if use:
+                    alive = ~st.done & (st.k < max_iters_)
+                    idx = alive.nonzero()[:, 0]
+                    st = (finish(st, scens, fp_term, idx)
+                          if idx.numel() <= compact_n
+                          else run(st, max_iters_))
+        return SolveResult(x=st.x, fun=st.f, converged=st.done, iters=st.k)
 
     return solve_batch
 
@@ -521,8 +618,6 @@ def make_sqp_solver(cfg: MpcConfig, objective, ftol: float | None = None,
                     parallel_ls: bool | None = None):
     """Single-lane solve(x0 (3N,), scen) -> SolveResult, where every tensor
     of `scen` has no batch dim: runs the batched solve at batch 1."""
-    from .tree import tree_map
-
     solve_batch = make_sqp_solver_batched(cfg, objective, ftol=ftol,
                                           max_iters=max_iters,
                                           qp_iters=qp_iters,

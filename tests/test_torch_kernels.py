@@ -425,7 +425,8 @@ def test_chip_smoke_last_lines_name_the_card(monkeypatch, capsys):
     monkeypatch.setattr(chip_smoke, "phase_slice", lambda *a, **kw: {
         "launches": {k["name"]: 40 for k in chip_smoke.KERNELS},
         "ticks": 20})
-    monkeypatch.setattr(chip_smoke, "phase_card_vs_cpu", lambda *a: None)
+    monkeypatch.setattr(chip_smoke, "phase_card_vs_cpu",
+                        lambda *a, **kw: None)
     monkeypatch.setattr(chip_smoke, "phase_k3_captured",
                         lambda *a, **kw: {"wave_R21": one})
     monkeypatch.setattr(chip_smoke, "phase_map_refresh", lambda *a: {})
@@ -437,6 +438,15 @@ def test_chip_smoke_last_lines_name_the_card(monkeypatch, capsys):
             "ticks": 30} for route in ("fused", "native")})
     monkeypatch.setattr(chip_smoke, "phase_adapter_and_cli",
                         lambda d, smi: {})
+    monkeypatch.setattr(chip_smoke, "phase_arms", lambda d, smi, arms, label: {
+        name: {"launches": {k["name"]: 20 for k in chip_smoke.KERNELS},
+               "ticks": 40} for name in arms})
+    monkeypatch.setattr(chip_smoke, "phase_oracle", lambda d, smi: {})
+    monkeypatch.setattr(chip_smoke, "phase_sharded", lambda d, smi: {
+        "launches": {k["name"]: 5 for k in chip_smoke.KERNELS}, "ticks": 5})
+    monkeypatch.setattr(chip_smoke, "phase_server_shards",
+                        lambda d, smi: {})
+    monkeypatch.setattr(chip_smoke, "phase_arm_launches", lambda d, a: {})
     assert chip_smoke.main() == 0
     lines = capsys.readouterr().out.strip().splitlines()
     assert lines[-2] == "Card X, 700 W"
@@ -445,10 +455,14 @@ def test_chip_smoke_last_lines_name_the_card(monkeypatch, capsys):
     kernels = json.loads(lines[-3])["kernels"]
     assert [k["name"] for k in kernels] == [k["name"]
                                             for k in chip_smoke.KERNELS]
-    # The launches of the slices' and the controller routes' timed runs.
+    # The launches of the timed runs: the slices, the SQP schedules' arms,
+    # the sharded engine and the controller routes.
+    arms = len(chip_smoke.COMPACT_ARMS) + len(chip_smoke.WAVE_ARMS)
     assert [k["launches"] for k in kernels] == [
-        40 * len(chip_smoke.SLICES) + 60] * len(kernels)
+        40 * len(chip_smoke.SLICES) + 20 * arms + 5 + 60] * len(kernels)
     assert kernels[0]["launches_per_tick"]["controller_native"] == 1.0
+    assert kernels[0]["launches_per_tick"]["compact_adaptive"] == 0.5
+    assert kernels[0]["launches_per_tick"]["sharded"] == 1.0
 
 
 # --- the C interface, read against the sources -----------------------------

@@ -6,8 +6,8 @@
 - `batch_simulate` on the JAX-built scenario batch, carried over through
   `interop`, reproduces the JAX package's goldens of the paths the port
   runs within their gates (tests/test_golden.py: cmds atol 1e-4, goal_dist
-  atol 1e-3): the main path, the uint8 gather source and the rolling
-  window.
+  atol 1e-3): all six, the main path, the uint8 gather source, the rolling
+  window and adaptive compaction among them.
 - One direct run against JAX `batch_simulate` at the fleet operating point
   (quadratic-interpolation line search), and one at the product point
   (smooth objective, candidate wave, patch sampler), within the same gates.
@@ -40,11 +40,11 @@ sys.path.insert(0, str(ROOT / "scripts"))
 import record_golden  # noqa: E402
 
 GOLDEN_DIR = ROOT / "tests" / "golden"
-# The goldens of the paths the port runs: static map, no compaction,
-# sequential line search; the uint8 gather source; the rolling window (a
-# 48-cell view of a 96² world).
+# Every golden: static map, sequential line search; the uint8 gather
+# source; the rolling window (a 48-cell view of a 96² world); adaptive
+# lockstep-tail compaction.
 PORTED_GOLDENS = ("mpo700_closed_loop", "two_phase_ls", "footprint_live",
-                  "u8_source", "rolling_window")
+                  "u8_source", "rolling_window", "adaptive_compact")
 
 
 def _tcfg(jc):
@@ -230,19 +230,27 @@ def test_mpc_engine_matches_jax():
 
 
 def test_unported_regimes_raise():
-    """What stays unported raises and points at ROADMAP.md: lockstep-tail
-    compaction and the solver_ls_wave schedule. (The rolling window and the
-    other live maps run: test_torch_livemap.py; exact footprint mode:
-    test_torch_exact.py.)"""
-    cfg = tp.fleet_config().replace(max_plan_points=16)
-    sb = make_scenario_batch(cfg, 2, map_size=32, plan_points=8, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        batch_simulate(cfg.replace(solver_compact_after=2,
-                                   solver_compact_frac=0.5,
-                                   solver_compact_min_batch=2), sb, 1)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    """The regimes that used to be refused run through batch_simulate and
+    give the plain path's commands: fixed and adaptive lockstep-tail
+    compaction and the K-wide wave (solver_ls_wave). Quadratic
+    interpolation with a wave is still refused, as in the JAX package.
+    (The live maps: test_torch_livemap.py; exact footprint mode:
+    test_torch_exact.py; compaction in depth: test_torch_compact.py.)"""
+    cfg = tp.fleet_config().replace(max_plan_points=16,
+                                    solver_ls_quad_interp=False)
+    sb = make_scenario_batch(cfg, 4, map_size=32, plan_points=8, device="cpu")
+    plain = batch_simulate(cfg, sb, 2).cmds
+    for over in (dict(solver_compact_after=2, solver_compact_frac=0.5,
+                      solver_compact_min_batch=2),
+                 dict(solver_compact_adaptive=True, solver_compact_frac=0.5,
+                      solver_compact_min_batch=2),
+                 dict(solver_ls_wave=2)):
+        np.testing.assert_array_equal(
+            batch_simulate(cfg.replace(**over), sb, 2).cmds.numpy(),
+            plain.numpy(), err_msg=str(over))
+    with pytest.raises(ValueError, match="sequential line search"):
         batch_simulate(cfg.replace(solver_ls_wave=2,
-                                   solver_ls_quad_interp=False), sb, 1)
+                                   solver_ls_quad_interp=True), sb, 1)
 
 
 def test_importing_the_port_leaves_jax_out():

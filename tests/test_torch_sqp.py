@@ -125,16 +125,99 @@ def test_lane_results_do_not_depend_on_other_lanes():
 
 
 def test_unported_solver_options_raise():
-    """solver_ls_wave > 1 is not ported; quadratic interpolation with a
-    candidate grid is refused as in the JAX package."""
+    """The K-wide wave (solver_ls_wave = 4, which overhangs the 3-candidate
+    budget) runs and takes sequential backtracking's solves; quadratic
+    interpolation with a candidate grid is still refused, as in the JAX
+    package, for the fused wave and for the K-wide one."""
     cfg, _, ts, x0 = _problem("two_phase", 3, 8)
-    for over, err in ((dict(solver_ls_wave=4), NotImplementedError),
-                      (dict(parallel_line_search=True,
-                            solver_ls_quad_interp=True), ValueError)):
-        tcfg = _tcfg(cfg.replace(**over))
-        with pytest.raises(err):
-            tsqp.make_sqp_solver_batched(tcfg, tobj.make_objective(tcfg))(
-                torch.as_tensor(x0), ts)
+    solve = lambda over: tsqp.make_sqp_solver_batched(
+        _tcfg(cfg.replace(**over)),
+        tobj.make_objective(_tcfg(cfg.replace(**over))))(
+            torch.as_tensor(x0), ts)
+    wave, seq = solve(dict(solver_ls_wave=4)), solve(dict())
+    np.testing.assert_array_equal(wave.x.numpy(), seq.x.numpy())
+    np.testing.assert_array_equal(wave.iters.numpy(), seq.iters.numpy())
+    for over in (dict(parallel_line_search=True, solver_ls_quad_interp=True),
+                 dict(solver_ls_wave=2, solver_ls_quad_interp=True)):
+        with pytest.raises(ValueError, match="sequential line search"):
+            solve(over)
+
+
+def _single_lane(scen, footprint, costmap):
+    n = lambda tree: jax.tree.map(np.asarray, tree)
+    T = lambda a: torch.as_tensor(np.array(a))
+    return tobj.Scenario(
+        current_pose=T(scen.current_pose), carrot_pose=T(scen.carrot_pose),
+        goal_pose=T(scen.goal_pose), current_vel=T(scen.current_vel),
+        footprint=interop.footprint_from_numpy(n(footprint), device="cpu"),
+        costmap=interop.costmap_from_numpy(n(costmap), device="cpu"),
+        switch_opt=torch.tensor(False))
+
+
+@pytest.mark.parametrize("K", [2, 3])
+def test_k_wide_wave_matches_jax(cfg, empty_costmap, footprint, K):
+    """solver_ls_wave = K at tests/test_solver.py's two-phase setup (7
+    backtracks: K = 2 and 3 overhang the budget), against the JAX package's
+    K-wide wave. At the fleet preset's cap of 8 iterations: x within rtol
+    1e-5 / atol 1e-6, iterations within 1. Run on to 200 iterations at
+    ftol 1e-8 the two stop at different points of a flat valley (the
+    sequential branches of the two packages do too: x up to 1.3e-3 apart),
+    so there the objective is held, within 1e-6."""
+    two = cfg.replace(opt_tolerance=1e-8, solver_ls_coarse_after=2,
+                      solver_ls_coarse_factor=0.0625,
+                      solver_max_backtracks=7, solver_ls_wave=K)
+    scen = mpc.Scenario.create([0, 0, 0], [0.4, 0.1, 0.2], [1.0, 0.5, 0.3],
+                               [0.3, 0.1, 0.05], footprint, empty_costmap)
+    tcfg = _tcfg(two)
+    tscen = _single_lane(scen, footprint, empty_costmap)
+    solvers = {iters: (
+        jax.jit(mpc.make_sqp_solver(two, mpc.make_objective(two), ftol=1e-8,
+                                    max_iters=iters, parallel_ls=False)),
+        tsqp.make_sqp_solver(tcfg, tobj.make_objective(tcfg), ftol=1e-8,
+                             max_iters=iters, parallel_ls=False))
+        for iters in (8, 200)}
+    rng = np.random.default_rng(7)
+    for _ in range(3):
+        x0 = rng.uniform(-0.5, 0.5, 9).astype(np.float32)
+        runs = {iters: (want_solve(jnp.asarray(x0), scen),
+                        got_solve(torch.as_tensor(x0), tscen))
+                for iters, (want_solve, got_solve) in solvers.items()}
+        want, got = runs[8]
+        np.testing.assert_allclose(got.x.numpy(), np.asarray(want.x),
+                                   rtol=1e-5, atol=1e-6)
+        assert abs(int(got.iters) - int(want.iters)) <= 1
+        want, got = runs[200]
+        np.testing.assert_allclose(float(got.fun), float(want.fun), rtol=0,
+                                   atol=1e-6)
+
+
+@pytest.mark.parametrize("K", [2, 3])
+def test_k_wide_wave_takes_the_sequential_alpha(K):
+    """Iteration by iteration from the same state, the K-wide wave accepts
+    the alpha sequential backtracking accepts (read from the warm-alpha
+    carry, which stores it), and the whole solves are equal."""
+    cfg, _, ts, x0 = _problem("two_phase", 8, 60)
+    cfg = cfg.replace(solver_ls_warm_alpha=True)
+    tcfg = _tcfg(cfg)
+    obj = tobj.make_objective(tcfg)
+    fobj = tsqp._batch_fobj(tcfg, obj, ts, tsqp._batch_hoist(tcfg, obj, ts))
+    B = x0.shape[0]
+    seq = tsqp._make_sqp(fobj, tcfg, B, "cpu", limits=ts.limits)
+    wave = tsqp._make_sqp(fobj, tcfg, B, "cpu", ls_wave=K, limits=ts.limits)
+    active = torch.ones(B, dtype=torch.bool)
+    with torch.no_grad():
+        st = seq[0](torch.as_tensor(x0))
+        for _ in range(5):
+            a, b = seq[2](st, active), wave[2](st, active)
+            np.testing.assert_array_equal(a.alpha0.numpy(), b.alpha0.numpy())
+            np.testing.assert_array_equal(a.x.numpy(), b.x.numpy())
+            st = a
+    runs = [tsqp.make_sqp_solver_batched(
+        _tcfg(cfg.replace(solver_ls_wave=k)), obj)(torch.as_tensor(x0), ts)
+        for k in (1, K)]
+    np.testing.assert_array_equal(runs[0].x.numpy(), runs[1].x.numpy())
+    np.testing.assert_array_equal(runs[0].iters.numpy(),
+                                  runs[1].iters.numpy())
 
 
 def test_wave_solve_matches_jax():
@@ -182,7 +265,7 @@ def test_warm_alpha_solve_matches_jax(cfg, empty_costmap, footprint,
     of α₀) on both line-search branches, at tests/test_solver.py's
     warm-alpha setup: the same three x0 from default_rng(17),
     opt_tolerance 1e-6, 100 iterations; x within the golden gate (1e-4).
-    (solver_ls_wave > 1 stays refused: test_unported_solver_options_raise.)"""
+    (The K-wide wave: test_k_wide_wave_matches_jax.)"""
     warm = cfg.replace(opt_tolerance=1e-6, solver_ls_warm_alpha=True)
     scen = mpc.Scenario.create([0.1, -0.2, 0.3], [0.5, -0.1, 0.1],
                                [1.0, 0.5, 0.3], [0.2, 0.0, 0.1],
