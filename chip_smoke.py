@@ -19,15 +19,15 @@ device's busy time and its idle share of a tick with torch.profiler; for
 each live map, the device time of the map's refresh a tick. Then it serves
 over TCP: the port's `serve` on 127.0.0.1, driven by its OptimizerClient
 (`optimizer`, `tick`, `optimizer_batch` and `tick_batch` at fleet sizes,
-checkpoints), with each request's p50/p99 latency, and the same script on
-the card against the CPU. Then the single-robot controller
-(`NeoMpcController`, fleet point, a 64x64 map, MPO-700) on its fused route
-and with the C++ host's geometry (built with g++ from the port's copy):
-30 closed-loop ticks a route, p50/p99 ms a tick, CUDA launches and host
-syncs a tick from the port's device_trace, its first 10 ticks against the
-CPU, K1's and K3's batch-1 calls held against their plain versions; the
-ROS adapter's core on the card, and the console script
-(`cli.server_main --device cuda`) answering one request.
+checkpoints as .npz files and as directories), with each request's
+p50/p99 latency, and the same script on the card against the CPU. Then
+the single-robot controller (`NeoMpcController`, fleet point, a 64x64
+map, MPO-700) on its fused route and with the C++ host's geometry (built
+with g++ from the port's copy): 30 closed-loop ticks a route, p50/p99 ms
+a tick, CUDA launches and host syncs a tick from the port's device_trace,
+its first 10 ticks against the CPU, K1's and K3's batch-1 calls held
+against their plain versions; the ROS adapter's core on the card, and the
+console script (`cli.server_main --device cuda`) answering one request.
 Then the SQP's schedules at the fleet point, each group in turns:
 lockstep-tail compaction (off, adaptive, fixed after 3 iterations: solves/s,
 the solves that took the compact branch, K1 on a sub-batch, card vs CPU on
@@ -37,8 +37,11 @@ port's solve on the card against its scipy oracle on the host: >= 0.9 of
 the commands within 1e-2 m/s, worst objective gap < 5e-4); the sharded
 engine (`parallel.sharding`, NCCL over the visible cards: its commands
 equal to the one-process engine's, its metrics to local reductions, the
-all-reduce's wall); and the server's fleet ops sharded over the visible
-cards, answering as one card does.
+all-reduce's wall; its state saved collectively as a
+torch.distributed.checkpoint directory, a step resumed from the loaded
+shard equal to the uninterrupted one, the directory loaded whole by a
+process with no group bit-equal to the ranks' states); and the server's
+fleet ops sharded over the visible cards, answering as one card does.
 K3 is also held to its plain version, and timed, on the arguments of its
 own calls in the product slice (a gate at R = 1, a gradient call at R = 3
 and a wave at R = 21), in the rolling slice (R = 1 through the view, with
@@ -56,6 +59,7 @@ JAX.
 from __future__ import annotations
 
 import collections
+import dataclasses
 import json
 import statistics
 import subprocess
@@ -1309,7 +1313,10 @@ def phase_sharded(device, smi: str, batch: int = 4096,
     same reductions taken locally; the metrics' wall with its all-reduces
     and without them, per step. With more cards: one process a card
     (`neo_mpc_planner2_tpu_torch.parallel.smoke`), every rank's metrics
-    equal."""
+    equal. Then the checkpoint of the state after tick 1
+    (`_sharded_checkpoint`)."""
+    import tempfile
+
     import torch
     import torch.distributed as dist
 
@@ -1322,6 +1329,8 @@ def phase_sharded(device, smi: str, batch: int = 4096,
     sharding.initialize_distributed(
         device="cuda", init_method=f"tcp://127.0.0.1:{_free_port()}",
         world_size=1, rank=0)
+    tmp = tempfile.TemporaryDirectory()
+    ckpt = f"{tmp.name}/state"
     try:
         mesh = sharding.make_mesh()
         cfg, sb, _ = slice_inputs("fleet", batch, device)
@@ -1382,9 +1391,81 @@ def phase_sharded(device, smi: str, batch: int = 4096,
             if launches[kernel] <= 0:
                 raise AssertionError(f"sharded engine: {kernel} was never "
                                      "launched")
-        return dict(out, ticks=ticks)
+        ckpt_ms = _checkpoint_in_world(eng, mesh, outs, args, batch, ckpt)
     finally:
         dist.destroy_process_group()
+    with tmp:
+        # No process group from here: the directory loads whole.
+        _sharded_checkpoint(smi, ckpt, world, batch, ckpt_ms, {
+            f.name: getattr(outs[0].state, f.name)
+            for f in dataclasses.fields(outs[0].state)})
+    return dict(out, ticks=ticks)
+
+
+def _checkpoint_in_world(eng, mesh, outs, args, batch: int, path: str,
+                         rounds: int = 3) -> dict:
+    """Inside the world: the state after tick 1 saved collectively to
+    `path` (checkpoint.save_state with the mesh) and this rank's shard
+    loaded back into a fresh state, `rounds` times (each save replaces the
+    last; the first pays the process's one-time set-up), then stepped: the
+    resumed step's commands must equal tick 2's. -> each round's save and
+    shard-load wall ms."""
+    import torch
+    # Its import (about a second) is not the save's.
+    import torch.distributed.checkpoint  # noqa: F401
+
+    from neo_mpc_planner2_tpu_torch import checkpoint
+
+    walls = {"save_ms": [], "load_shard_ms": []}
+    for _ in range(rounds):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        checkpoint.save_state(path, outs[0].state, mesh=mesh)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        loaded = checkpoint.load_state(path, template=eng.init_state(batch),
+                                       mesh=mesh)
+        torch.cuda.synchronize()
+        walls["save_ms"].append(1e3 * (t1 - t0))
+        walls["load_shard_ms"].append(1e3 * (time.perf_counter() - t1))
+    resumed, _ = eng.step(loaded, *args)
+    if not torch.equal(resumed.cmd_vel, outs[1].cmd_vel):
+        diff = float((resumed.cmd_vel - outs[1].cmd_vel).abs().max())
+        raise AssertionError("the step resumed from the checkpoint differs "
+                             f"from the uninterrupted one by {diff}")
+    return walls
+
+
+def _sharded_checkpoint(smi: str, path: str, world: int, batch: int,
+                        ranks: dict, want: dict) -> dict:
+    """The ranks' checkpoint directory loaded whole onto cuda:0 in this
+    process, which has no process group: every field bit-equal to `want`
+    (the ranks' states joined in rank order). Prints the ranks' save and
+    shard-load walls, this load's wall and the directory's bytes."""
+    import pathlib
+
+    import torch
+
+    from neo_mpc_planner2_tpu_torch import checkpoint
+
+    t0 = time.perf_counter()
+    whole = checkpoint.load_state(path, device="cuda:0")
+    torch.cuda.synchronize()
+    load_ms = 1e3 * (time.perf_counter() - t0)
+    for name, w in want.items():
+        got, w = getattr(whole, name), torch.as_tensor(w, device="cuda:0")
+        if got.dtype != w.dtype or not torch.equal(got, w):
+            raise AssertionError(f"checkpoint field {name} loads unequal "
+                                 "to the ranks' state")
+    out = {"phase": "sharded checkpoint (torch.distributed.checkpoint)",
+           "world_size": world, "lanes": batch, **ranks,
+           "load_whole_ms": load_ms,
+           "bytes": sum(f.stat().st_size
+                        for f in pathlib.Path(path).iterdir()),
+           "files": len(list(pathlib.Path(path).iterdir())),
+           "whole_bit_equal": True, "resumed_step_equal": True, "card": smi}
+    print(json.dumps(out), flush=True)
+    return out
 
 
 def _sharded_processes(smi: str, world: int, batch: int, ticks: int) -> dict:
@@ -1392,7 +1473,10 @@ def _sharded_processes(smi: str, world: int, batch: int, ticks: int) -> dict:
     small config (`parallel.smoke`): every rank must finish and print the same
     metrics each step, and each rank's commands must agree with the
     one-process engine's on card 0 for the same lanes (at least 99 % of
-    lanes within 1e-3; the fraction bit-equal is reported)."""
+    lanes within 1e-3; the fraction bit-equal is reported). The ranks save
+    their shards after step 1 into one checkpoint directory, each resumes
+    step 2 from its loaded shard (equal to the uninterrupted step), and
+    this process loads the directory whole (`_sharded_checkpoint`)."""
     import re
     import tempfile
 
@@ -1400,6 +1484,7 @@ def _sharded_processes(smi: str, world: int, batch: int, ticks: int) -> dict:
     import torch
 
     import neo_mpc_planner2_tpu_torch as tp
+    from neo_mpc_planner2_tpu_torch.engine import ControlState
     from neo_mpc_planner2_tpu_torch.parallel.smoke import smoke_config
     from neo_mpc_planner2_tpu_torch.scenarios import make_scenario_batch
 
@@ -1409,7 +1494,8 @@ def _sharded_processes(smi: str, world: int, batch: int, ticks: int) -> dict:
             [sys.executable, "-m",
              "neo_mpc_planner2_tpu_torch.parallel.smoke", str(r), str(world),
              str(port), f"{tmp}/rank{r}.npz", "--device", "cuda",
-             "--batch", str(batch), "--steps", str(ticks)],
+             "--batch", str(batch), "--steps", str(ticks),
+             "--checkpoint", f"{tmp}/state"],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
             for r in range(world)]
         outs = []
@@ -1423,9 +1509,20 @@ def _sharded_processes(smi: str, world: int, batch: int, ticks: int) -> dict:
         for r, (p, o) in enumerate(zip(procs, outs)):
             if p.returncode != 0 or f"[rank {r}] OK" not in o:
                 raise AssertionError(f"rank {r} failed:\n{o}")
-        cmds = [np.concatenate([np.load(f"{tmp}/rank{r}.npz")[f"cmd_vel{s}"]
-                                for r in range(world)])
+        recs = [dict(np.load(f"{tmp}/rank{r}.npz")) for r in range(world)]
+        cmds = [np.concatenate([rec[f"cmd_vel{s}"] for rec in recs])
                 for s in range(ticks)]
+        for r, rec in enumerate(recs):
+            if not np.array_equal(rec["resumed_cmd_vel1"], rec["cmd_vel1"]):
+                raise AssertionError(f"rank {r}: the step resumed from the "
+                                     "checkpoint differs from the "
+                                     "uninterrupted one")
+        _sharded_checkpoint(smi, f"{tmp}/state", world, batch, {
+            "save_ms": [1e3 * float(rec["ckpt_save_s"]) for rec in recs],
+            "load_shard_ms": [1e3 * float(rec["ckpt_load_s"])
+                              for rec in recs]}, {
+            f.name: np.concatenate([rec[f"ckpt_{f.name}"] for rec in recs])
+            for f in dataclasses.fields(ControlState)})
     lines = [re.findall(r"step\d .*", o) for o in outs]
     cfg = smoke_config()
     sb = make_scenario_batch(cfg, batch, seed=0, map_size=48, plan_points=24,
@@ -1609,8 +1706,11 @@ def phase_serving(device, smi: str, fleet: int = 4096, big: int = 8192,
     (50), `optimizer_batch` at 4096 robots (5) and at 8192 robots in turns
     with one dispatch and with fleet_chunk=4096 (a second server, 3 each),
     set_plans + `tick_batch` at 4096 (3); save_state and load_state
-    through a checkpoint directory under build/. The launch counts are set
-    to 0 before this traffic and read after it: K1 and K3 must have run.
+    through a checkpoint directory under build/, as .npz files, then at
+    4096 robots as a torch.distributed.checkpoint directory
+    (`_serving_checkpoint_directory`). The launch counts are set to 0
+    before this traffic and read before the directory's round trip: K1
+    and K3 must have run.
     Then `optimizer` and `optimizer_batch` answered by an in-process
     session on the card (no socket, no JSON). Last, the same script
     through a session on the card and one on the
@@ -1684,6 +1784,8 @@ def phase_serving(device, smi: str, fleet: int = 4096, big: int = 8192,
         for kernel in ("qp_admm", "footprint_cost"):
             if launches[kernel] <= 0:
                 raise AssertionError(f"serving: {kernel} was never launched")
+        report["checkpoint_directory"] = _serving_checkpoint_directory(
+            c, batch(fleet), ckpt, device)
         for c_ in clients.values():
             c_.close()
     finally:
@@ -1744,6 +1846,64 @@ def phase_serving(device, smi: str, fleet: int = 4096, big: int = 8192,
         raise AssertionError(f"serving card vs CPU: {frac:.4f} of robots "
                              f"within 1e-3, flags equal: {flags_equal}")
     return out
+
+
+def _serving_checkpoint_directory(client, msg: dict, ckpt: str,
+                                  device) -> dict:
+    """A fleet round trip through a checkpoint directory at the robots of
+    `msg` (an optimizer_batch request): after one answer to msg, the fleet
+    saved as the directory `fleet_dir` (twice: the second save replaces
+    the first) and as `fleet_dir.npz`; the next
+    answer (from the saved state), the answer after loading the directory
+    and the one after loading the .npz must be equal, and the directory
+    loads in this process bit-equal to the .npz. A robot's slot saved to a
+    directory loads into another slot. -> the saves' and the load's
+    request wall ms and the directory's bytes."""
+    import pathlib
+
+    import torch
+
+    from neo_mpc_planner2_tpu_torch import checkpoint
+
+    robots = len(msg["robots"])
+    _call(client, msg)
+    save_ms = []
+    for _ in range(2):      # the second save replaces the first
+        t0 = time.perf_counter()
+        saved = _call(client, {"op": "save_state", "path": "fleet_dir",
+                               "fleet": True})
+        save_ms.append(1e3 * (time.perf_counter() - t0))
+    _call(client, {"op": "save_state", "path": "fleet_dir.npz",
+                   "fleet": True})
+    want = _call(client, msg)
+    t0 = time.perf_counter()
+    loaded = _call(client, {"op": "load_state", "path": "fleet_dir",
+                            "fleet": True})
+    load_ms = 1e3 * (time.perf_counter() - t0)
+    after_dir = _call(client, msg)
+    _call(client, {"op": "load_state", "path": "fleet_dir.npz",
+                   "fleet": True})
+    after_npz = _call(client, msg)
+    if not saved["lanes"] == loaded["lanes"] == robots:
+        raise AssertionError(f"directory checkpoint: {saved}, {loaded}")
+    if not after_dir == want == after_npz:
+        raise AssertionError("the fleet loaded from the checkpoint directory "
+                             "answers otherwise than the saved one")
+    path = pathlib.Path(ckpt) / "fleet_dir"
+    a = checkpoint.load_state(str(path), device=device)
+    b = checkpoint.load_state(f"{path}.npz", device=device)
+    for f in dataclasses.fields(a):
+        x, y = getattr(a, f.name), getattr(b, f.name)
+        if x.dtype != y.dtype or not torch.equal(x, y):
+            raise AssertionError(f"checkpoint field {f.name}: the directory "
+                                 "and the .npz differ")
+    _call(client, {"op": "save_state", "path": "one_dir"})
+    _call(client, {"op": "load_state", "path": "one_dir",
+                   "robot": "copy_dir"})
+    return {"robots": robots, "save_request_ms": save_ms,
+            "load_request_ms": load_ms,
+            "bytes": sum(f.stat().st_size for f in path.iterdir()),
+            "answers_equal": True}
 
 
 # The controller phase: closed-loop ticks a route, the ticks its card-vs-CPU

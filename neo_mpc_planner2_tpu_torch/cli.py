@@ -83,7 +83,10 @@ def server_main(argv=None) -> None:
                          "command (the first reply is a zero warm-up)")
     ap.add_argument("--checkpoint-dir", default=None,
                     help="enable the save_state/load_state ops, confined to "
-                         "this directory (disabled when unset)")
+                         "this directory (disabled when unset); a name "
+                         "ending in .npz is one file either package reads, "
+                         "any other a torch.distributed.checkpoint "
+                         "directory")
     ap.add_argument("--max-slots", type=int, default=1024,
                     help="hard LRU cap on per-robot session slots")
     ap.add_argument("--slot-ttl", type=float, default=None,

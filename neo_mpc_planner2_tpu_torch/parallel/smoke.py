@@ -2,7 +2,7 @@
 step one sharded fleet twice and reduce the fleet metrics over the world.
 
     python -m neo_mpc_planner2_tpu_torch.parallel.smoke RANK WORLD PORT OUT \\
-        [--device cpu|cuda] [--batch 8] [--steps 2]
+        [--device cpu|cuda] [--batch 8] [--steps 2] [--checkpoint DIR]
 
 Start it once for each rank 0..WORLD-1 with the same PORT (the group meets
 at tcp://127.0.0.1:PORT). Every rank builds the same scenario batch from
@@ -10,13 +10,23 @@ seed 0 (48x48 maps, 24-point plans), steps its shard with ShardedEngine
 (each process its own host row of the mesh) and prints one line a step
 with the metrics' exact float values, then `[rank R] OK`. OUT is an .npz
 the rank writes its lanes' commands, iterations and metrics into.
+
+With --checkpoint DIR, every rank saves its shard of the state after the
+first step into the directory DIR (one collective save,
+`checkpoint.save_state(..., mesh=)`), loads its shard back from DIR into a
+fresh state (equal to the saved one) and takes the second step from it:
+OUT then also holds the loaded state's fields (`ckpt_<field>`), the
+resumed step's commands (`resumed_cmd_vel1`, to equal `cmd_vel1`) and the
+save and load walls in seconds (`ckpt_save_s`, `ckpt_load_s`).
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import datetime
 import sys
+import time
 
 import numpy as np
 
@@ -45,7 +55,10 @@ def main(argv=None) -> int:
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--steps", type=int, default=2)
+    ap.add_argument("--checkpoint", default=None, metavar="DIR")
     a = ap.parse_args(argv)
+    if a.checkpoint is not None and a.steps < 2:
+        ap.error("--checkpoint resumes the second step: --steps >= 2")
 
     import torch.distributed as dist
 
@@ -69,6 +82,9 @@ def main(argv=None) -> int:
         state = eng.init_state(a.batch)
         rec = {}
         for s in range(a.steps):
+            if s == 1 and a.checkpoint is not None:
+                rec.update(_resume(a.checkpoint, eng, state, args, mesh,
+                                   a.batch))
             out, metrics = eng.step(state, *args)
             state = out.state
             vals = {k: float(v) for k, v in metrics._asdict().items()}
@@ -85,6 +101,40 @@ def main(argv=None) -> int:
     finally:
         dist.destroy_process_group()
     return 0
+
+
+def _resume(path, eng, state, args, mesh, batch) -> dict:
+    """Save `state` collectively to `path`, load this rank's shard back
+    into a fresh state (equal to `state`, or AssertionError) and step it:
+    the loaded fields, the resumed step's commands and the save and load
+    walls, for the rank's OUT."""
+    import torch
+    # Its import (about a second) is not the save's.
+    import torch.distributed.checkpoint  # noqa: F401
+
+    from neo_mpc_planner2_tpu_torch import checkpoint
+
+    def wall(fn):
+        if eng.device.type == "cuda":
+            torch.cuda.synchronize(eng.device)
+        t0 = time.perf_counter()
+        res = fn()
+        if eng.device.type == "cuda":
+            torch.cuda.synchronize(eng.device)
+        return res, time.perf_counter() - t0
+
+    _, save_s = wall(lambda: checkpoint.save_state(path, state, mesh=mesh))
+    loaded, load_s = wall(lambda: checkpoint.load_state(
+        path, template=eng.init_state(batch), mesh=mesh))
+    for f in dataclasses.fields(loaded):
+        if not torch.equal(getattr(loaded, f.name), getattr(state, f.name)):
+            raise AssertionError(f"checkpoint field {f.name} loads unequal "
+                                 "to the saved shard")
+    out, _ = eng.step(loaded, *args)
+    rec = {f"ckpt_{f.name}": getattr(loaded, f.name).cpu().numpy()
+           for f in dataclasses.fields(loaded)}
+    return dict(rec, resumed_cmd_vel1=out.cmd_vel.cpu().numpy(),
+                ckpt_save_s=save_s, ckpt_load_s=load_s)
 
 
 if __name__ == "__main__":

@@ -19,7 +19,7 @@ to this server unchanged:
     {"op": "tick", "pose": [x,y,yaw], "vel": [vx,vy,wz]}
     {"op": "set_plans", "plans": [<poses>, ...]}      # batched full tick
     {"op": "tick_batch", "robots": [{"pose": …, "vel": …}, ...]}
-    {"op": "save_state"/"load_state", "path": "name.npz"[, "fleet": true]}
+    {"op": "save_state"/"load_state", "path": "name[.npz]"[, "fleet": true]}
     {"op": "release", "robot": id}
     {"op": "reset"}
     {"op": "ping"}
@@ -28,8 +28,10 @@ See the JAX package's module for each op's semantics: robot slots (an
 optional "robot" id, an LRU cap and a TTL), positional fleet lanes,
 pipelined (advanced-step) mode, product mode (parity=False), runtime
 parameters that need no rebuild (RUNTIME_PARAMS), checkpoints confined to
-`checkpoint_dir`. What differs here, each a deliberate divergence
-(ROADMAP.md, Queue 3):
+`checkpoint_dir` (a name ending in .npz is one file either package reads;
+any other is a directory, here a `torch.distributed.checkpoint` one where
+the JAX package writes orbax's). What differs here, each a deliberate
+divergence (ROADMAP.md, Queue 3):
 
 - The fleet ops (`optimizer_batch`, `tick_batch`) split their lanes into
   contiguous shards, one a device of `device`, as the JAX package shards
@@ -46,6 +48,12 @@ parameters that need no rebuild (RUNTIME_PARAMS), checkpoints confined to
   is kept: new lanes start from init_state, a shrink drops the tail. A
   fleet checkpoint's "lanes" is the lanes its state holds (the robots,
   unless a padded JAX checkpoint was loaded).
+- A checkpoint directory is PyTorch's own (`checkpoint.py`): the JAX
+  package's orbax directories do not load here, nor the port's there; the
+  packages cross through .npz names. A fleet save joins the shards and
+  writes the whole state from this process; a fleet load re-splits it over
+  the session's devices. A name that resolves to checkpoint_dir itself is
+  refused (a directory save replaces its target).
 - `fleet_chunk` defaults to 0: one batch a call (the JAX default of 4096
   is a TPU measurement). A positive value splits each shard's lanes into
   chunks of at most that many, the last one shorter.
@@ -579,7 +587,8 @@ class OptimizerSession:
 
     def _checkpoint_path(self, msg: dict) -> str:
         """A request's checkpoint name inside checkpoint_dir: relative, no
-        '..'; the ops are off unless the server has a directory."""
+        '..', not checkpoint_dir itself; the ops are off unless the
+        server has a directory."""
         if self.checkpoint_dir is None:
             raise ValueError(
                 "checkpoint ops disabled: configure the session/server "
@@ -587,11 +596,15 @@ class OptimizerSession:
         name = str(msg["path"])
         if os.path.isabs(name) or ".." in name.replace("\\", "/").split("/"):
             raise ValueError("checkpoint path must be relative without '..'")
+        if os.path.normpath(name) == ".":
+            raise ValueError("checkpoint path must name an entry inside "
+                             "checkpoint_dir")
         return os.path.join(self.checkpoint_dir, name)
 
     def op_save_state(self, msg: dict) -> dict:
-        """{"op": "save_state", "path": p[, "fleet": true]}: p an .npz name
-        under checkpoint_dir."""
+        """{"op": "save_state", "path": p[, "fleet": true]}: p a name under
+        checkpoint_dir, an .npz file or a directory (checkpoint.py). The
+        fleet's shards are joined and written whole by this process."""
         path = self._checkpoint_path(msg)
         if msg.get("fleet"):
             if self._fleet_shards is None:
@@ -612,8 +625,9 @@ class OptimizerSession:
 
     def op_load_state(self, msg: dict) -> dict:
         """Restore a save_state checkpoint. A fleet restore takes the
-        checkpoint's lanes; {"robots": n} sets the live robot count
-        (default: every lane), clamped to [0, lanes]."""
+        checkpoint's lanes, split over the session's devices; {"robots": n}
+        sets the live robot count (default: every lane), clamped to
+        [0, lanes]."""
         path = self._checkpoint_path(msg)
         st = load_state(path, device=self.device)
         if int(st.initial_guess.shape[-1]) != 3 * self.cfg.control_steps:

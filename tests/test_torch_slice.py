@@ -266,7 +266,8 @@ def test_importing_the_port_leaves_jax_out():
         "print(len(list(pkgutil.walk_packages(p.__path__))), bad)\n"
         "shells = {p.__name__ + '.' + m for m in ('serving', 'checkpoint',\n"
         "          'controller', 'ros_adapter', 'cli', 'native.host',\n"
-        "          'utils.viz', 'utils.se2_np', 'utils.profiling')}\n"
+        "          'utils.viz', 'utils.se2_np', 'utils.profiling',\n"
+        "          'parallel.smoke')}\n"
         "sys.exit(1 if bad or 'neo_mpc_planner2_tpu' in sys.modules\n"
         "         or not shells <= set(sys.modules) else 0)\n")
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
