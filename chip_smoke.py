@@ -3,8 +3,10 @@
     python3 chip_smoke.py
 
 Builds the CUDA kernels from `neo_mpc_planner2_tpu_torch/csrc/`, checks each
-(K3 in its sampled and its walk mode) against its plain PyTorch version on
-the card, and drives the seven slices of the port through `batch_simulate`
+(K3 in its sampled and its walk mode; K1 and K2 also at the widths of other
+horizons, each design and each kernel's cap) against its plain PyTorch
+version on the card, and drives the seven slices of the port through
+`batch_simulate`
 (4096 lanes, control_steps=3, 20 ticks each): on 64x64 maps the fleet
 closed loop (parity objective), the
 product closed loop (smooth objective, candidate-wave line search, patch
@@ -42,6 +44,12 @@ torch.distributed.checkpoint directory, a step resumed from the loaded
 shard equal to the uninterrupted one, the directory loaded whole by a
 process with no group bit-equal to the ranks' states); and the server's
 fleet ops sharded over the visible cards, answering as one card does.
+Then the horizons: the fleet closed loop at control_steps 1, 5, 8 and 12
+(m = 3, 15, 24, 36; 12 runs K1's block-team design), each with K1's first
+call held against its plain version and its first tick against the CPU;
+the product loop at control_steps 5 with K3 held on its captured calls;
+tests/test_horizons.py's oracle cases with the solve on the card; and a
+server session across a `configure` of control_steps 5 and back.
 K3 is also held to its plain version, and timed, on the arguments of its
 own calls in the product slice (a gate at R = 1, a gradient call at R = 3
 and a wave at R = 21), in the rolling slice (R = 1 through the view, with
@@ -87,14 +95,17 @@ KERNELS = [
 # The keys of each entry of the `kernels` line.
 KERNEL_KEYS = ("name", "route", "source", "replaces", "launches",
                "launches_per_tick", "max_abs_err", "ms", "plain_ms",
-               "bound_ms", "bound_by", "share_of_bound", "library_ms")
+               "bound_ms", "bound_by", "share_of_bound", "library_ms",
+               "variants")
 
 # How the phase lines time each kernel; the `kernels` line's "ms" is the
 # first of these, its "plain_ms" the last.
 TIMING = ("*_ms: the kernel's device time (torch.profiler, median of 3 x "
           "20 launches); *_wrapper_ms and *_plain_ms: one call between CUDA "
           "events, median of 20; *_library_ms: the device time of one "
-          "PyTorch call's kernels, mean of 20")
+          "PyTorch call's kernels, mean of 20; from m = 36 on, where one "
+          "call takes over 1 ms, *_ms and *_library_ms are one call between "
+          "CUDA events too (median of 20, of 2 at the caps)")
 
 SLICE_TICKS = 20
 # Each slice's warm-up run (the product and rolling slices' K3 calls are
@@ -120,18 +131,25 @@ def _nvidia_smi() -> str:
 def _ptxas_report(log: str) -> dict:
     """Registers, stack and spill bytes per kernel instance from nvcc's
     `-Xptxas -v` output, keyed like "qp_admm_m15", "spd_inv_m9_w4",
-    "footprint_cost_S16" or "footprint_walk"."""
+    "footprint_cost_S16", "footprint_walk", or, for the kernels that take m
+    at run time, "qp_admm_block_team" and "spd_inv_runtime_m"."""
     import re
 
     report, name = {}, None
     for line in log.splitlines():
         walk = re.search(r"Compiling entry function '\w*?"
                          r"footprint_walk_kernel", line)
+        runtime_m = re.search(r"Compiling entry function '\w*?"
+                              r"(qp_admm|spd_inv)_kernel_"
+                              r"(block_team|runtime_m)", line)
         hit = re.search(r"Compiling entry function '\w*?"
                         r"(qp_admm|spd_inv|footprint_cost)_kernelILi(\d+)E"
                         r"(?:Li(\d+)E)?(?:Lb(\d)E)?", line)
         if walk:
             name = "footprint_walk"
+            report[name] = {}
+        elif runtime_m:
+            name = f"{runtime_m.group(1)}_{runtime_m.group(2)}"
             report[name] = {}
         elif hit:
             # K1 instances are keyed by m, K2's by m and warps a block, K3's
@@ -151,6 +169,13 @@ def _ptxas_report(log: str) -> dict:
             report[name]["registers"] = int(
                 re.search(r"Used (\d+) registers", line).group(1))
     return report
+
+
+# Idle host time at each end of a profiler session. Late in a long process
+# a short session was seen to report none of its device records (the
+# profiler keeps only those inside its capture window); with this margin
+# they were kept.
+PROFILE_PAD_S = 0.05
 
 
 def _time_ms(fn, reps: int = 20) -> float:
@@ -219,9 +244,11 @@ def _device_ms(fn, kernel: str, reps: int = 20, traces: int = 3) -> float:
             break
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
+            time.sleep(PROFILE_PAD_S)
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
+            time.sleep(PROFILE_PAD_S)
         seen = [e.time_range.elapsed_us() / 1e3 for e in prof.events()
                 if e.device_type == DeviceType.CUDA and kernel in e.name]
         if len(seen) > reps:
@@ -246,9 +273,11 @@ def _device_total_ms(fn, reps: int = 20) -> float:
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
+        time.sleep(PROFILE_PAD_S)
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
+        time.sleep(PROFILE_PAD_S)
     total = sum(e.time_range.elapsed_us() for e in prof.events()
                 if e.device_type == DeviceType.CUDA)
     if total <= 0:
@@ -272,8 +301,10 @@ def profile_run(fn) -> dict:
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
+        time.sleep(PROFILE_PAD_S)
         fn()
         torch.cuda.synchronize()
+        time.sleep(PROFILE_PAD_S)
     events = prof.events()
     dev = [(e.name, e.time_range.elapsed_us() / 1e3) for e in events
            if e.device_type == DeviceType.CUDA]
@@ -290,9 +321,13 @@ def count_launches(fn, traces: int = 3) -> dict:
     """The CUDA launches (host API calls) and the kernels that ran on the
     card during one call of fn(), from torch.profiler. The profiler may
     drop the device record of a short trace, so the call is traced
-    `traces` times: the kernels are the most that one trace saw, and every
-    trace must see the same launches."""
+    `traces` times, and up to `traces` more while no trace saw as many
+    kernels as launches: the kernels are the most that one trace saw, and
+    every trace must see the same launches."""
     runs = [profile_run(fn) for _ in range(traces)]
+    while (max(run["kernels"] for run in runs) < runs[0]["launches"]
+           and len(runs) < 2 * traces):
+        runs.append(profile_run(fn))
     launches = {run["launches"] for run in runs}
     if len(launches) != 1:
         raise AssertionError(f"the same call made {sorted(launches)} "
@@ -330,24 +365,90 @@ def _qp_inputs(rng, B, m, device):
             t(hi), *(t(a) for a in carry)]
 
 
+def phase_launch_counts(device) -> dict:
+    """One qp_admm call is one CUDA launch and one kernel on the card at
+    every width of K1_TIMED (B = 4096, 60 iterations), and so is one
+    chol_inverse call of each K2 design (m = 9 unrolled, 24 runtime-m; B =
+    4096). First after the build: torch.profiler may lose the device
+    records of a short trace once the process has taken many traces."""
+    import numpy as np
+
+    from neo_mpc_planner2_tpu_torch import sqp
+    from neo_mpc_planner2_tpu_torch.kernels import binding
+
+    rng = np.random.default_rng(0)
+    out = {"phase": "one launch a call"}
+    calls = {}
+    for m in K1_TIMED:
+        m = binding.K1_MAX_M if m == "cap" else m
+        args = _qp_inputs(rng, 4096, m, device)
+        calls[f"qp_admm_m{m}"] = (lambda a: lambda: sqp.qp_admm(
+            *a, iters=60))(args)
+    for m in (9, 24):
+        A = _qp_inputs(rng, 4096, m, device)[0].reshape(4096, m, m)
+        calls[f"spd_inv_m{m}"] = (lambda M: lambda: sqp.chol_inverse(M))(
+            A.contiguous())
+    for name, call in calls.items():
+        n = count_launches(call)
+        out[name] = n
+        if n != {"launches": 1, "kernels": 1}:
+            raise AssertionError(f"one {name} call made {n}, expected one "
+                                 "launch")
+    print(json.dumps(out), flush=True)
+    return out
+
+
+# K1's checked cases: (m, batch sizes, iteration counts). m = 6, 9, 15 at
+# every size; the horizons' new widths (m = 3, 24 in the warp-team design,
+# 36 and K1's cap in the block-team design) at B = 1 and 4096.
+K1_CASES = tuple((m, (1, 131, 4096), (6, 60)) for m in (6, 9, 15)) + tuple(
+    (m, (1, 4096), (60,)) for m in (3, 24, 36, "cap"))
+# The widths timed at B = 4096, 60 iterations.
+K1_TIMED = (3, 9, 15, 24, 36, "cap")
+
+
+def _reps(m: int) -> int:
+    """Timed calls a trace: fewer where one call takes tens of ms (the
+    caps' widths)."""
+    return 20 if m <= 36 else 2
+
+
+# From this width on a K1 or K2 call takes over 1 ms, and its device time
+# is one call between CUDA events (the enqueue is under 1 % of it): fewer
+# profiler sessions after the heavy plain versions.
+EVENTS_FROM_M = 36
+
+
+def _kernel_ms(call, kernel: str, m: int) -> float:
+    """The device time of one call of a K1 or K2 kernel at width m."""
+    if m >= EVENTS_FROM_M:
+        return _time_ms(call, _reps(m))
+    return _device_ms(call, kernel, reps=_reps(m))
+
+
 def phase_kernels(device):
-    """K1 against its plain version at every shape, within rtol 2e-4 /
-    atol 2e-5; timed at B = 4096. K1 is also timed without ADMM iterations
-    (the inverse and the operands' traffic alone), and one qp_admm call must
-    be one CUDA launch."""
+    """K1 against its plain version at every case of K1_CASES, within rtol
+    2e-4 / atol 2e-5; timed at B = 4096 at each width of K1_TIMED (the
+    kernel, the whole call, the plain version, the bound; one launch a
+    call: phase_launch_counts). K1 is also timed without ADMM iterations at
+    m = 9 and 15 (the inverse and the operands' traffic alone)."""
     import numpy as np
     import torch
 
     from neo_mpc_planner2_tpu_torch import sqp
-    from neo_mpc_planner2_tpu_torch.kernels import bounds
+    from neo_mpc_planner2_tpu_torch.kernels import binding, bounds
 
     rng = np.random.default_rng(0)
     rtol, atol = 2e-4, 2e-5
-    report = {}
+    cap = binding.K1_MAX_M
+    timed = {cap if m == "cap" else m for m in K1_TIMED}
+    report = {"cap_m": cap, "variants": []}
     worst = 0.0
-    for m in (6, 9, 15):
-        for B in (1, 131, 4096):
-            for iters in (6, 60):
+    for m, sizes, iter_counts in K1_CASES:
+        m = cap if m == "cap" else m
+        worst_m = 0.0
+        for B in sizes:
+            for iters in iter_counts:
                 args = _qp_inputs(rng, B, m, device)
                 J = sqp._cone_jacobian(args[4], m)
                 plain_args = args[:4] + [J] + args[5:]
@@ -363,25 +464,35 @@ def phase_kernels(device):
                         raise AssertionError(
                             f"K1 m={m} B={B} iters={iters}: off its plain "
                             f"version by {ex:.3g} past rtol/atol")
-                    worst = max(worst, float((gt - w).abs().max()))
-                if B == 4096 and iters == 60 and m in (9, 15):
-                    call = lambda: sqp.qp_admm(*args, **kw)
-                    report[f"qp_admm_m{m}_ms"] = _device_ms(
-                        call, "qp_admm_kernel")
+                    worst_m = max(worst_m, float((gt - w).abs().max()))
+                if not (B == 4096 and iters == 60 and m in timed):
+                    continue
+                call = lambda: sqp.qp_admm(*args, **kw)
+                reps = _reps(m)
+                ms = _kernel_ms(call, "qp_admm_kernel", m)
+                report[f"qp_admm_m{m}_ms"] = ms
+                if m in (9, 15):
                     report[f"qp_admm_m{m}_iters0_ms"] = _device_ms(
                         lambda: sqp.qp_admm(*args, iters=0, rho=1.0,
                                             sigma=1e-6), "qp_admm_kernel")
-                    report[f"qp_admm_wrapper_m{m}_ms"] = _time_ms(call)
-                    report[f"qp_admm_plain_m{m}_ms"] = _time_ms(
-                        lambda: sqp.qp_admm_plain(*plain_args, **kw))
-                    work = bounds.qp_admm_work(B, m, iters)
-                    report[f"qp_admm_m{m}_bound_ms"] = work["bound_ms"]
-                    report[f"qp_admm_m{m}_bound_by"] = work["bound_by"]
-                    n = count_launches(call)
-                    report[f"qp_admm_m{m}_launches_per_call"] = n
-                    if n != {"launches": 1, "kernels": 1}:
-                        raise AssertionError(f"one qp_admm call made {n}, "
-                                             "expected one launch")
+                report[f"qp_admm_wrapper_m{m}_ms"] = _time_ms(call, reps)
+                plain_ms = _time_ms(
+                    lambda: sqp.qp_admm_plain(*plain_args, **kw), reps)
+                report[f"qp_admm_plain_m{m}_ms"] = plain_ms
+                work = bounds.qp_admm_work(B, m, iters)
+                report[f"qp_admm_m{m}_bound_ms"] = work["bound_ms"]
+                report[f"qp_admm_m{m}_bound_by"] = work["bound_by"]
+                report["variants"].append({
+                    "m": m, "variant": binding.qp_admm_variant(m), "B": B,
+                    "iters": iters, "ms": ms, "plain_ms": plain_ms,
+                    "bound_ms": work["bound_ms"],
+                    "bound_by": work["bound_by"],
+                    "share_of_bound": work["bound_ms"] / ms,
+                    "library_ms": None})
+        for v in report["variants"]:
+            if v["m"] == m:
+                v["max_abs_err"] = worst_m
+        worst = max(worst, worst_m)
     report["qp_admm_max_abs_err"] = worst
     print(json.dumps({"phase": "K1 qp_admm vs plain", "rtol": rtol,
                       "atol": atol, "timing": TIMING, **report}), flush=True)
@@ -390,16 +501,21 @@ def phase_kernels(device):
 
 K2_SIZES = (1, 131, 4096, 65536)
 K2_TIMED = (4096, 65536)
+# K2's checked cases: (m, batch sizes). m = 6, 9, 15 at every size of
+# K2_SIZES; the horizons' widths (m = 3 unrolled; 4, 24, 36 and K2's cap
+# in the runtime-m design) at B = 1 and 4096.
+K2_CASES = tuple((m, K2_SIZES) for m in (6, 9, 15)) + tuple(
+    (m, (1, 4096)) for m in (3, 4, 24, 36, "cap"))
 
 
 def phase_k2(device):
-    """K2 against its plain version at m in {6, 9, 15} and every size of
-    K2_SIZES, and on tests/test_solver.py's ill-conditioned diagonal, within
-    rtol 2e-4 / atol 2e-5, with the residual |MX - I|; timed at B = 4096
-    and 65536, each timed call on the next of copies of M that together
-    exceed twice the L2: the kernel, the whole call, the plain version, the
-    library call, the bound. One chol_inverse call must be one CUDA
-    launch."""
+    """K2 against its plain version at every case of K2_CASES and on
+    tests/test_solver.py's ill-conditioned diagonal, within rtol 2e-4 /
+    atol 2e-5, with the residual |MX - I|; timed at B = 4096 (and 65536),
+    each timed call on the next of copies of M that together exceed twice
+    the L2: the kernel, the whole call, the plain version, the library
+    call (torch.linalg.inv), the bound (one launch a call:
+    phase_launch_counts)."""
     import numpy as np
     import torch
 
@@ -408,13 +524,15 @@ def phase_k2(device):
 
     rng = np.random.default_rng(0)
     rtol, atol = 2e-4, 2e-5
-    inv = {}
+    inv = {"cap_m": binding.K2_MAX_M, "variants": []}
     worst_inv, worst_res = 0.0, 0.0
     ill = torch.diag(torch.tensor([1e4, 1e3, 1e2, 10, 1, 1, 0.1, 0.01, 1e-3],
                                   device=device))[None]
     cases = [(9, ill)]
-    for m in (6, 9, 15):
-        for B in K2_SIZES:
+    cap = binding.K2_MAX_M
+    for m, sizes in K2_CASES:
+        m = cap if m == "cap" else m
+        for B in sizes:
             A = rng.normal(size=(B, m, m)).astype(np.float32) * 0.3
             cases.append((m, torch.as_tensor(
                 A @ np.swapaxes(A, -1, -2) + np.eye(m, dtype=np.float32),
@@ -441,27 +559,33 @@ def phase_k2(device):
         ring = [M] + [M.clone() for _ in
                       range(l2_copies(device, 2 * M.numel() * 4) - 1)]
         call = rotating(sqp.chol_inverse, ring)
+        reps = _reps(m)
         inv[f"spd_inv_{tag}_copies"] = len(ring)
+        inv[f"spd_inv_{tag}_variant"] = binding.spd_inv_variant(m)
         inv[f"spd_inv_{tag}_warps"] = binding.k2_launch_shape(B, device)
-        inv[f"spd_inv_{tag}_ms"] = _device_ms(call, "spd_inv_kernel")
-        inv[f"spd_inv_wrapper_{tag}_ms"] = _time_ms(call)
+        inv[f"spd_inv_{tag}_ms"] = _kernel_ms(call, "spd_inv_kernel", m)
+        inv[f"spd_inv_wrapper_{tag}_ms"] = _time_ms(call, reps)
         inv[f"spd_inv_plain_{tag}_ms"] = _time_ms(
-            rotating(sqp.chol_inverse_plain, ring))
+            rotating(sqp.chol_inverse_plain, ring), reps)
         # The one PyTorch call for the same function (the port never calls
         # it).
-        inv[f"spd_inv_library_{tag}_ms"] = _device_total_ms(
-            rotating(torch.linalg.inv, ring))
+        library = rotating(torch.linalg.inv, ring)
+        inv[f"spd_inv_library_{tag}_ms"] = (
+            _time_ms(library, reps) if m >= EVENTS_FROM_M
+            else _device_total_ms(library, reps))
         work = bounds.spd_inv_work(B, m)
         inv[f"spd_inv_{tag}_bound_ms"] = work["bound_ms"]
         inv[f"spd_inv_{tag}_bound_by"] = work["bound_by"]
         inv[f"spd_inv_{tag}_share_of_bound"] = (work["bound_ms"]
                                                 / inv[f"spd_inv_{tag}_ms"])
-        if m == 9:
-            n = count_launches(call)
-            inv[f"spd_inv_{tag}_launches_per_call"] = n
-            if n != {"launches": 1, "kernels": 1}:
-                raise AssertionError(f"one chol_inverse call made {n}, "
-                                     "expected one launch")
+        inv["variants"].append({
+            "m": m, "variant": inv[f"spd_inv_{tag}_variant"], "B": B,
+            "ms": inv[f"spd_inv_{tag}_ms"],
+            "plain_ms": inv[f"spd_inv_plain_{tag}_ms"],
+            "bound_ms": work["bound_ms"], "bound_by": work["bound_by"],
+            "share_of_bound": inv[f"spd_inv_{tag}_share_of_bound"],
+            "library_ms": inv[f"spd_inv_library_{tag}_ms"],
+            "max_abs_err": float((got - want).abs().max())})
         del ring, call
     inv["spd_inv_max_abs_err"] = worst_inv
     inv["spd_inv_max_residual"] = worst_res
@@ -692,16 +816,17 @@ class K3Recorder:
         return False
 
 
-def captured_k3_cases(recorder: K3Recorder,
-                      required=("wave", "gate")) -> dict:
+def captured_k3_cases(recorder: K3Recorder, required=("wave", "gate"),
+                      steps: int = 3) -> dict:
     """A slice's K3 calls to hold and time: label -> args. A walk-mode call
     is a "walk"; of the sampled calls, one with a shift reads through a
     view ("view"), one without bounds the whole grid ("gate"), one with
-    bounds a patch ("wave" above R = 3, else "grad")."""
+    bounds a patch: the gradient's R = control_steps polygons ("grad") or
+    the wave's candidates, more ("wave")."""
     labels = {}
     for (R, whole, unshifted, walk), args in sorted(recorder.args.items()):
         name = ("walk" if walk else "view" if not unshifted
-                else "gate" if whole else "wave" if R > 3 else "grad")
+                else "gate" if whole else "wave" if R > steps else "grad")
         labels[f"{name}_R{R}"] = args
     for name in required:
         if not any(k.startswith(name) for k in labels):
@@ -723,16 +848,19 @@ def phase_k3_captured(recorder: K3Recorder, ticks: int,
     return report
 
 
-def hold_k3_captured(recorder: K3Recorder, required=("wave", "gate")):
-    """K3 on a path's own captured calls: exactly equal to its plain
-    version, timed, its bound from the cells these samples read."""
+def hold_k3_captured(recorder: K3Recorder, required=("wave", "gate"),
+                     steps: int = 3):
+    """K3 on a path's own captured calls (at `steps` control steps):
+    exactly equal to its plain version, timed, its bound from the cells
+    these samples read."""
     import torch
 
     from neo_mpc_planner2_tpu_torch.kernels import bounds
     from neo_mpc_planner2_tpu_torch.ops import footprint as fpm
 
     report = {}
-    for label, args in captured_k3_cases(recorder, required).items():
+    for label, args in captured_k3_cases(recorder, required,
+                                         steps).items():
         # The launcher's arguments: (data, origin, res, bounds, verts,
         # n_valid, t, shift), t None for the walk mode.
         t, shift = args[6], args[7]
@@ -782,17 +910,18 @@ def fleet_cfg():
         lookahead_dist_close_to_goal=0.4)
 
 
-def product_cfg():
+def product_cfg(base=None):
     """The product-SQP point of the benchmark (bench.py) on the fleet
-    overrides: quirks off, the candidate-wave line search, no quadratic
-    interpolation, and the patch sampler sized for the MPO-700 footprint
-    (0.46 m circumradius; 28 cells at 0.05 m)."""
+    overrides (or on `base`): quirks off, the candidate-wave line search,
+    no quadratic interpolation, and the patch sampler sized for the
+    MPO-700 footprint (0.46 m circumradius; 28 cells at 0.05 m at the
+    fleet point's horizon)."""
     import dataclasses
 
     from neo_mpc_planner2_tpu_torch.ops.costmap import (
         required_product_patch_halfwidth)
 
-    cfg = fleet_cfg()
+    cfg = fleet_cfg() if base is None else base
     cfg = cfg.replace(
         parallel_line_search=True, solver_ls_quad_interp=False,
         solver_patch_exact_picks=False,
@@ -1262,6 +1391,297 @@ def phase_arm_launches(device, arms: dict, batch: int = 4096) -> dict:
                      "device_idle_share": 1.0 - busy / wall}
     print(json.dumps(out), flush=True)
     return out
+
+
+# The horizons phase: (control_steps, prediction_horizon) pairs of the
+# JAX package's horizon tests (tests/test_horizons.py:14) and 12, the first
+# horizon past one warp's team (K1's block-team design); the product
+# point's horizon; the rows of the first tick held against the CPU.
+HORIZONS = ((1, 0.3), (5, 1.0), (8, 1.6), (12, 2.4))
+HORIZON_PRODUCT = (5, 1.0)
+HORIZON_CPU_LANES = 64
+HORIZON_PROFILE_TICKS = 2
+
+
+def horizon_cfg(steps: int, horizon: float):
+    """The fleet point at another horizon."""
+    return fleet_cfg().replace(control_steps=steps,
+                               prediction_horizon=horizon)
+
+
+def horizon_oracle_cfg():
+    """The JAX package's test config (tests/conftest.py's `cfg`): the
+    README sample's values, 8 edge samples, no footprint term."""
+    import neo_mpc_planner2_tpu_torch as tp
+
+    return tp.default_config().replace(
+        prediction_horizon=0.8, control_steps=3, opt_tolerance=1e-3,
+        footprint_edge_samples=8, acc_x_limit=2.5, acc_y_limit=2.5,
+        acc_theta_limit=3.0, min_vel_x=-0.7, min_vel_y=-0.7,
+        min_vel_theta=-0.7, max_vel_x=0.7, max_vel_y=0.7, max_vel_trans=0.7,
+        max_vel_theta=0.7, w_trans=0.82, w_orient=0.5, w_control=0.05,
+        w_terminal=0.05, w_costmap=0.05, w_footprint=0.0,
+        lookahead_dist_min=0.4, lookahead_dist_max=0.4,
+        lookahead_dist_close_to_goal=0.4)
+
+
+def _horizon_loop(device, smi: str, cfg, name: str, parity: bool,
+                  batch: int, recorder):
+    """One closed loop at the fleet point's size: a warm-up run of
+    WARM_TICKS under `recorder` (K1's or K3's calls captured there) and a
+    timed run of SLICE_TICKS with the launch counts set to 0 just before
+    it and read just after. -> (its line, its scenarios, its first tick's
+    commands, a function that profiles HORIZON_PROFILE_TICKS more ticks
+    from where it stopped and returns their per-tick numbers)."""
+    import torch
+
+    from neo_mpc_planner2_tpu_torch.scenarios import make_scenario_batch
+    from neo_mpc_planner2_tpu_torch.simulation import batch_simulate
+
+    sb = make_scenario_batch(cfg, batch, seed=0, map_size=64,
+                             plan_points=64, device=device)
+    with recorder:
+        batch_simulate(cfg, sb, WARM_TICKS, parity=parity)
+    torch.cuda.synchronize()
+    _reset_launch_counts()
+    t0 = time.perf_counter()
+    res = batch_simulate(cfg, sb, SLICE_TICKS, parity=parity)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = _launch_counts()
+    cmds = res.cmds
+    if not bool(torch.isfinite(cmds).all()):
+        raise AssertionError(f"{name}: non-finite commands")
+    speed = torch.linalg.vector_norm(cmds[..., :2], dim=-1)
+    if float(speed.max()) > cfg.max_vel_trans + 1e-5:
+        raise AssertionError(f"{name}: |cmd_xy| {float(speed.max())} above "
+                             f"max_vel_trans {cfg.max_vel_trans}")
+    if res.final_state.initial_guess.shape != (batch,
+                                               3 * cfg.control_steps):
+        raise AssertionError(f"{name}: carried guess of shape "
+                             f"{tuple(res.final_state.initial_guess.shape)}")
+    for kernel in ("qp_admm", "footprint_cost"):
+        if launches[kernel] <= 0:
+            raise AssertionError(f"{name}: {kernel} was never launched")
+    init = (res.final_state, res.poses[:, -1], res.cmds[:, -1])
+    tick_wall = 1e3 * wall / SLICE_TICKS
+    out = {"batch": batch, "ticks": SLICE_TICKS,
+           "control_steps": cfg.control_steps,
+           "prediction_horizon": cfg.prediction_horizon,
+           "m": 3 * cfg.control_steps, "wall_s": wall,
+           "solves_per_s": batch * SLICE_TICKS / wall,
+           "launches": launches,
+           "converged_frac": float(res.converged.float().mean()),
+           "mean_solver_iters": float(res.solver_iters.float().mean()),
+           "timed_run_wall_ms_per_tick": tick_wall, "card": smi}
+
+    def profile() -> dict:
+        ticks = HORIZON_PROFILE_TICKS
+        prof = profile_run(lambda: batch_simulate(cfg, sb, ticks, init=init,
+                                                  parity=parity))
+        busy = prof["device_ms"] / ticks
+        return {"profiled_ticks": ticks,
+                "cuda_launches_per_tick": prof["launches"] / ticks,
+                "device_busy_ms_per_tick": busy,
+                "kernel_ms_per_tick": {k: v / ticks for k, v in
+                                       prof["kernel_ms"].items()},
+                "device_idle_share": 1.0 - busy / tick_wall}
+
+    return out, sb, cmds[:, 0], profile
+
+
+def _horizon_card_vs_cpu(cfg, sb, card_tick, lanes: int,
+                         parity: bool = True) -> dict:
+    """The loop's first tick on the card (its first `lanes` lanes) against
+    the same tick on the CPU: at least 99 % of lanes within 1e-3."""
+    from neo_mpc_planner2_tpu_torch.simulation import batch_simulate
+    from neo_mpc_planner2_tpu_torch.tree import tree_map
+
+    head = tree_map(lambda t: t[:lanes].cpu(), sb)
+    cpu = batch_simulate(cfg, head, 1, parity=parity).cmds[:, 0]
+    diff = (card_tick[:lanes].cpu() - cpu).abs().amax(-1)
+    frac = float((diff <= 1e-3).float().mean())
+    if frac < 0.99:
+        raise AssertionError(f"control_steps {cfg.control_steps} card vs "
+                             f"CPU: only {frac:.4f} of lanes within 1e-3")
+    return {"lanes": lanes, "max_cmd_diff": float(diff.max()),
+            "frac_within_1e-3": frac}
+
+
+def _horizon_oracle(device) -> dict:
+    """tests/test_horizons.py:14's three cases on the card: the port's
+    make_sqp_solver at ftol 1e-8 and 300 iterations (batch 1, K1 on the
+    card) against its scipy oracle on the host. Its criteria: objective
+    gap < 1e-4, and x within 1e-2 or the gap < 2e-6."""
+    import numpy as np
+    import torch
+
+    import neo_mpc_planner2_tpu_torch as tp
+    from neo_mpc_planner2_tpu_torch import oracle
+    from neo_mpc_planner2_tpu_torch.ops.objective import Scenario
+
+    fp = np.array([[0.3, 0.2], [-0.3, 0.2], [-0.3, -0.2], [0.3, -0.2]])
+    f32 = lambda a: torch.tensor(a, dtype=torch.float32, device=device)
+    out = {}
+    for steps, horizon in HORIZONS[:3]:
+        cfg = horizon_oracle_cfg().replace(
+            control_steps=steps, prediction_horizon=horizon,
+            opt_tolerance=1e-8)
+        scen = Scenario(
+            current_pose=f32([0, 0, 0]), carrot_pose=f32([0.4, 0.1, 0.2]),
+            goal_pose=f32([1.0, 0.5, 0.3]), current_vel=f32([0.3, 0, 0]),
+            footprint=tp.Footprint.rectangle(0.6, 0.4, device=device),
+            costmap=tp.Costmap.create(np.zeros((40, 40)),
+                                      origin=(-1.0, -1.0), resolution=0.05,
+                                      device=device),
+            switch_opt=torch.tensor(False, device=device))
+        solve = tp.make_sqp_solver(cfg, tp.make_objective(cfg), ftol=1e-8,
+                                   max_iters=300)
+        before = _launch_counts()["qp_admm"]
+        res = solve(torch.zeros(3 * steps, device=device), scen)
+        x = res.x.cpu().numpy()
+        if _launch_counts()["qp_admm"] <= before:
+            raise AssertionError(f"oracle at {steps} steps: no K1 launch")
+        npcm = oracle.NpCostmap(np.zeros((40, 40)), np.array([-1.0, -1.0]),
+                                0.05)
+        nps = oracle.NpScenario(np.zeros(3), np.array([0.4, 0.1, 0.2]),
+                                np.array([1.0, 0.5, 0.3]),
+                                np.array([0.3, 0, 0]), fp, npcm)
+        _, diag = oracle.OracleServer(cfg).solve(nps, 0.033)
+        gap = float(res.fun) - diag["fun"]
+        dx = float(np.abs(diag["raw"] - x).max())
+        ok = gap < 1e-4 and (dx < 1e-2 or gap < 2e-6)
+        out[f"steps_{steps}"] = {"gap": gap, "dx": dx,
+                                 "iters": int(res.iters), "passed": ok}
+        if not ok:
+            raise AssertionError(f"oracle at {steps} steps: gap {gap:.3g}, "
+                                 f"dx {dx:.3g}")
+    return out
+
+
+def _horizon_server(device, fleet: int, lanes: int) -> dict:
+    """A session on the card answers across a `configure` of control_steps
+    5 and back to 3: `optimizer` for one robot, `optimizer_batch` at
+    `fleet` robots at 5 steps, `optimizer` again at 3. The same script on a
+    CPU session (its batch cut to the first `lanes` robots, which are
+    independent of the rest) answers each one-robot request within 1e-3,
+    with the same flags, and the batch's first `lanes` robots within 1e-3
+    on at least 99 % of them."""
+    import numpy as np
+
+    from neo_mpc_planner2_tpu_torch.serving import OptimizerSession
+
+    traffic = serving_traffic(fleet)
+    robot = {"op": "optimizer", **traffic["robots"][0],
+             "control_interval": 1 / 30, "delta_t": 1 / 30}
+
+    def script(n):
+        return [{"op": "configure", "params": _fleet_params()},
+                traffic["costmap"], traffic["footprint"], robot,
+                {"op": "configure", "params": {"control_steps": 5}}, robot,
+                {"op": "optimizer_batch", "robots": traffic["robots"][:n],
+                 "control_interval": 1 / 30, "delta_t": 1 / 30},
+                {"op": "configure", "params": {"control_steps": 3}}, robot]
+
+    def answers(dev, n):
+        session = OptimizerSession(device=dev)
+        return [_call(session, msg) for msg in script(n)]
+
+    card, cpu = answers(device, fleet), answers("cpu", lanes)
+    one = [3, 5, 8]
+    flags = ("collision", "collision_footprint", "lethal", "plan_empty")
+    diffs = [float(np.abs(np.subtract(card[i]["output_vel"],
+                                      cpu[i]["output_vel"])).max())
+             for i in one]
+    same_flags = all(card[i].get(k) == cpu[i].get(k) for i in one
+                     for k in flags)
+    batch = [float(np.abs(np.subtract(x["output_vel"],
+                                      y["output_vel"])).max())
+             for x, y in zip(card[6]["results"][:lanes],
+                             cpu[6]["results"])]
+    frac = float(np.mean(np.asarray(batch) <= 1e-3))
+    if len(card[6]["results"]) != fleet:
+        raise AssertionError(f"optimizer_batch answered "
+                             f"{len(card[6]['results'])} of {fleet} robots")
+    if max(diffs) > 1e-3 or not same_flags or frac < 0.99:
+        raise AssertionError(f"server across control_steps 5: one-robot "
+                             f"diffs {diffs}, flags equal {same_flags}, "
+                             f"batch {frac:.4f} within 1e-3")
+    return {"robots": fleet, "one_robot_diffs": diffs,
+            "flags_equal": same_flags, "batch_lanes_checked": lanes,
+            "batch_frac_within_1e-3": frac,
+            "batch_max_diff": max(batch)}
+
+
+def phase_horizons(device, smi: str, batch: int = 4096) -> dict:
+    """The slice at other horizons, on the card:
+    (a) the fleet closed loop at each of HORIZONS (4096 lanes, 64x64 maps,
+        seed 0; WARM_TICKS, then SLICE_TICKS timed): solves/s, converged
+        fraction, mean iterations, K1's launches a tick; K1's first call
+        held against its plain version (rtol 2e-4 / atol 2e-5), timed, its
+        share of bound; the first tick against the CPU on the first
+        HORIZON_CPU_LANES lanes (>= 99 % within 1e-3);
+    (b) the product closed loop at HORIZON_PRODUCT (K3's wave at R = 7n
+        and its gradient calls at R = n), K3 held exactly against its plain
+        version on its captured calls;
+    (c) tests/test_horizons.py's three oracle cases, the solve on the card;
+    (d) a server session across a configure of control_steps 5 and back;
+    then, after every timing (a short trace after a long one may lose
+    records), torch.profiler over HORIZON_PROFILE_TICKS ticks of each loop:
+    CUDA launches, device busy ms and idle share, K1's device ms a tick.
+    One line for each loop and one for the phase with its wall time.
+    Returns each loop's line (its timed run's launches) by name."""
+    from neo_mpc_planner2_tpu_torch.kernels import binding, bounds
+
+    t0 = time.perf_counter()
+    loops, profiles = {}, {}
+    for steps, horizon in HORIZONS:
+        cfg = horizon_cfg(steps, horizon)
+        name = f"horizon_{steps}"
+        rec = K1Recorder()
+        out, sb, first, profiles[name] = _horizon_loop(
+            device, smi, cfg, name, True, batch, rec)
+        m = 3 * steps
+        # Compaction is off at the fleet point: every K1 call of the loop
+        # is at (batch, m).
+        k1 = phase_k1_captured(rec, name)[f"B{batch}_m{m}"]
+        out.update(
+            k1_variant=binding.qp_admm_variant(m),
+            k1_launches_per_tick=out["launches"]["qp_admm"] / SLICE_TICKS,
+            k1_first_call=k1,
+            k1_bound_ms_per_call=bounds.qp_admm_work(
+                batch, m, cfg.qp_iters)["bound_ms"],
+            card_vs_cpu=_horizon_card_vs_cpu(cfg, sb, first,
+                                             HORIZON_CPU_LANES))
+        loops[name] = {"phase": "horizons: fleet closed loop at "
+                       f"control_steps {steps}", **out}
+    steps, horizon = HORIZON_PRODUCT
+    cfg = product_cfg(horizon_cfg(steps, horizon))
+    name = f"horizon_product_{steps}"
+    rec = K3Recorder()
+    out, _, _, profiles[name] = _horizon_loop(device, smi, cfg, name, False,
+                                              batch, rec)
+    out["k3_captured"] = hold_k3_captured(rec, ("wave", "grad", "gate"),
+                                          steps)
+    out["k3_launches_per_warm_tick_by_R"] = {
+        f"R{R}": n / WARM_TICKS for R, n in sorted(rec.by_r.items())}
+    loops[name] = {"phase": "horizons: product closed loop at "
+                   f"control_steps {steps}",
+                   "k3_tolerance": "exact (torch.equal)", **out}
+    oracle_cases = _horizon_oracle(device)
+    server = _horizon_server(device, batch, HORIZON_CPU_LANES)
+    for name, line in loops.items():
+        line.update(profiles[name]())
+        if "k1_first_call" in line:
+            line["k1_device_ms_per_tick"] = line["kernel_ms_per_tick"][
+                "qp_admm"]
+        print(json.dumps(line), flush=True)
+    wall = time.perf_counter() - t0
+    print(json.dumps({"phase": "horizons", "wall_s": wall,
+                      "oracle_other_horizons": oracle_cases,
+                      "server_across_control_steps_5": server,
+                      "card": smi}), flush=True)
+    return loops
 
 
 def phase_oracle(device, smi: str, n: int = 64) -> dict:
@@ -2329,12 +2749,19 @@ def phase_controller(device, smi: str) -> dict:
 
 def kernels_line(slices: dict, measured: dict) -> list:
     """The `kernels` line's entries, one per KERNELS entry, with the keys
-    of KERNEL_KEYS. slices: name -> that slice phase's output; measured:
-    name -> {max_abs_err, ms, plain_ms, bound_ms, bound_by, library_ms}."""
+    of KERNEL_KEYS. slices: name -> a timed run's output (its launches,
+    ticks and, where not 3, control_steps); measured: name ->
+    {max_abs_err, ms, plain_ms, bound_ms, bound_by, library_ms} at the
+    slices' width and, optionally, "variants": the same numbers at each
+    timed width m, to which each gets the launches of the runs at m."""
     entries = []
     for k in KERNELS:
         got = measured[k["name"]]
         runs = {s: out["launches"][k["name"]] for s, out in slices.items()}
+        variants = [{**v, "launches": sum(
+            n for s, n in runs.items()
+            if 3 * slices[s].get("control_steps", 3) == v["m"])}
+            for v in got.get("variants", [])]
         entries.append({
             "name": k["name"], "route": k["route"], "source": k["source"],
             "replaces": k["replaces"],
@@ -2346,7 +2773,7 @@ def kernels_line(slices: dict, measured: dict) -> list:
             "plain_ms": got["plain_ms"], "bound_ms": got["bound_ms"],
             "bound_by": got["bound_by"],
             "share_of_bound": got["bound_ms"] / got["ms"],
-            "library_ms": got["library_ms"]})
+            "library_ms": got["library_ms"], "variants": variants})
     return entries
 
 
@@ -2378,8 +2805,9 @@ def main() -> int:
         print(f"[chip_smoke] {what} done at {time.perf_counter() - t0:.1f} s",
               file=sys.stderr, flush=True)
 
-    k1 = phase_kernels(device)
-    k2 = phase_k2(device)
+    phase_launch_counts(device)
+    k1 = isolated("phase_kernels")
+    k2 = isolated("phase_k2")
     k3 = phase_k3(device)
     phase_k3_walk(device)
     progress("kernel phases")
@@ -2417,6 +2845,8 @@ def main() -> int:
     controller = phase_controller(device, smi)
     phase_adapter_and_cli(device, smi)
     progress("controller")
+    horizons = phase_horizons(device, smi)
+    progress("horizons")
     phase_launches_per_tick(device, slices)
     phase_arm_launches(device, {**compact, **waves})
     progress("launches a tick")
@@ -2426,13 +2856,15 @@ def main() -> int:
                         ms=k1["qp_admm_m9_ms"],
                         plain_ms=k1["qp_admm_plain_m9_ms"],
                         bound_ms=k1["qp_admm_m9_bound_ms"],
-                        bound_by=k1["qp_admm_m9_bound_by"], library_ms=None),
+                        bound_by=k1["qp_admm_m9_bound_by"], library_ms=None,
+                        variants=k1["variants"]),
         "spd_inv": dict(max_abs_err=k2["spd_inv_max_abs_err"],
                         ms=k2["spd_inv_m9_ms"],
                         plain_ms=k2["spd_inv_plain_m9_ms"],
                         bound_ms=k2["spd_inv_m9_bound_ms"],
                         bound_by=k2["spd_inv_m9_bound_by"],
-                        library_ms=k2["spd_inv_library_m9_ms"]),
+                        library_ms=k2["spd_inv_library_m9_ms"],
+                        variants=k2["variants"]),
         # On the product slice's own wave (R = 21, patch bounds).
         "footprint_cost": dict(max_abs_err=k3["footprint_cost_max_abs_err"],
                                ms=wave["ms"], plain_ms=wave["plain_ms"],
@@ -2440,8 +2872,9 @@ def main() -> int:
                                bound_by=wave["bound_by"], library_ms=None),
     }
     # The launches of the timed runs: the slices, the SQP schedules' arms,
-    # the sharded engine and the controller routes.
-    runs = {**slices, **compact, **waves, "sharded": sharded, **controller}
+    # the sharded engine, the controller routes and the horizons' loops.
+    runs = {**slices, **compact, **waves, "sharded": sharded, **controller,
+            **horizons}
     print(json.dumps({"kernels": kernels_line(runs, measured)}), flush=True)
     print(_nvidia_smi(), flush=True)
     print(json.dumps({"ok": True, "device": {
@@ -2450,5 +2883,45 @@ def main() -> int:
     return 0
 
 
+# The phases that isolated() runs in a process of their own.
+ISOLATED = ("phase_kernels", "phase_k2")
+
+
+def isolated(name: str) -> dict:
+    """Run the phase `name` of ISOLATED on cuda:0 in a child process, with
+    a fresh torch.profiler (on an H100, after K1's phase in the same
+    process, profiled sessions were seen to report no device records),
+    relay its output and return its line. Raises if it fails."""
+    import os
+
+    proc = subprocess.run([sys.executable, os.path.abspath(__file__),
+                           "--phase", name], capture_output=True, text=True,
+                          timeout=900)
+    sys.stdout.write(proc.stdout)
+    sys.stdout.flush()
+    sys.stderr.write(proc.stderr)
+    if proc.returncode != 0:
+        raise AssertionError(f"{name} failed in its process "
+                             f"(exit {proc.returncode})")
+    return json.loads([line for line in proc.stdout.splitlines()
+                       if line.startswith("{")][-1])
+
+
+def run_isolated(name: str) -> int:
+    """The child side of isolated(): the kernels are already built."""
+    import torch
+
+    from neo_mpc_planner2_tpu_torch.kernels import build
+
+    if name not in ISOLATED or not torch.cuda.is_available():
+        print(f"chip_smoke: no isolated phase {name!r} here", file=sys.stderr)
+        return 2
+    build.build_library()
+    globals()[name](torch.device("cuda:0"))
+    return 0
+
+
 if __name__ == "__main__":
+    if len(sys.argv) == 3 and sys.argv[1] == "--phase":
+        sys.exit(run_isolated(sys.argv[2]))
     sys.exit(main())

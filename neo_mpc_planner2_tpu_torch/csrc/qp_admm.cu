@@ -1,5 +1,7 @@
 // K1: the whole ADMM QP subproblem of one SQP iteration, a team of threads
-// per lane.
+// per lane, at every m = 3N up to K1's cap (kernels/binding.py:
+// qp_admm_variant): the warp-team design at m <= 30, the block-team design
+// above.
 //
 // Replaces the TPU kernel neo_mpc_planner2_tpu/sqp.py::_qp_admm_kernel
 // (launched by _qp_admm_pallas_batched). Per lane it solves
@@ -52,6 +54,27 @@
 //     functions take them: a block's lanes are contiguous rows, read with
 //     coalesced loads, and written back the same way, so the wrapper is
 //     one launch with no transposes.
+// The warp-team design is instantiated at every m = 3N <= 30 (N <= 10; at
+// m = 3 ten teams a warp, from m = 18 on one team a warp with idle threads).
+// Above m = 30 a team no longer fits a warp, and a thread's rows of m floats
+// (five of them, and the Cholesky's scratch) no longer fit its registers.
+//
+// The block-team design (qp_admm_kernel_block_team), m > 30, m at run time:
+// one lane a block, a thread a row, m rounded up to whole warps. What bounds
+// it on an H100: shared memory and the dependent chain. The block's matrix
+// lives in dynamic shared memory, (m team_ld(m) + 3m) floats with the
+// reciprocal diagonal, rhs and d (m = 36: 5.8 KB; K1's cap m = 237 takes
+// 227,520 of the 232,448 bytes a block may have, above 48 KB only after the
+// launcher raises the kernel's limit); the inverse is spd_inverse.cuh's
+// team_inverse (every sum in _tree_sum's order, the forward substitution's
+// too), with a barrier for each of the factor's m columns; each ADMM iteration
+// takes two barriers: rhs goes through shared memory as in the warp-team
+// design, and so does d, since the cone pair's rows 3k and 3k + 1 straddle a
+// warp boundary from k = 21 on (rows 63 and 64), where a shuffle no longer
+// reaches. Thread i reads row i of the symmetric M^-1 as column i (S[j][i]:
+// consecutive threads, consecutive words) and the rhs as a broadcast, in the
+// warp-team design's two interleaved multiply-add chains.
+//
 // TMA and wgmma do not fit: every lane has its own m x m matrix and one
 // matrix-vector product per iteration, with no operand shared between
 // lanes to tile, and a block's operands are a few KB of contiguous rows
@@ -89,7 +112,7 @@ __global__ void __launch_bounds__(kQpThreads) qp_admm_kernel(
   constexpr int LANES = WARPS * LPW;    // lanes a block
   constexpr int SLOTS = WARPS * (LPW + 1);
   constexpr int MP = (M + 3) / 4 * 4;   // rhs row, padded for float4 reads
-  static_assert(M >= 3 && M <= 32 && M % 3 == 0, "m = 3 N, N <= 10");
+  static_assert(M >= 3 && M <= 30 && M % 3 == 0, "m = 3 N, N <= 10");
   // Per team slot: M (in its lower triangle: E, overwritten by L, then X),
   // the reciprocal diagonal of L, and two rhs buffers. Each warp has one
   // slot more than it has lanes: its last 32 - LPW * M threads form a
@@ -286,6 +309,134 @@ cudaError_t launch_qp(const float* const* in, float* const* out, int B,
   return cudaGetLastError();
 }
 
+// The block-team design: one lane a block, thread i < m owns row i (the
+// threads from m on only meet the barriers), m at run time.
+__global__ void __launch_bounds__(256) qp_admm_kernel_block_team(
+    const float* __restrict__ Bf, const float* __restrict__ g,
+    const float* __restrict__ x, const float* __restrict__ c,
+    const float* __restrict__ dxy, const float* __restrict__ lo,
+    const float* __restrict__ hi, const float* __restrict__ d0,
+    const float* __restrict__ zb0, const float* __restrict__ zc0,
+    const float* __restrict__ wb0, const float* __restrict__ wc0,
+    float* __restrict__ dout, float* __restrict__ dN, float* __restrict__ zbN,
+    float* __restrict__ zcN, float* __restrict__ wbN, float* __restrict__ wcN,
+    float* __restrict__ ycone, int m, int iters, float rho, float sigma,
+    float sigma_plus_rho) {
+  extern __shared__ float qp_smem[];
+  const int ld = team_ld(m), N = m / 3;
+  float* S = qp_smem;        // M (lower triangle), then M^-1 (whole)
+  float* D = S + m * ld;     // reciprocal diagonal of L
+  float* Rs = D + m;         // rhs
+  float* Ds = Rs + m;        // d
+  const long long b = blockIdx.x;
+  const int i = threadIdx.x;
+  const bool row = i < m;
+  for (int k = threadIdx.x; k < m * m; k += blockDim.x)
+    S[(k / m) * ld + k % m] = __ldg(Bf + b * m * m + k);
+  const int k3 = i / 3, a = i - 3 * (i / 3);
+#define NEO_ROW(p, rows, r) (row ? __ldg((p) + b * (rows) + (r)) : 0.0f)
+  const float dx = NEO_ROW(dxy, 2 * N, 2 * k3);
+  const float dy = NEO_ROW(dxy, 2 * N, 2 * k3 + 1);
+  const float cc = NEO_ROW(c, N, k3);
+  __syncthreads();
+
+  // 1. Row i of M (entries j <= i), as the warp-team design builds it: only
+  // the entries of row i's own cone pair take a J'J term.
+  if (row) {
+    for (int j = 3 * k3; j <= i; ++j) {
+      float e = S[i * ld + j];
+      const int bj = j - 3 * k3;
+      if (a < 2 && bj < 2)
+        e = e + rho * ((a == 0 ? dx : dy) * (bj == 0 ? dx : dy));
+      if (j == i) e = e + sigma_plus_rho;
+      S[i * ld + j] = e;
+    }
+  }
+  __syncthreads();
+
+  // 2. M^-1, whole and symmetric, in S.
+  team_inverse(S, D, m, i);
+
+  // 3. ADMM.
+  const float gi = NEO_ROW(g, m, i);
+  const float xi = NEO_ROW(x, m, i);
+  const float dlo = NEO_ROW(lo, m, i) - xi, dhi = NEO_ROW(hi, m, i) - xi;
+  float d = NEO_ROW(d0, m, i), zb = NEO_ROW(zb0, m, i);
+  float wb = NEO_ROW(wb0, m, i);
+  float zc = NEO_ROW(zc0, N, k3), wc = NEO_ROW(wc0, N, k3);
+#undef NEO_ROW
+  const float cone = (a == 0) ? rho * dx : ((a == 1) ? rho * dy : 0.0f);
+  const int pair = (a == 0) ? i + 1 : ((a == 1) ? i - 1 : i);
+  for (int it = 0; it < iters; ++it) {
+    // Rs and Ds are rewritten only after the barrier that follows their
+    // last reads, so one buffer each serves.
+    if (row) Rs[i] = -gi + sigma * d + rho * (zb - wb) + cone * (zc - wc);
+    __syncthreads();
+    if (row) {
+      float s0 = 0.0f, s1 = 0.0f;
+      int j = 0;
+      for (; j + 1 < m; j += 2) {
+        s0 = fmaf(S[j * ld + i], Rs[j], s0);
+        s1 = fmaf(S[(j + 1) * ld + i], Rs[j + 1], s1);
+      }
+      if (j < m) s0 = fmaf(S[j * ld + i], Rs[j], s0);
+      d = s0 + s1;
+      zb = clip_nan(d + wb, dlo, dhi);
+      Ds[i] = d;
+    }
+    __syncthreads();
+    if (row) {
+      const float dq = Ds[pair];
+      const float da = (a == 0) ? d : dq;
+      const float db = (a == 0) ? dq : d;
+      const float jd = dx * da + dy * db;
+      const float z = jd + wc;
+      zc = (z < -cc) ? -cc : z;
+      wc = wc + jd - zc;
+      wb = wb + d - zb;
+    }
+  }
+
+  // 4. Outputs, batch-major.
+  if (row) {
+    dout[b * m + i] = clip_nan(d, dlo, dhi);
+    dN[b * m + i] = d;
+    zbN[b * m + i] = zb;
+    wbN[b * m + i] = wb;
+    if (a == 0) {
+      zcN[b * N + k3] = zc;
+      wcN[b * N + k3] = wc;
+      ycone[b * N + k3] = rho * wc;
+    }
+  }
+}
+
+static long long qp_block_smem(int m) {
+  return 4LL * (static_cast<long long>(m) * team_ld(m) + 3 * m);
+}
+
+static cudaError_t launch_qp_block(const float* const* in, float* const* out,
+                                   int m, int B, int iters, float rho,
+                                   float sigma, float sigma_plus_rho,
+                                   cudaStream_t stream) {
+  const long long smem = qp_block_smem(m);
+  if (m % 3 != 0 || m <= 30 || smem > kMaxBlockSmem)
+    return cudaErrorInvalidValue;
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        qp_admm_kernel_block_team,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    if (err != cudaSuccess) return err;
+  }
+  const int threads = (m + 31) / 32 * 32;
+  qp_admm_kernel_block_team<<<static_cast<unsigned>(B), threads,
+                              static_cast<size_t>(smem), stream>>>(
+      in[0], in[1], in[2], in[3], in[4], in[5], in[6], in[7], in[8], in[9],
+      in[10], in[11], out[0], out[1], out[2], out[3], out[4], out[5], out[6],
+      m, iters, rho, sigma, sigma_plus_rho);
+  return cudaGetLastError();
+}
+
 }  // namespace neo_mpc
 
 // Every operand batch-major and contiguous: Bflat (B, m*m); g, x, lo, hi,
@@ -311,10 +462,17 @@ extern "C" int neo_qp_admm_f32(
                    static_cast<float*>(wb),    static_cast<float*>(wc),
                    static_cast<float*>(y_cone)};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define NEO_QP_CASE(M)                                                       \
+  case M:                                                                    \
+    return neo_mpc::launch_qp<M>(in, out, B, iters, rho, sigma,              \
+                                 sigma_plus_rho, s);
   switch (m) {
-    case 6: return neo_mpc::launch_qp<6>(in, out, B, iters, rho, sigma, sigma_plus_rho, s);
-    case 9: return neo_mpc::launch_qp<9>(in, out, B, iters, rho, sigma, sigma_plus_rho, s);
-    case 15: return neo_mpc::launch_qp<15>(in, out, B, iters, rho, sigma, sigma_plus_rho, s);
-    default: return static_cast<int>(cudaErrorInvalidValue);
+    NEO_QP_CASE(3) NEO_QP_CASE(6) NEO_QP_CASE(9) NEO_QP_CASE(12)
+    NEO_QP_CASE(15) NEO_QP_CASE(18) NEO_QP_CASE(21) NEO_QP_CASE(24)
+    NEO_QP_CASE(27) NEO_QP_CASE(30)
+    default:
+      return static_cast<int>(neo_mpc::launch_qp_block(
+          in, out, m, B, iters, rho, sigma, sigma_plus_rho, s));
   }
+#undef NEO_QP_CASE
 }

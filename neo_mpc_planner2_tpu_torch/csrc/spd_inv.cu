@@ -3,9 +3,11 @@
 // Replaces the TPU kernel neo_mpc_planner2_tpu/sqp.py::_spd_inv_kernel
 // (launched by _chol_inverse_pallas_batched): the unrolled Cholesky, forward
 // and back substitution, lower triangle mirrored to the upper, with the
-// device functions of spd_inverse.cuh (K1 has its own team inverse).
+// device functions of spd_inverse.cuh. Like the TPU kernel it takes any m:
+// an unrolled design at m = 3, 6, .., 18 and a runtime-m design for every
+// other m up to K2's cap (kernels/binding.py: spd_inv_variant).
 //
-// What bounds it on an H100:
+// The unrolled design (spd_inv_kernel<M, T>). What bounds it on an H100:
 //   - At B = 4096 (m = 9: 2.1 MB to move, the lower triangles in and the
 //     inverses out, ~3.6 M operations; bound 0.62 us by bytes) the launch
 //     and one matrix's dependent chain: a thread's ~900 operations issue
@@ -32,6 +34,19 @@
 //     T = 4 (more warps, shorter chains); large ones T = 1 (no repeated
 //     Cholesky where bytes bound): binding.k2_launch_shape.
 //   - Only the lower triangle is read from shared memory.
+// It stops at m = 18: a block's 32 matrices take 41 KB of the 48 KB of
+// static shared memory there (56 KB at m = 21), and a thread's factor,
+// m (m + 1) / 2 floats, fills its 255 registers (231 at m = 21).
+//
+// The runtime-m design (spd_inv_kernel_runtime_m), every other m: one matrix a
+// block, a thread a row (m rounded up to whole warps), the matrix in dynamic
+// shared memory at an odd row stride, inverted in place by spd_inverse.cuh's
+// team_inverse, whose sums keep the unrolled design's _tree_sum order. Its
+// shared memory, (m team_ld(m) + m) floats, caps m at 240 (m = 241 would take
+// 233,288 bytes of the 232,448 a block may have); from 48 KB on the launcher
+// raises the kernel's dynamic shared memory limit. Its bound is its dependent
+// chain: thread 0 computes the longest column, ~m^2 terms through TreeSum's
+// merges, with a barrier for each of the factor's m columns.
 // TMA and wgmma do not fit: each matrix is its own small problem with no
 // operand shared between matrices, and a block's 10 KB (m = 9) of
 // contiguous floats is one sweep of cp.async.
@@ -168,18 +183,60 @@ cudaError_t launch_inv(const void* Av, void* Xv, int B, int warps,
   }
 }
 
+// One matrix a block: staged whole (coalesced), inverted by team_inverse,
+// written back whole.
+__global__ void __launch_bounds__(256) spd_inv_kernel_runtime_m(
+    const float* __restrict__ A, float* __restrict__ Xout, int m) {
+  extern __shared__ float spd_smem[];
+  const int ld = team_ld(m);
+  float* S = spd_smem;
+  float* D = S + m * ld;
+  const long long base = static_cast<long long>(blockIdx.x) * m * m;
+  for (int k = threadIdx.x; k < m * m; k += blockDim.x)
+    S[(k / m) * ld + k % m] = __ldg(A + base + k);
+  __syncthreads();
+  team_inverse(S, D, m, threadIdx.x);
+  for (int k = threadIdx.x; k < m * m; k += blockDim.x)
+    Xout[base + k] = S[(k / m) * ld + k % m];
+}
+
+static long long spd_block_smem(int m) {
+  return 4LL * (static_cast<long long>(m) * team_ld(m) + m);
+}
+
+static cudaError_t launch_inv_block(const void* A, void* X, int B, int m,
+                                    cudaStream_t s) {
+  const long long smem = spd_block_smem(m);
+  if (m < 1 || smem > kMaxBlockSmem) return cudaErrorInvalidValue;
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        spd_inv_kernel_runtime_m,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    if (err != cudaSuccess) return err;
+  }
+  const int threads = (m + 31) / 32 * 32;
+  spd_inv_kernel_runtime_m<<<static_cast<unsigned>(B), threads,
+                             static_cast<size_t>(smem), s>>>(
+      static_cast<const float*>(A), static_cast<float*>(X), m);
+  return cudaGetLastError();
+}
+
 }  // namespace neo_mpc
 
-// A, X: batch-major (B, m, m) float32; warps_per_block 1 or 4. Returns
-// cudaGetLastError().
+// A, X: batch-major (B, m, m) float32; warps_per_block 1 or 4 (read by the
+// unrolled design only). Returns cudaGetLastError().
 extern "C" int neo_spd_inv_f32(int m, int B, int warps_per_block,
                                const void* A, void* X, void* stream) {
   if (B <= 0) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (m) {
+    case 3: return neo_mpc::launch_inv<3>(A, X, B, warps_per_block, s);
     case 6: return neo_mpc::launch_inv<6>(A, X, B, warps_per_block, s);
     case 9: return neo_mpc::launch_inv<9>(A, X, B, warps_per_block, s);
+    case 12: return neo_mpc::launch_inv<12>(A, X, B, warps_per_block, s);
     case 15: return neo_mpc::launch_inv<15>(A, X, B, warps_per_block, s);
-    default: return static_cast<int>(cudaErrorInvalidValue);
+    case 18: return neo_mpc::launch_inv<18>(A, X, B, warps_per_block, s);
+    default:
+      return static_cast<int>(neo_mpc::launch_inv_block(A, X, B, m, s));
   }
 }

@@ -13,13 +13,84 @@ import torch
 
 from .build import load_library
 
-__all__ = ["SUPPORTED_M", "QP_INPUTS", "QP_OUTPUTS", "qp_rows",
-           "K3_MAX_SMEM", "K3_WALK_THREADS", "k3_launch_shape",
-           "k3_smem_bytes",
+__all__ = ["MAX_SMEM", "team_ld", "K1_WARP_TEAM_MAX_M", "k1_block_smem_bytes",
+           "K1_MAX_M", "qp_admm_variant", "K2_UNROLLED_M",
+           "k2_block_smem_bytes", "K2_MAX_M", "spd_inv_variant",
+           "QP_INPUTS", "QP_OUTPUTS", "qp_rows", "K3_WALK_THREADS",
+           "k3_launch_shape", "k3_smem_bytes",
            "K2_WIDTHS", "K2_WIDE_BLOCKS_PER_SM", "k2_launch_shape",
            "launch_qp_admm", "launch_spd_inv", "launch_footprint_cost"]
 
-SUPPORTED_M = (6, 9, 15)
+# The most shared memory a block may take on an H100 (227 KB).
+MAX_SMEM = 232448
+
+
+def team_ld(m: int) -> int:
+    """Row stride of a block team's matrix in shared memory: m rounded up
+    to odd (spd_inverse.cuh: team_ld)."""
+    return m | 1
+
+
+# K1's warp-team design (csrc/qp_admm.cu: qp_admm_kernel<M>) is built at
+# every m = 3N up to this; its block-team design takes m above.
+K1_WARP_TEAM_MAX_M = 30
+
+
+def k1_block_smem_bytes(m: int) -> int:
+    """Shared memory of one block of K1's block-team design: the matrix at
+    stride team_ld(m), its reciprocal diagonal, rhs and d."""
+    return 4 * (m * team_ld(m) + 3 * m)
+
+
+# The largest m whose block-team block fits MAX_SMEM: 237 (control_steps 79).
+K1_MAX_M = max(m for m in range(3, 400, 3)
+               if k1_block_smem_bytes(m) <= MAX_SMEM)
+
+
+def qp_admm_variant(m: int) -> str:
+    """The K1 design that serves m: "warp_team" (m = 3N <= 30) or
+    "block_team" (30 < m = 3N <= K1_MAX_M). Raises ValueError for any
+    other m."""
+    if m < 3 or m % 3:
+        raise ValueError(f"qp_admm: m={m} is not 3 x control_steps")
+    if m <= K1_WARP_TEAM_MAX_M:
+        return "warp_team"
+    if m <= K1_MAX_M:
+        return "block_team"
+    raise ValueError(
+        f"qp_admm: m={m} is above K1's cap m={K1_MAX_M} (control_steps "
+        f"{K1_MAX_M // 3}): its block would need {k1_block_smem_bytes(m)} "
+        f"bytes of shared memory, a block may take {MAX_SMEM}")
+
+
+# K2's unrolled design (csrc/spd_inv.cu: spd_inv_kernel<M, T>) is built at
+# these m; its runtime-m design takes every other m up to K2_MAX_M.
+K2_UNROLLED_M = (3, 6, 9, 12, 15, 18)
+
+
+def k2_block_smem_bytes(m: int) -> int:
+    """Shared memory of one block of K2's runtime-m design: the matrix at
+    stride team_ld(m) and its reciprocal diagonal."""
+    return 4 * (m * team_ld(m) + m)
+
+
+# The largest m whose runtime-m block fits MAX_SMEM: 240.
+K2_MAX_M = max(m for m in range(1, 400)
+               if k2_block_smem_bytes(m) <= MAX_SMEM)
+
+
+def spd_inv_variant(m: int) -> str:
+    """The K2 design that serves m: "unrolled" (m in K2_UNROLLED_M) or
+    "runtime_m" (any other 1 <= m <= K2_MAX_M). Raises ValueError for any
+    other m."""
+    if m in K2_UNROLLED_M:
+        return "unrolled"
+    if 1 <= m <= K2_MAX_M:
+        return "runtime_m"
+    raise ValueError(
+        f"chol_inverse: m={m} is outside K2's range 1..{K2_MAX_M} (its "
+        f"cap): a block would need {k2_block_smem_bytes(m)} bytes of shared "
+        f"memory, a block may take {MAX_SMEM}")
 
 # K1's operands and outputs, in the order of neo_qp_admm_f32's arguments.
 QP_INPUTS = ("Bflat", "g", "x", "c", "dxy", "lo", "hi", "d0", "zb0", "zc0",
@@ -33,10 +104,6 @@ def qp_rows(m: int) -> dict:
     return dict(Bflat=m * m, g=m, x=m, c=n, dxy=2 * n, lo=m, hi=m, d0=m,
                 zb0=m, zc0=n, wb0=m, wc0=n, d_out=m, d=m, zb=m, zc=n, wb=m,
                 wc=n, y_cone=n)
-
-
-# The most shared memory a block may take on an H100 (227 KB).
-K3_MAX_SMEM = 232448
 
 
 def k3_launch_shape(R: int) -> tuple[int, int]:
@@ -74,6 +141,7 @@ def _stream(device) -> int:
 def launch_qp_admm(ins, m: int, iters: int, rho: float, sigma: float):
     """ins: the 12 batch-major operands of QP_INPUTS, each (B, rows).
     Returns the 7 batch-major outputs of QP_OUTPUTS."""
+    qp_admm_variant(m)
     lib = load_library()
     B = ins[0].shape[0]
     rows = qp_rows(m)
@@ -88,7 +156,8 @@ def launch_qp_admm(ins, m: int, iters: int, rho: float, sigma: float):
     return outs
 
 
-# K2's widths (warps a block of 32 matrices) that csrc/spd_inv.cu builds.
+# K2's widths (warps a block of 32 matrices) that csrc/spd_inv.cu builds
+# for its unrolled design (the runtime-m design takes a thread a row).
 K2_WIDTHS = (1, 4)
 # K2 takes four warps a block while its blocks are at most this many to an
 # SM, one above.
@@ -112,6 +181,7 @@ def k2_launch_shape(B: int, device) -> int:
 
 
 def _launch_spd_inv_at(M: torch.Tensor, warps: int) -> torch.Tensor:
+    spd_inv_variant(M.shape[-1])
     lib = load_library()
     X = torch.empty_like(M)
     rc = lib.neo_spd_inv_f32(M.shape[-1], M.shape[0], warps, M.data_ptr(),

@@ -38,7 +38,7 @@ def bound(ops: float, nbytes: float) -> dict:
 
 def inverse_ops(m: int) -> int:
     """Operations of the unrolled Cholesky inverse of one m x m matrix
-    (sqp._chol_inverse_unrolled): per dot product of n terms n multiplies
+    (sqp.chol_inverse_plain): per dot product of n terms n multiplies
     and n - 1 adds, plus the subtraction, the reciprocal square root or the
     scaling around it."""
     ops = 0

@@ -16,7 +16,10 @@ copy a window of the map so that its TPU loops contract over the window.
 Their values are the contract: a read inside map ∩ window returns the map
 value, any other read is lethal. Here a patch is that rectangle, per lane,
 as int32 `bounds` (lo_x, lo_y, hi_x, hi_y) with hi exclusive, and a read is
-the gather from the full map masked by it. No window is copied.
+the gather from the full map masked by it. No window is copied. The JAX
+package's patch values themselves (`CostmapPatch`, `extract_patch`,
+`extract_patch_onehot`, `patch_cost_at_*`) are here too, as gathers, for
+callers of its public names; the port's own paths never build one.
 
 A rolling-window view (nav2's rolling local costmap) is the world map with
 `win_lo` (*lead, 2) int32 and `win_cells` set: every sampler reads the
@@ -37,10 +40,13 @@ import math
 
 import torch
 
-__all__ = ["Costmap", "LETHAL_COST", "U8_AUTO_MIN_CELLS", "u8_source_enabled",
-           "grid_bounds", "grid_origin", "world_to_map", "cost_at_cell",
-           "extract_window", "write_window_",
-           "cost_at_world", "cost_at_world_onehot", "patch_bounds",
+__all__ = ["Costmap", "CostmapPatch", "LETHAL_COST", "U8_AUTO_MIN_CELLS",
+           "u8_source_enabled", "grid_bounds", "grid_origin", "world_to_map",
+           "cost_at_cell", "cost_at_cells_onehot", "extract_window",
+           "extract_window_onehot", "write_window_", "cost_at_world",
+           "cost_at_world_onehot", "extract_patch", "extract_patch_onehot",
+           "patch_cost_at_cells", "patch_cost_at_world",
+           "patch_cost_at_world_bilinear", "patch_bounds",
            "product_patch_bounds", "make_point_sampler",
            "cost_at_world_bilinear",
            "required_patch_halfwidth", "required_product_patch_halfwidth",
@@ -220,9 +226,10 @@ def cost_at_world(cm: Costmap, wx: torch.Tensor, wy: torch.Tensor):
     return cost_at_cell(cm, mx, my)
 
 
-# The JAX package's one-hot sampler computes the same picks with matrix
-# contractions; on the GPU it is the gather.
+# The JAX package's one-hot samplers compute the same picks with matrix
+# contractions; on the GPU they are the gathers.
 cost_at_world_onehot = cost_at_world
+cost_at_cells_onehot = cost_at_cell
 
 
 def _window_index(row, col, hc: int, wc: int, w: int) -> torch.Tensor:
@@ -251,6 +258,10 @@ def extract_window(data: torch.Tensor, row, col, hc: int,
     flat = data.reshape(lead + (hh * ww,))
     got = torch.gather(flat, -1, _window_index(row, col, hc, wc, ww))
     return got.reshape(lead + (hc, wc))
+
+
+# The JAX package's gather-free window read; here the gather.
+extract_window_onehot = extract_window
 
 
 def write_window_(cm: Costmap, cells, lo) -> None:
@@ -377,6 +388,97 @@ def cost_at_world_bilinear(cm: Costmap, wx: torch.Tensor, wy: torch.Tensor,
     my = torch.stack([y0, y0, y0 + 1, y0 + 1], dim=-1)
     c = cost_at_cell(cm, mx, my, bounds)
     c00, c10, c01, c11 = c.unbind(-1)
+    top = c00 * (1.0 - tx) + c10 * tx
+    bot = c01 * (1.0 - tx) + c11 * tx
+    return top * (1.0 - ty) + bot * ty
+
+
+@dataclasses.dataclass
+class CostmapPatch:
+    """The JAX package's per-solve window of a costmap.
+
+    data: (*lead, P, P), P = 2·halfwidth + 1, the map's values inside the
+    grid and lethal outside it. cell0: (*lead, 2) int32, the full-map
+    (col, row) cell of data[..., 0, 0] (negative near the map's low edge).
+    """
+
+    data: torch.Tensor
+    cell0: torch.Tensor
+
+    def replace(self, **kw) -> "CostmapPatch":
+        return dataclasses.replace(self, **kw)
+
+
+def _patch_at(cm: Costmap, c0x, c0y, size: int) -> CostmapPatch:
+    """The (size, size) window whose corner cell is (c0x, c0y), each
+    (*lead,), as one gather: map values inside the grid of `data`, lethal
+    outside (the JAX package's patches index `data`, a view's world map
+    included, without the view's window)."""
+    h, w = cm.data.shape[-2], cm.data.shape[-1]
+    lead = cm.data.shape[:-2]
+    ar = torch.arange(size, dtype=torch.int32, device=cm.data.device)
+    rows = c0y[..., None] + ar
+    cols = c0x[..., None] + ar
+    valid = (((rows >= 0) & (rows < h))[..., :, None]
+             & ((cols >= 0) & (cols < w))[..., None, :])
+    idx = (rows.clamp(0, h - 1).long()[..., :, None] * w
+           + cols.clamp(0, w - 1).long()[..., None, :])
+    vals = torch.gather(cm.data.reshape(lead + (h * w,)), -1,
+                        idx.flatten(-2)).reshape(lead + (size, size))
+    return CostmapPatch(data=torch.where(valid, vals, LETHAL_COST),
+                        cell0=torch.stack([c0x, c0y], -1).to(torch.int32))
+
+
+def extract_patch(cm: Costmap, cx, cy, halfwidth: int) -> CostmapPatch:
+    """The JAX package's `extract_patch`: the (2h+1)² window around the
+    world point (cx, cy), each (*lead,), its centre cell clamped onto the
+    map (the slice of the map padded with a lethal ring of width h)."""
+    h, w = cm.data.shape[-2], cm.data.shape[-1]
+    mx0, my0 = world_to_map(cm, cx, cy)
+    return _patch_at(cm, mx0.clamp(0, w - 1) - halfwidth,
+                     my0.clamp(0, h - 1) - halfwidth, 2 * halfwidth + 1)
+
+
+def extract_patch_onehot(cm: Costmap, cx, cy, halfwidth: int) -> CostmapPatch:
+    """The JAX package's `extract_patch_onehot`: the (2h+1)² window around
+    the centre cell of (cx, cy), unclamped, lethal outside the grid."""
+    mx0, my0 = world_to_map(cm, cx, cy)
+    return _patch_at(cm, mx0 - halfwidth, my0 - halfwidth,
+                     2 * halfwidth + 1)
+
+
+def patch_cost_at_cells(patch: CostmapPatch, mx, my,
+                        exact: bool = True) -> torch.Tensor:
+    """Nearest-cell read by full-map cell indices (*lead, ...) through a
+    patch, lethal outside it. `exact` is the JAX package's switch to a
+    single bf16 matmul pass on a TPU; a gather picks the value itself
+    either way, as the JAX package's CPU path does."""
+    del exact
+    size = patch.data.shape[-1]
+    lead = patch.data.shape[:-2]
+    ix = mx - _lane(patch.cell0[..., 0], mx)
+    iy = my - _lane(patch.cell0[..., 1], my)
+    inb = (ix >= 0) & (ix < size) & (iy >= 0) & (iy < size)
+    idx = iy.clamp(0, size - 1) * size + ix.clamp(0, size - 1)
+    val = _gather_flat(patch.data.reshape(lead + (size * size,)), idx)
+    return torch.where(inb, val, LETHAL_COST)
+
+
+def patch_cost_at_world(cm: Costmap, patch: CostmapPatch, wx, wy):
+    """Nearest-cell world lookup through a patch: world_to_map, then
+    patch_cost_at_cells."""
+    mx, my = world_to_map(cm, wx, wy)
+    return patch_cost_at_cells(patch, mx, my)
+
+
+def patch_cost_at_world_bilinear(cm: Costmap, patch: CostmapPatch, wx, wy,
+                                 exact: bool = True):
+    """cost_at_world_bilinear through a patch: the same index and weight
+    math, the four neighbours read by patch_cost_at_cells."""
+    x0, y0, tx, ty = _bilinear_setup(cm, wx, wy)
+    mx = torch.stack([x0, x0 + 1, x0, x0 + 1], dim=-1)
+    my = torch.stack([y0, y0, y0 + 1, y0 + 1], dim=-1)
+    c00, c10, c01, c11 = patch_cost_at_cells(patch, mx, my, exact).unbind(-1)
     top = c00 * (1.0 - tx) + c10 * tx
     bot = c01 * (1.0 - tx) + c11 * tx
     return top * (1.0 - ty) + bot * ty

@@ -304,7 +304,7 @@ def _check_kernel_inputs(data, origin, res, bounds, verts, n_valid, t,
     if t is None:
         return
     lanes, _ = binding.k3_launch_shape(R)
-    if binding.k3_smem_bytes(R, V, S, lanes) > binding.K3_MAX_SMEM:
+    if binding.k3_smem_bytes(R, V, S, lanes) > binding.MAX_SMEM:
         raise ValueError(f"{what}: {R} polygons of {V} vertices a lane do "
                          "not fit a block's shared memory")
 

@@ -11,8 +11,9 @@ import math
 
 import torch
 
-__all__ = ["yaw_from_quat", "quat_from_yaw", "se2_apply", "se2_inverse",
-           "se2_compose", "world_to_body", "body_to_world", "wrap_angle"]
+__all__ = ["yaw_from_quat", "quat_from_yaw", "rot2", "se2_apply",
+           "se2_inverse", "se2_compose", "world_to_body", "body_to_world",
+           "wrap_angle"]
 
 
 def yaw_from_quat(q: torch.Tensor) -> torch.Tensor:
@@ -25,6 +26,13 @@ def quat_from_yaw(yaw: torch.Tensor) -> torch.Tensor:
     half = yaw * 0.5
     zeros = torch.zeros_like(yaw)
     return torch.stack([zeros, zeros, torch.sin(half), torch.cos(half)], -1)
+
+
+def rot2(theta: torch.Tensor) -> torch.Tensor:
+    """(..., 2, 2) rotation matrix."""
+    c, s = torch.cos(theta), torch.sin(theta)
+    return torch.stack([torch.stack([c, -s], dim=-1),
+                        torch.stack([s, c], dim=-1)], dim=-2)
 
 
 def se2_apply(pose: torch.Tensor, points: torch.Tensor) -> torch.Tensor:

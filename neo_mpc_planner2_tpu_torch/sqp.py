@@ -68,60 +68,68 @@ def _cone_jacobian(dxy: torch.Tensor, m: int) -> torch.Tensor:
     return J
 
 
-def _tree_sum(terms):
-    """Pairwise summation of a list of same-shape tensors, in the order of
-    the JAX package (the CUDA kernels sum in the same order)."""
-    while len(terms) > 1:
-        nxt = [terms[i] + terms[i + 1] for i in range(0, len(terms) - 1, 2)]
-        if len(terms) % 2:
-            nxt.append(terms[-1])
-        terms = nxt
-    return terms[0]
-
-
-def _chol_inverse_unrolled(E, m: int):
-    """SPD inverse at element granularity: E(i, j) returns element (i, j)
-    (read for i >= j only) as a tensor; returns X as an m x m list of lists.
-    Cholesky with the diagonal carried as its reciprocal square root, forward
-    substitution for L⁻¹, back substitution for the lower triangle of
-    L⁻ᵀL⁻¹, mirrored."""
-    tiny = 1e-20
-    L = [[None] * m for _ in range(m)]
-    D = [None] * m
-    for j in range(m):
-        prods = [L[j][k] * L[j][k] for k in range(j)]
-        s = E(j, j) - _tree_sum(prods) if prods else E(j, j)
-        s = torch.maximum(s, s.new_tensor(tiny))
-        D[j] = torch.rsqrt(s)
-        L[j][j] = s * D[j]
-        for i in range(j + 1, m):
-            prods = [L[i][k] * L[j][k] for k in range(j)]
-            si = E(i, j) - _tree_sum(prods) if prods else E(i, j)
-            L[i][j] = si * D[j]
-    Y = [[None] * (i + 1) for i in range(m)]
-    for i in range(m):
-        Y[i][i] = D[i]
-        for c in range(i):
-            Y[i][c] = -_tree_sum([L[i][k] * Y[k][c]
-                                  for k in range(c, i)]) * D[i]
-    X = [[None] * m for _ in range(m)]
-    for i in reversed(range(m)):
-        for c in range(i + 1):
-            prods = [L[k][i] * X[k][c] for k in range(i + 1, m)]
-            acc = Y[i][c] - _tree_sum(prods) if prods else Y[i][c]
-            X[i][c] = acc * D[i]
-            X[c][i] = X[i][c]
-    return X
+def _tree_sum(p: torch.Tensor) -> torch.Tensor:
+    """Pairwise summation over the last dim of p, in the order of the JAX
+    package's _tree_sum (neighbours paired level by level, an odd tail
+    carried up; the CUDA kernels sum in the same order)."""
+    while p.shape[-1] > 1:
+        n = p.shape[-1]
+        pairs = p[..., 0:n - 1:2] + p[..., 1:n:2]
+        p = torch.cat([pairs, p[..., n - 1:]], -1) if n % 2 else pairs
+    return p[..., 0]
 
 
 def chol_inverse_plain(M: torch.Tensor) -> torch.Tensor:
-    """Plain PyTorch SPD inverse of M (B, m, m): the reference for K2."""
-    m = M.shape[-1]
-    X = _chol_inverse_unrolled(lambda i, j: M[:, i, j], m)
-    return torch.stack([torch.stack(row, -1) for row in X], -2)
+    """Plain PyTorch SPD inverse of M (B, m, m), read from its lower
+    triangle: the reference for K2. The arithmetic of the JAX package's
+    _chol_inverse_unrolled, element for element: Cholesky with the diagonal
+    carried as its reciprocal square root, forward substitution for L⁻¹,
+    back substitution for the lower triangle of L⁻ᵀL⁻¹, mirrored; every
+    inner product summed by _tree_sum. Each step computes a whole column or
+    row of elements at once (the forward substitution's ragged sums padded
+    with zeros at their tail, which the pairing leaves exact), so it takes
+    O(m) tensor operations, not O(m³)."""
+    B, m = M.shape[0], M.shape[-1]
+    tiny = 1e-20
+    L = M.new_zeros(B, m, m)
+    D = M.new_zeros(B, m)
+    for j in range(m):
+        s = M[:, j, j]
+        if j:
+            s = s - _tree_sum(L[:, j, :j] * L[:, j, :j])
+        s = torch.maximum(s, s.new_tensor(tiny))
+        D[:, j] = torch.rsqrt(s)
+        if j + 1 < m:
+            si = M[:, j + 1:, j]
+            if j:
+                si = si - _tree_sum(L[:, j + 1:, :j] * L[:, j, None, :j])
+            L[:, j + 1:, j] = si * D[:, j, None]
+    # Row i of Y: Y[i][c], c < i, sums L[i][k] Y[k][c] over k = c + t,
+    # t < i - c.
+    Y = torch.diag_embed(D)
+    idx = torch.arange(m, device=M.device)
+    for i in range(1, m):
+        c = idx[:i, None].expand(i, i)
+        k = c + idx[None, :i]
+        kc = k.clamp(max=i - 1)
+        prods = L[:, i, :][:, kc] * Y[:, kc, c]
+        prods = torch.where(k < i, prods, prods.new_zeros(()))
+        Y[:, i, :i] = -_tree_sum(prods) * D[:, i, None]
+    X = M.new_zeros(B, m, m)
+    for i in reversed(range(m)):
+        acc = Y[:, i, :i + 1]
+        if i + 1 < m:
+            prods = L[:, i + 1:, i, None] * X[:, i + 1:, :i + 1]
+            acc = acc - _tree_sum(prods.transpose(1, 2))
+        X[:, i, :i + 1] = acc * D[:, i, None]
+        X[:, :i, i] = X[:, i, :i].clone()
+    return X
 
 
-def _check_kernel_inputs(tensors, m: int, what: str) -> None:
+def _check_kernel_inputs(tensors, m: int, what: str, variant) -> None:
+    """What K1 and K2 take: float32, contiguous, on one device, at an m
+    that `variant` (binding.qp_admm_variant or spd_inv_variant) maps to a
+    kernel; it raises above the kernel's cap."""
     dev = tensors[0].device
     for t in tensors:
         if t.device != dev:
@@ -130,15 +138,14 @@ def _check_kernel_inputs(tensors, m: int, what: str) -> None:
             raise TypeError(f"{what}: the kernel takes float32, got {t.dtype}")
         if not t.is_contiguous():
             raise ValueError(f"{what}: the kernel takes contiguous operands")
-    if m not in binding.SUPPORTED_M:
-        raise ValueError(f"{what}: no kernel for m={m} "
-                         f"(built for {binding.SUPPORTED_M})")
+    variant(m)
 
 
 def chol_inverse(M: torch.Tensor) -> torch.Tensor:
     """Batched SPD inverse of M (B, m, m), read from its lower triangle:
-    kernel K2 for a CUDA float32 tensor (one launch, no copies), the plain
-    version for a CPU tensor; anything else raises."""
+    kernel K2 for a CUDA float32 tensor at any m up to binding.K2_MAX_M
+    (one launch, no copies), the plain version for a CPU tensor; anything
+    else raises."""
     if M.device.type == "cpu":
         return chol_inverse_plain(M)
     if M.device.type != "cuda":
@@ -147,7 +154,8 @@ def chol_inverse(M: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"chol_inverse: M has shape {tuple(M.shape)}, "
                          "expected batch-major (B, m, m)")
     B, m = M.shape[0], M.shape[-1]
-    _check_kernel_inputs([M], m, "chol_inverse")
+    _check_kernel_inputs([M], m, "chol_inverse",
+                         binding.spd_inv_variant)
     if B == 0:
         return torch.empty_like(M)
     X = binding.launch_spd_inv(M)
@@ -188,7 +196,8 @@ def _check_qp_operands(args, m: int) -> None:
     """What K1 takes: float32, contiguous, on one device, each operand
     batch-major (B, rows) in binding.QP_INPUTS order. A lane-minor
     (rows, B) operand is refused."""
-    _check_kernel_inputs(list(args), m, "qp_admm")
+    _check_kernel_inputs(list(args), m, "qp_admm",
+                         binding.qp_admm_variant)
     B = args[0].shape[0]
     rows = binding.qp_rows(m)
     for name, a in zip(binding.QP_INPUTS, args):
@@ -201,9 +210,10 @@ def qp_admm(Bflat, g, x, c, dxy, lo, hi, d0, zb0, zc0, wb0, wc0, *,
             iters: int, rho: float = 1.0, sigma: float = 1e-6):
     """The ADMM QP of one SQP iteration for a batch of lanes, all operands
     (B, rows) with Bflat (B, m²) and dxy (B, 2N) the cone Jacobian's
-    nonzeros. Kernel K1 for CUDA float32 tensors (any batch size, one
-    launch, the outputs written batch-major by the kernel); the plain
-    version for CPU tensors; anything else raises. Returns what
+    nonzeros. Kernel K1 for CUDA float32 tensors (any batch size, any
+    m = 3N up to binding.K1_MAX_M, one launch, the outputs written
+    batch-major by the kernel); the plain version for CPU tensors;
+    anything else raises. Returns what
     qp_admm_plain returns."""
     args = (Bflat, g, x, c, dxy, lo, hi, d0, zb0, zc0, wb0, wc0)
     B, m = x.shape

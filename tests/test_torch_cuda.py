@@ -1,4 +1,5 @@
-"""The CUDA kernels K1 (qp_admm), K2 (chol_inverse) and K3
+"""The CUDA kernels K1 (qp_admm) and K2 (chol_inverse) at the widths of
+every horizon (each design, and each kernel at its cap), K3
 (footprint_cost_batch) on the card, one step of each slice against the
 CPU, and the single-robot controller's ticks (both routes) against the
 CPU, with K1 and K3 read from a traced tick.
@@ -66,9 +67,16 @@ def _plain(args, m, **kw):
     return sqp.qp_admm_plain(*args[:4], J, *args[5:], **kw)
 
 
+# K1's widths on the card: the slices' 6, 9 and 15; the horizons' 3 and 24
+# (warp team) and 36 (block team).
+K1_M = [3, 6, 9, 15, 24, 36]
+# K2's: unrolled at 3, 6, 9, 15; the runtime-m kernel at 4, 24 and 36.
+K2_M = [3, 4, 6, 9, 15, 24, 36]
+
+
 @pytest.mark.parametrize("iters", [6, 60])
 @pytest.mark.parametrize("B", [1, 131, 4096])
-@pytest.mark.parametrize("m", [6, 9, 15])
+@pytest.mark.parametrize("m", K1_M)
 def test_qp_admm_kernel_matches_plain(dev, m, B, iters):
     args = _qp_inputs(np.random.default_rng(m * B + iters), B, m, dev)
     kw = dict(iters=iters, rho=1.0, sigma=1e-6)
@@ -81,7 +89,7 @@ def test_qp_admm_kernel_matches_plain(dev, m, B, iters):
         torch.testing.assert_close(gt, w, rtol=RTOL, atol=ATOL)
 
 
-@pytest.mark.parametrize("m", [6, 9, 15])
+@pytest.mark.parametrize("m", K1_M)
 def test_qp_admm_lane_does_not_depend_on_its_batch(dev, m):
     """A lane's result is the same whatever lanes share its warp and block:
     the whole batch, its first 131 lanes, and the batch shifted by one lane
@@ -97,7 +105,7 @@ def test_qp_admm_lane_does_not_depend_on_its_batch(dev, m):
         assert torch.equal(f[1:], s)
 
 
-@pytest.mark.parametrize("m", [6, 9, 15])
+@pytest.mark.parametrize("m", K1_M)
 def test_qp_admm_is_one_launch(dev, m):
     """One qp_admm call on the card is one CUDA launch: the operands and
     outputs are batch-major, so the wrapper copies nothing."""
@@ -108,7 +116,7 @@ def test_qp_admm_is_one_launch(dev, m):
 
 
 @pytest.mark.parametrize("B", [1, 131, 4096, 65536])
-@pytest.mark.parametrize("m", [6, 9, 15])
+@pytest.mark.parametrize("m", K2_M)
 def test_chol_inverse_kernel_matches_plain(dev, m, B):
     M = torch.as_tensor(_spd(np.random.default_rng(m + B), B, m), device=dev)
     before = sqp.chol_inverse.launches
@@ -133,7 +141,7 @@ def test_chol_inverse_ill_conditioned_matches_plain(dev):
                                atol=0.0)
 
 
-@pytest.mark.parametrize("m", [6, 9, 15])
+@pytest.mark.parametrize("m", K2_M)
 def test_chol_inverse_is_one_launch(dev, m):
     """One chol_inverse call on the card is one CUDA launch: the kernel
     reads and writes (B, m, m) itself, so the wrapper copies nothing."""
@@ -142,7 +150,7 @@ def test_chol_inverse_is_one_launch(dev, m):
     assert n == {"launches": 1, "kernels": 1}
 
 
-@pytest.mark.parametrize("m", [6, 9, 15])
+@pytest.mark.parametrize("m", K2_M)
 def test_chol_inverse_lane_does_not_depend_on_its_block(dev, m):
     """A lane's inverse is bit-identical whatever lanes share its block and
     however many warps share the block's columns: the whole batch, its
@@ -168,14 +176,25 @@ def test_chol_inverse_lane_does_not_depend_on_its_block(dev, m):
 
 
 def test_wrappers_raise_on_what_the_kernels_do_not_take(dev):
+    """Wrong types, layouts and shapes raise; every width up to a kernel's
+    cap is served (m = 12, refused before the kernels took every width,
+    equals its plain version), and the width above K2's cap raises, naming
+    it."""
+    from neo_mpc_planner2_tpu_torch.kernels import binding
+
     rng = np.random.default_rng(0)
     M = torch.as_tensor(_spd(rng, 8, 9), device=dev)
     with pytest.raises(TypeError):
         sqp.chol_inverse(M.double())
     with pytest.raises(ValueError):
         sqp.chol_inverse(M.transpose(0, 1))        # not contiguous
-    with pytest.raises(ValueError):
-        sqp.chol_inverse(torch.as_tensor(_spd(rng, 4, 12), device=dev))
+    M12 = torch.as_tensor(_spd(rng, 4, 12), device=dev)
+    torch.testing.assert_close(sqp.chol_inverse(M12),
+                               sqp.chol_inverse_plain(M12), rtol=RTOL,
+                               atol=ATOL)
+    big = binding.K2_MAX_M + 1
+    with pytest.raises(ValueError, match=f"1..{binding.K2_MAX_M}"):
+        sqp.chol_inverse(torch.eye(big, device=dev)[None].contiguous())
     with pytest.raises(ValueError):                        # 2-D
         sqp.chol_inverse(M[0])
     with pytest.raises(ValueError):                        # not square
@@ -187,6 +206,27 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(dev):
         sqp.qp_admm(*args[:-1], args[-1][:4], iters=6)     # wrong shape
     with pytest.raises(ValueError):                        # lane-minor
         sqp.qp_admm(*(a.t().contiguous() for a in args), iters=6)
+
+
+def test_kernels_at_their_caps_match_plain(dev):
+    """K1 at its cap (m = 237, control_steps 79: 227,520 bytes of shared
+    memory a block) and K2 at its own (m = 240), each against its plain
+    version, B = 3; K1 one width above its cap raises, naming the cap."""
+    from neo_mpc_planner2_tpu_torch.kernels import binding
+
+    m = binding.K1_MAX_M
+    args = _qp_inputs(np.random.default_rng(m), 3, m, dev)
+    kw = dict(iters=60, rho=1.0, sigma=1e-6)
+    for gt, w in zip(sqp.qp_admm(*args, **kw), _plain(args, m, **kw)):
+        torch.testing.assert_close(gt, w, rtol=RTOL, atol=ATOL)
+    big = _qp_inputs(np.random.default_rng(0), 1, m + 3, dev)
+    with pytest.raises(ValueError, match=f"cap m={m}"):
+        sqp.qp_admm(*big, iters=6)
+    m = binding.K2_MAX_M
+    M = torch.as_tensor(_spd(np.random.default_rng(m), 3, m), device=dev)
+    torch.testing.assert_close(sqp.chol_inverse(M),
+                               sqp.chol_inverse_plain(M), rtol=RTOL,
+                               atol=ATOL)
 
 
 def test_controller_step_on_the_card_matches_the_cpu(dev):

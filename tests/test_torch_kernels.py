@@ -97,7 +97,7 @@ def _pallas_qp(m, iters):
 
 
 @pytest.mark.parametrize("iters", [6, 60])
-@pytest.mark.parametrize("m", [9, 15])
+@pytest.mark.parametrize("m", [3, 9, 15])
 @pytest.mark.parametrize("B", [8, LANES])
 @pytest.mark.filterwarnings("ignore")
 def test_qp_admm_plain_matches_jax(B, m, iters):
@@ -116,7 +116,7 @@ def test_qp_admm_plain_matches_jax(B, m, iters):
                                        atol=ATOL)
 
 
-@pytest.mark.parametrize("m", [6, 9, 15])
+@pytest.mark.parametrize("m", [3, 4, 6, 9, 15, 24, 36])
 def test_chol_inverse_plain_matches_jax_and_numpy(m):
     rng = np.random.default_rng(m)
     M = _spd(rng, 131, m)
@@ -127,6 +127,58 @@ def test_chol_inverse_plain_matches_jax_and_numpy(m):
     np.testing.assert_allclose(got, np.linalg.inv(M), rtol=RTOL, atol=ATOL)
     # Exactly symmetric: the lower triangle is mirrored.
     np.testing.assert_array_equal(got, np.swapaxes(got, -1, -2))
+
+
+def _chol_inverse_loop(M):
+    """The JAX package's _chol_inverse_unrolled element by element over
+    (B,) tensors, each sum a list through the same pairwise order: the
+    loop that sqp.chol_inverse_plain computes a column or row at a time."""
+    def tree_sum(terms):
+        while len(terms) > 1:
+            nxt = [terms[i] + terms[i + 1]
+                   for i in range(0, len(terms) - 1, 2)]
+            terms = nxt + ([terms[-1]] if len(terms) % 2 else [])
+        return terms[0]
+
+    m = M.shape[-1]
+    L = [[None] * m for _ in range(m)]
+    D = [None] * m
+    for j in range(m):
+        prods = [L[j][k] * L[j][k] for k in range(j)]
+        s = M[:, j, j] - tree_sum(prods) if prods else M[:, j, j]
+        s = torch.maximum(s, s.new_tensor(1e-20))
+        D[j] = torch.rsqrt(s)
+        for i in range(j + 1, m):
+            prods = [L[i][k] * L[j][k] for k in range(j)]
+            si = M[:, i, j] - tree_sum(prods) if prods else M[:, i, j]
+            L[i][j] = si * D[j]
+    Y = [[None] * (i + 1) for i in range(m)]
+    for i in range(m):
+        Y[i][i] = D[i]
+        for c in range(i):
+            Y[i][c] = -tree_sum([L[i][k] * Y[k][c]
+                                 for k in range(c, i)]) * D[i]
+    X = [[None] * m for _ in range(m)]
+    for i in reversed(range(m)):
+        for c in range(i + 1):
+            prods = [L[k][i] * X[k][c] for k in range(i + 1, m)]
+            acc = Y[i][c] - tree_sum(prods) if prods else Y[i][c]
+            X[i][c] = X[c][i] = acc * D[i]
+    return torch.stack([torch.stack(row, -1) for row in X], -2)
+
+
+@pytest.mark.parametrize("m", [1, 2, 3, 4, 7, 9, 16, 24])
+def test_chol_inverse_plain_equals_the_element_loop(m):
+    """sqp.chol_inverse_plain does the element loop's arithmetic a column
+    or row at a time (the forward substitution's ragged sums padded with
+    zeros at their tail): bit-equal to it, on random SPD matrices and on a
+    sparse one whose products are exact zeros."""
+    rng = np.random.default_rng(100 + m)
+    sparse = np.eye(m, dtype=np.float32)[None].repeat(3, 0) * 2.0
+    if m > 1:
+        sparse[:, 0, 1] = sparse[:, 1, 0] = 0.3
+    for M in (T(_spd(rng, 7, m)), T(sparse)):
+        assert torch.equal(tsqp.chol_inverse_plain(M), _chol_inverse_loop(M))
 
 
 def test_cpu_dispatch_takes_the_plain_versions():
@@ -410,14 +462,27 @@ def test_chip_smoke_last_lines_name_the_card(monkeypatch, capsys):
                         {"built": False, "seconds": 0.0, "log": ""})
     one = dict(max_abs_err=0.0, ms=0.01, plain_ms=1.0, bound_ms=0.002,
                bound_by="bytes")
+    variant = lambda m: {"m": m, "ms": 0.01, "plain_ms": 1.0,
+                         "bound_ms": 0.002, "bound_by": "operations",
+                         "library_ms": None}
+    monkeypatch.setattr(chip_smoke, "phase_launch_counts", lambda d: {})
+    # The kernel phases run in child processes on the card; here in line.
+    monkeypatch.setattr(chip_smoke, "isolated",
+                        lambda name: getattr(chip_smoke, name)(None))
     monkeypatch.setattr(chip_smoke, "phase_kernels", lambda d: {
         "qp_admm_max_abs_err": 0.0, "qp_admm_m9_ms": 0.01,
         "qp_admm_plain_m9_ms": 1.0, "qp_admm_m9_bound_ms": 0.002,
-        "qp_admm_m9_bound_by": "operations"})
+        "qp_admm_m9_bound_by": "operations",
+        "variants": [variant(9), variant(36), variant(237)]})
     monkeypatch.setattr(chip_smoke, "phase_k2", lambda d: {
         "spd_inv_max_abs_err": 0.0, "spd_inv_m9_ms": 0.01,
         "spd_inv_plain_m9_ms": 1.0, "spd_inv_m9_bound_ms": 0.002,
-        "spd_inv_m9_bound_by": "bytes", "spd_inv_library_m9_ms": 0.05})
+        "spd_inv_m9_bound_by": "bytes", "spd_inv_library_m9_ms": 0.05,
+        "variants": [variant(4)]})
+    horizons = {f"horizon_{s}": {
+        "launches": {k["name"]: 20 for k in chip_smoke.KERNELS},
+        "ticks": 20, "control_steps": s} for s, _ in chip_smoke.HORIZONS}
+    monkeypatch.setattr(chip_smoke, "phase_horizons", lambda d, smi: horizons)
     monkeypatch.setattr(chip_smoke, "phase_k3",
                         lambda d: {"footprint_cost_max_abs_err": 0.0})
     monkeypatch.setattr(chip_smoke, "phase_k3_walk", lambda d: {})
@@ -458,11 +523,29 @@ def test_chip_smoke_last_lines_name_the_card(monkeypatch, capsys):
     # The launches of the timed runs: the slices, the SQP schedules' arms,
     # the sharded engine and the controller routes.
     arms = len(chip_smoke.COMPACT_ARMS) + len(chip_smoke.WAVE_ARMS)
+    at_m9 = 40 * len(chip_smoke.SLICES) + 20 * arms + 5 + 60
     assert [k["launches"] for k in kernels] == [
-        40 * len(chip_smoke.SLICES) + 20 * arms + 5 + 60] * len(kernels)
+        at_m9 + 20 * len(horizons)] * len(kernels)
     assert kernels[0]["launches_per_tick"]["controller_native"] == 1.0
     assert kernels[0]["launches_per_tick"]["compact_adaptive"] == 0.5
     assert kernels[0]["launches_per_tick"]["sharded"] == 1.0
+    assert kernels[0]["launches_per_tick"]["horizon_12"] == 1.0
+    # Each timed width gets the launches of the runs at that width.
+    assert [(v["m"], v["launches"]) for v in kernels[0]["variants"]] == [
+        (9, at_m9), (36, 20), (237, 0)]
+    assert [(v["m"], v["launches"]) for v in kernels[1]["variants"]] == [
+        (4, 0)]
+
+
+def test_chip_smoke_isolated_phases_need_a_card():
+    """The child side of chip_smoke.isolated runs only the kernel phases,
+    and only on a card: without one, or for any other name, it exits 2."""
+    sys.path.insert(0, str(ROOT))
+    import chip_smoke
+
+    assert chip_smoke.ISOLATED == ("phase_kernels", "phase_k2")
+    for name in chip_smoke.ISOLATED + ("phase_serving",):
+        assert chip_smoke.run_isolated(name) == 2
 
 
 # --- the C interface, read against the sources -----------------------------
@@ -516,10 +599,13 @@ def stub_library(monkeypatch):
     return lib
 
 
-def test_launch_qp_admm_packs_operands_in_c_order(stub_library):
+@pytest.mark.parametrize("m", [9, 36])
+def test_launch_qp_admm_packs_operands_in_c_order(stub_library, m):
     """binding.launch_qp_admm hands the batch-major operands, then the
-    outputs it allocates, in the order of neo_qp_admm_f32's parameters."""
-    m, B = 9, 5
+    outputs it allocates, in the order of neo_qp_admm_f32's parameters, at
+    a width of each design (the warp team at m = 9, the block team at
+    36)."""
+    B = 5
     rows = binding.qp_rows(m)
     ins = [torch.zeros(B, rows[n]) for n in binding.QP_INPUTS]
     outs = binding.launch_qp_admm(ins, m, iters=7, rho=1.5, sigma=0.25)
@@ -537,17 +623,19 @@ def test_launch_qp_admm_packs_operands_in_c_order(stub_library):
         assert t.shape == (B, rows[n]) and t.dtype == torch.float32
 
 
-def test_launch_spd_inv_packs_operands_in_c_order(stub_library):
+@pytest.mark.parametrize("m", [9, 4])
+def test_launch_spd_inv_packs_operands_in_c_order(stub_library, m):
     """binding.launch_spd_inv hands m, B, the warps a block, the batch-major
-    (B, m, m) operand and the output it allocates."""
-    M = torch.zeros(5, 9, 9)
+    (B, m, m) operand and the output it allocates, at a width of each
+    design (unrolled at m = 9, runtime-m at 4)."""
+    M = torch.zeros(5, m, m)
     X = binding.launch_spd_inv(M)
     (name, args), = stub_library.calls
     assert name == "neo_spd_inv_f32"
     assert len(args) == len(_c_signature(name))
-    assert args[:3] == (9, 5, 4)
+    assert args[:3] == (m, 5, 4)
     assert args[3:] == (M.data_ptr(), X.data_ptr(), 1234)
-    assert X.shape == (5, 9, 9) and X.dtype == torch.float32
+    assert X.shape == (5, m, m) and X.dtype == torch.float32
     binding.launch_spd_inv(torch.zeros(65536, 6, 6))
     assert stub_library.calls[-1][1][:3] == (6, 65536, 1)
 
