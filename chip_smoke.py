@@ -54,7 +54,12 @@ K3 is also held to its plain version, and timed, on the arguments of its
 own calls in the product slice (a gate at R = 1, a gradient call at R = 3
 and a wave at R = 21), in the rolling slice (R = 1 through the view, with
 the window's cell shift) and in the exact slice (the walk), captured
-during the slices' warm-up runs.
+during the slices' warm-up runs; past its earlier caps (20 and 40
+vertices, 12, 68, 100 and 101 samples an edge, 1000 and 2000 polygons a
+lane: each launch plan of `kernels.binding.k3_variant`, and the walk past
+32 vertices); and end to end, a server session with an MPO-500 on a
+0.015 m map (69 samples an edge) and the controller with a 20-vertex
+footprint, each against the CPU.
 Every phase prints a line; any failure exits non-zero. The `kernels` line
 lists every kernel with its launches, its time beside its bound
 (`kernels/bounds.py`) and, where one PyTorch call computes the same
@@ -112,12 +117,13 @@ SLICE_TICKS = 20
 # captured there) and, per slice, the ticks that the launch count
 # profiles, as (first tick, ticks). Reading the profiler's records takes
 # longer than the ticks they record (a fleet tick makes ~10^4 launches,
-# a prox tick ~3·10^4), so the SQP slices profile their first 5 ticks
-# and the prox slice 2 ticks from the middle of a run.
+# a prox tick ~3·10^4), so the SQP slices profile their first tick and
+# the prox slice one tick from the middle of a run (5 and 2 ticks until
+# the whole run passed 600 s).
 WARM_TICKS = 2
-LAUNCH_TICKS = {"fleet": (0, 5), "product": (0, 5),
-                "prox": (SLICE_TICKS // 2, 2), "rolling": (0, 5),
-                "dynamic": (0, 5), "updates": (0, 5), "exact": (0, 5)}
+LAUNCH_TICKS = {"fleet": (0, 1), "product": (0, 1),
+                "prox": (SLICE_TICKS // 2, 1), "rolling": (0, 1),
+                "dynamic": (0, 1), "updates": (0, 1), "exact": (0, 1)}
 
 
 def _nvidia_smi() -> str:
@@ -666,6 +672,66 @@ def _walk_inputs(rng, B: int, R: int, device):
             torch.as_tensor(nvv.reshape(B, R), device=device))
 
 
+def _widen(rng, verts, nv, V: int):
+    """_k3_inputs' or _walk_inputs' (B, R, 8, 2) polygons and counts in V
+    vertex slots (garbage in the new ones), every third polygon replaced
+    by a regular polygon of V // 2 + 1 to V vertices (a radius footprint,
+    as nav2's 16-gon) of radius 0.25-0.6 m at a random place and turn, a
+    fifth of them off the map."""
+    import numpy as np
+    import torch
+
+    B, R = nv.shape
+    v = np.ascontiguousarray(verts.cpu().numpy().reshape(B * R, 8, 2))
+    n = nv.cpu().numpy().reshape(-1).copy()
+    wide = rng.uniform(50, 90, (B * R, V, 2)).astype(np.float32)
+    wide[:, :8] = v
+    gon = np.flatnonzero(np.arange(B * R) % 3 == 2)
+    k = rng.integers(V // 2 + 1, V + 1, gon.size)
+    centre = rng.uniform(-1.2, 1.2, (gon.size, 2))
+    centre[rng.random(gon.size) < 0.2] += 4.0
+    radius = rng.uniform(0.25, 0.6, gon.size)
+    turn = rng.uniform(-np.pi, np.pi, gon.size)
+    for i, q in enumerate(gon):
+        a = turn[i] + 2 * np.pi * np.arange(k[i]) / k[i]
+        wide[q, :k[i]] = centre[i] + radius[i] * np.stack(
+            [np.cos(a), np.sin(a)], -1)
+    n[gon] = k
+    dev = verts.device
+    return (torch.as_tensor(wide.reshape(B, R, V, 2), device=dev),
+            torch.as_tensor(n.reshape(B, R), dtype=torch.int32, device=dev))
+
+
+# K3's shapes past the earlier caps of 16 vertices and 64 samples an edge,
+# as (B, R, V, S): radius footprints (V = 20, 40), an MPO-500's samples on
+# a 0.015 m map (68) and a 0.01 m map (101), S = 12 and 100, and more
+# polygons a lane than a block of the measured shape stages: R = 1000
+# (binding.k3_variant's "lane" plan) and 2000 (its "split" plan).
+K3_WIDE_CASES = ((131, 1, 20, 32), (131, 21, 20, 32), (4096, 1, 8, 68),
+                 (131, 5, 8, 101), (131, 21, 8, 100), (131, 1, 40, 12),
+                 (131, 3, 40, 12), (64, 1000, 8, 16), (64, 2000, 8, 16),
+                 (16, 1200, 40, 12))
+# Where the new plans are timed: (B, R, V, S) on the whole grid; and
+# where the general-S instance is timed beside the S = 64 instance on the
+# same polygons.
+K3_TIMED_PLANS = {"lane": (256, 1000, 8, 16), "split": (256, 2000, 8, 16)}
+K3_TIMED_GENERAL_S = (4096, 1, 8, 68)
+# K3's walk past 32 vertices (and at 20): (B, R, V); timed at V = 40.
+K3_WALK_WIDE_CASES = ((131, 1, 20), (131, 21, 20), (131, 1, 40),
+                      (131, 21, 40), (4096, 1, 40))
+K3_WALK_TIMED = (4096, 1, 40)
+
+
+def _k3_timed(call, plain, work, kernel: str) -> dict:
+    """A K3 call's device ms, plain ms, bound and share."""
+    ms = _device_ms(call, kernel)
+    return {"ms": ms, "plain_ms": _time_ms(plain), "bound_ms":
+            work["bound_ms"], "bound_by": work["bound_by"],
+            "share_of_bound": work["bound_ms"] / ms,
+            **{k: work[k] for k in ("samples", "steps", "edges", "cells")
+               if k in work}}
+
+
 def phase_k3_walk(device):
     """K3's walk mode against the plain walk: exact (torch.equal), at
     every shape and polygon kind of _walk_inputs, on the whole grid and
@@ -716,9 +782,42 @@ def phase_k3_walk(device):
                     "bound_by": work["bound_by"],
                     "share_of_bound": work["bound_ms"] / ms,
                     "steps": work["steps"], "cells": work["cells"]}
+    # Past 32 vertices a thread walks every 32nd edge of its polygon.
+    plans = collections.Counter(fpm.footprint_walk_batch.plans)
+    for B, R, V in K3_WALK_WIDE_CASES:
+        data, origin, res, verts, nv = _walk_inputs(rng, B, R, device)
+        verts, nv = _widen(rng, verts, nv, V)
+        cm = cmap.Costmap(data=data, origin=origin, resolution=res)
+        view = cm.replace(win_lo=torch.as_tensor(
+            rng.integers(0, 25, (B, 2)), dtype=torch.int32, device=device),
+            win_cells=40)
+        v_origin, v_bounds, v_shift = fpm.kernel_map_arguments(view)
+        for kind, (o, bnd, shift) in {
+                "grid": (origin, None, None),
+                "view": (v_origin.contiguous(), v_bounds.contiguous(),
+                         v_shift.contiguous())}.items():
+            args = (data, o, res, bnd, verts, nv, shift)
+            got = fpm.footprint_walk_batch(*args)
+            want = fpm.footprint_walk_batch_plain(*args)
+            torch.cuda.synchronize()
+            if not torch.equal(got, want):
+                raise AssertionError(
+                    f"K3 walk B={B} R={R} V={V} {kind}: differs from the "
+                    f"plain walk by {float((got - want).abs().max())}")
+            cases += 1
+        if (B, R, V) == K3_WALK_TIMED:
+            args = (data, origin, res, None, verts, nv)
+            report["walk_V40"] = {"shape": list(verts.shape), **_k3_timed(
+                lambda: fpm.footprint_walk_batch(*args),
+                lambda: fpm.footprint_walk_batch_plain(*args),
+                bounds.footprint_walk_work(*args), "footprint_walk_kernel")}
+    calls = collections.Counter(fpm.footprint_walk_batch.plans)
+    calls.subtract(plans)
+    report["plans"] = {k: n for k, n in calls.items() if n}
     print(json.dumps({"phase": "K3 walk mode vs plain walk",
                       "tolerance": "exact (torch.equal)", "cases": cases,
-                      "timed_at": "B=4096 R=1 full grid, synthetic",
+                      "timed_at": "B=4096 R=1 full grid, synthetic; "
+                      "walk_V40: B=4096 R=1 V=40",
                       "timing": TIMING, **report}), flush=True)
     return report
 
@@ -772,10 +871,69 @@ def phase_k3(device):
                     report["footprint_cost_synthetic_ms"] = _device_ms(
                         lambda: fpm.footprint_cost_batch(*args),
                         "footprint_cost_kernel")
+    # Past the earlier caps: every (B, R, V, S) of K3_WIDE_CASES on the
+    # whole grid, patch bounds and a view, each at the plan k3_variant
+    # gives it; the one-lane and split plans timed.
+    from neo_mpc_planner2_tpu_torch.kernels import binding, bounds as kb
+
+    plans = collections.Counter(fpm.footprint_cost_batch.plans)
+    for B, R, V, S in K3_WIDE_CASES + tuple(K3_TIMED_PLANS.values()):
+        data, origin, res, verts, nv = _k3_inputs(rng, B, R, device)
+        verts, nv = _widen(rng, verts, nv, V)
+        cm = cmap.Costmap(data=data, origin=origin, resolution=res)
+        cx = torch.as_tensor(rng.uniform(-2.0, 2.0, B), dtype=torch.float32,
+                             device=device)
+        patch = cmap.product_patch_bounds(cm, cx, cx.flip(0), 28)
+        view = cm.replace(win_lo=torch.as_tensor(
+            rng.integers(0, 25, (B, 2)), dtype=torch.int32, device=device),
+            win_cells=40)
+        v_origin, v_bounds, v_shift = fpm.kernel_map_arguments(view)
+        t = fpm.edge_parameters(S, device)
+        plan = binding.k3_variant(R, V, S)[0]
+        for kind, (o, bnd, shift) in {
+                "grid": (origin, None, None), "patch": (origin, patch, None),
+                "view": (v_origin.contiguous(), v_bounds.contiguous(),
+                         v_shift.contiguous())}.items():
+            args = (data, o, res, bnd, verts, nv, t, shift)
+            got = fpm.footprint_cost_batch(*args)
+            want = fpm.footprint_cost_batch_plain(*args)
+            torch.cuda.synchronize()
+            if not torch.equal(got, want):
+                raise AssertionError(
+                    f"K3 B={B} R={R} V={V} S={S} ({plan} plan) {kind}: "
+                    "differs from its plain version by "
+                    f"{float((got - want).abs().max())}")
+            cases += 1
+        if (B, R, V, S) == K3_TIMED_GENERAL_S:
+            for n in (S, 64):
+                tn = fpm.edge_parameters(n, device)
+                args = (data, origin, res, None, verts, nv, tn)
+                report[f"general_S{n}" if n == S else "unrolled_S64"] = {
+                    "shape": [B, R, V, n], **_k3_timed(
+                        lambda: fpm.footprint_cost_batch(*args),
+                        lambda: fpm.footprint_cost_batch_plain(*args),
+                        kb.footprint_cost_work(*args),
+                        "footprint_cost_kernel")}
+        for name, shape in K3_TIMED_PLANS.items():
+            if (B, R, V, S) == shape:
+                if plan != name:
+                    raise AssertionError(f"K3 {shape}: plan {plan}, not "
+                                         f"{name}")
+                args = (data, origin, res, None, verts, nv, t)
+                report[f"plan_{name}"] = {"shape": list(shape), **_k3_timed(
+                    lambda: fpm.footprint_cost_batch(*args),
+                    lambda: fpm.footprint_cost_batch_plain(*args),
+                    kb.footprint_cost_work(*args), "footprint_cost_kernel")}
+        del data, verts, want, got
+    calls = collections.Counter(fpm.footprint_cost_batch.plans)
+    calls.subtract(plans)
+    report["plans"] = {k: n for k, n in calls.items() if n}
     report["footprint_cost_max_abs_err"] = worst
     print(json.dumps({"phase": "K3 footprint_cost vs plain",
                       "tolerance": "exact (torch.equal)", "cases": cases,
-                      "timed_at": "B=4096 R=21 S=16 full grid, synthetic",
+                      "timed_at": "B=4096 R=21 S=16 full grid, synthetic; "
+                      "plan_*: at their shapes, full grid",
+                      "wide_cases": [list(c) for c in K3_WIDE_CASES],
                       "timing": TIMING, **report}),
           flush=True)
     return report
@@ -952,12 +1110,20 @@ def _wrappers():
 
 
 def _launch_counts():
-    return {name: fn.launches for name, fn in _wrappers().items()}
+    """Each wrapper's launches by its name, and K3's by launch plan as
+    "footprint_cost:<plan>" / "footprint_walk:<plan>"."""
+    counts = {name: fn.launches for name, fn in _wrappers().items()}
+    for name, fn in _wrappers().items():
+        counts.update({f"{name}:{plan}": n
+                       for plan, n in getattr(fn, "plans", {}).items()})
+    return counts
 
 
 def _reset_launch_counts():
     for fn in _wrappers().values():
         fn.launches = 0
+        if hasattr(fn, "plans"):
+            fn.plans.clear()
 
 
 def prox_solver(cfg):
@@ -1025,7 +1191,7 @@ def slice_inputs(name: str, batch: int, device, seed: int | None = None):
     sb = make_scenario_batch(cfg, batch,
                              seed=live["seed"] if seed is None else seed,
                              map_size=live["map_size"], plan_points=64,
-                             device=device)
+                             maps_on_device=True, device=device)
     if name == "rolling":
         run.update(window_cells=live["window_cells"])
     elif name == "dynamic":
@@ -1215,7 +1381,7 @@ WAVE_ARMS = {
     f"wave_K{k}": (lambda k=k: fleet_cfg().replace(
         solver_ls_quad_interp=False, solver_ls_wave=k))
     for k in (1, 2, 4)}
-ARM_PROFILE = (2, 2)
+ARM_PROFILE = (2, 1)
 
 
 class TripCounter:
@@ -1400,7 +1566,7 @@ def phase_arm_launches(device, arms: dict, batch: int = 4096) -> dict:
 HORIZONS = ((1, 0.3), (5, 1.0), (8, 1.6), (12, 2.4))
 HORIZON_PRODUCT = (5, 1.0)
 HORIZON_CPU_LANES = 64
-HORIZON_PROFILE_TICKS = 2
+HORIZON_PROFILE_TICKS = 1
 
 
 def horizon_cfg(steps: int, horizon: float):
@@ -1439,7 +1605,8 @@ def _horizon_loop(device, smi: str, cfg, name: str, parity: bool,
     from neo_mpc_planner2_tpu_torch.simulation import batch_simulate
 
     sb = make_scenario_batch(cfg, batch, seed=0, map_size=64,
-                             plan_points=64, device=device)
+                             plan_points=64, maps_on_device=True,
+                             device=device)
     with recorder:
         batch_simulate(cfg, sb, WARM_TICKS, parity=parity)
     torch.cuda.synchronize()
@@ -2038,7 +2205,8 @@ def serving_traffic(robots: int, seed: int = 0) -> dict:
     from neo_mpc_planner2_tpu_torch.scenarios import make_scenario_batch
 
     sb = make_scenario_batch(fleet_cfg(), robots, seed=seed, map_size=64,
-                             plan_points=64, device="cpu")
+                             plan_points=64, maps_on_device=True,
+                             device="cpu")
     pose = sb.robot_pose.numpy().astype(float)
     vel = sb.current_vel.numpy().astype(float)
     plans = sb.plan.poses.numpy().astype(float)
@@ -2509,6 +2677,141 @@ def trace_ticks(ctrl, pose, vel, ticks: int, logdir: str) -> dict:
             "empty_trace_counts": empty}
 
 
+# The wide-footprint phase: closed-loop ticks a run and traced ticks.
+WIDE_TICKS = 10
+WIDE_TRACED_TICKS = 2
+
+
+def _mpo500_server_scene() -> dict:
+    """An MPO-500 (0.99 x 0.67 m) robot on a 0.015 m map, 200 x 200 cells
+    (3 m), from the scenario generator at the fleet point: the map,
+    footprint and plan requests, its pose and velocity."""
+    from neo_mpc_planner2_tpu_torch.scenarios import (
+        make_scenario_batch, mpo500_footprint)
+
+    sb = make_scenario_batch(fleet_cfg(), 1, seed=3, map_size=200,
+                             resolution=0.015, plan_points=64,
+                             plan_length_range=(0.6, 1.0),
+                             footprint=mpo500_footprint(device="cpu"),
+                             device="cpu")
+    nv = int(sb.footprint.n_valid[0])
+    return {"costmap": {"op": "set_costmap",
+                        "data": sb.costmap.data[0].numpy().tolist(),
+                        "origin": sb.costmap.origin[0].tolist(),
+                        "resolution": 0.015},
+            "footprint": {"op": "set_footprint",
+                          "points": sb.footprint.vertices[0, :nv].tolist()},
+            "plan": {"op": "set_plan",
+                     "poses": sb.plan.poses[0].numpy().tolist()},
+            "pose": sb.robot_pose[0].numpy().astype(float),
+            "vel": sb.current_vel[0].numpy().astype(float)}
+
+
+def phase_wide_footprints(device, smi: str) -> dict:
+    """K3 past its earlier caps, end to end: (1) a server session on the
+    card with an MPO-500 on a 0.015 m map, where the session raises
+    footprint_edge_samples to ceil(0.99 / 0.015) + 2 (69 from the float32
+    footprint) after `configure`, `set_costmap` and `set_footprint`:
+    WIDE_TICKS `tick`
+    requests, the robot integrating the card's commands, each answered
+    within 1e-3 by a CPU session given the same request, with K3's
+    launches a tick by launch plan; (2) the fused controller with a
+    20-vertex footprint (a radius footprint, max_footprint_vertices 20):
+    WIDE_TICKS ticks against a CPU controller fed the same poses, within
+    1e-3, then WIDE_TRACED_TICKS traced ticks. Returns the two runs'
+    launches for the `kernels` line."""
+    import os
+    import tempfile
+
+    import numpy as np
+
+    from neo_mpc_planner2_tpu_torch import Costmap, Footprint
+    from neo_mpc_planner2_tpu_torch.controller import NeoMpcController
+    from neo_mpc_planner2_tpu_torch.serving import OptimizerSession
+    from neo_mpc_planner2_tpu_torch.utils.se2_np import integrate_cmd_np
+
+    scene = _mpo500_server_scene()
+    setup = [{"op": "configure", "params": _fleet_params()},
+             scene["costmap"], scene["footprint"], scene["plan"]]
+    card, cpu = OptimizerSession(device=device), OptimizerSession(
+        device="cpu")
+    for msg in setup:
+        _call(card, msg)
+        _call(cpu, msg)
+    # 69 samples: the staged float32 edge, 0.99000001 m, over 0.015 m
+    # rounds up past 66.
+    samples = card.cfg.footprint_edge_samples
+    if samples <= 64 or cpu.cfg.footprint_edge_samples != samples:
+        raise AssertionError(f"MPO-500 at 0.015 m: {samples} samples an "
+                             "edge, not past K3's earlier cap of 64")
+    pose, vel = scene["pose"], scene["vel"]
+    diffs, walls = [], []
+    _reset_launch_counts()
+    for _ in range(WIDE_TICKS):
+        msg = {"op": "tick", "pose": pose.tolist(), "vel": vel.tolist(),
+               "delta_t": 1 / 30}
+        t0 = time.perf_counter()
+        got = _call(card, msg)
+        walls.append(1e3 * (time.perf_counter() - t0))
+        want = _call(cpu, msg)
+        diffs.append(float(np.abs(np.subtract(got["output_vel"],
+                                              want["output_vel"])).max()))
+        cmd = np.asarray(got["output_vel"], float)
+        pose, vel = integrate_cmd_np(pose, cmd, 1 / 30), cmd
+    server_launches = _launch_counts()
+    server = {"footprint": "MPO-500", "map": [200, 200],
+              "resolution": 0.015, "footprint_edge_samples": samples,
+              "ticks": WIDE_TICKS, "max_cmd_diff_vs_cpu": max(diffs),
+              "tick_ms_p50": statistics.median(walls[1:]),
+              "launches": server_launches,
+              "k3_launches_per_tick": {
+                  k: v / WIDE_TICKS for k, v in server_launches.items()
+                  if k.startswith("footprint_cost")}}
+    if max(diffs) > 1e-3:
+        raise AssertionError(f"MPO-500 server tick: card vs CPU {diffs}")
+    if server_launches["footprint_cost"] <= 0:
+        raise AssertionError("MPO-500 server tick: K3 never launched")
+
+    base = controller_scene()
+    a = 2 * np.pi * np.arange(20) / 20
+    gon = 0.4 * np.stack([np.cos(a), np.sin(a)], -1)
+    cfg = fleet_cfg().replace(max_footprint_vertices=20)
+
+    def ctrl(dev):
+        c = NeoMpcController(device=dev)
+        c.configure(cfg, costmap=Costmap.create(
+            base["grid"], base["origin"], base["res"], device=dev),
+            footprint=Footprint.create(gon, max_vertices=20, device=dev))
+        c.activate()
+        c.set_plan(base["plan"])
+        return c
+
+    on_card, on_cpu = ctrl(device), ctrl("cpu")
+    _reset_launch_counts()
+    cmds, shadow, pose, vel = drive(on_card, base["pose"], base["vel"],
+                                    WIDE_TICKS, shadow=on_cpu)
+    ctrl_launches = _launch_counts()
+    diff = float(np.abs(cmds - shadow).max())
+    if diff > 1e-3:
+        raise AssertionError(f"20-vertex controller: card vs CPU {diff}")
+    if ctrl_launches["footprint_cost"] <= 0:
+        raise AssertionError("20-vertex controller: K3 never launched")
+    with tempfile.TemporaryDirectory() as logdir:
+        traced = trace_ticks(on_card, pose, vel, WIDE_TRACED_TICKS,
+                             os.path.join(logdir, "trace"))
+    controller = {"footprint": "20-gon, radius 0.4 m", "route": "fused",
+                  "ticks": WIDE_TICKS, "max_cmd_diff_vs_cpu": diff,
+                  "launches": ctrl_launches,
+                  "cuda_launches_per_tick": traced["cuda_launches_per_tick"],
+                  "device_busy_ms_per_tick":
+                      traced["device_busy_ms_per_tick"]}
+    print(json.dumps({"phase": "wide footprints: MPO-500 server tick "
+                      "past 64 samples an edge, 20-vertex controller tick",
+                      "server": server, "controller": controller,
+                      "card": smi}), flush=True)
+    return {"server_mpo500": server, "controller_20gon": controller}
+
+
 def phase_adapter_and_cli(device, smi: str) -> dict:
     """The ROS adapter's pure core and the console script on the card:
     `ros_adapter.costmap_refresh_op` stages a map and its dirty box into a
@@ -2753,14 +3056,21 @@ def kernels_line(slices: dict, measured: dict) -> list:
     ticks and, where not 3, control_steps); measured: name ->
     {max_abs_err, ms, plain_ms, bound_ms, bound_by, library_ms} at the
     slices' width and, optionally, "variants": the same numbers at each
-    timed width m, to which each gets the launches of the runs at m."""
+    timed width m, to which each gets the launches of the runs at m, or
+    at each launch plan (K3), to which each gets the launches its
+    `counter` (a key of the runs' launches) counted."""
     entries = []
     for k in KERNELS:
         got = measured[k["name"]]
         runs = {s: out["launches"][k["name"]] for s, out in slices.items()}
+        # K1's and K2's variants are widths m, launched by the runs at
+        # that control_steps; K3's are launch plans, counted by plan.
         variants = [{**v, "launches": sum(
             n for s, n in runs.items()
             if 3 * slices[s].get("control_steps", 3) == v["m"])}
+            if "m" in v else {**v, "launches": sum(
+                out["launches"].get(v["counter"], 0)
+                for out in slices.values())}
             for v in got.get("variants", [])]
         entries.append({
             "name": k["name"], "route": k["route"], "source": k["source"],
@@ -2775,6 +3085,31 @@ def kernels_line(slices: dict, measured: dict) -> list:
             "share_of_bound": got["bound_ms"] / got["ms"],
             "library_ms": got["library_ms"], "variants": variants})
     return entries
+
+
+def k3_variants(k3: dict, walk_report: dict, wave: dict,
+                walk: dict) -> list:
+    """The `kernels` line's K3 variants: each launch plan of
+    binding.k3_variant and k3_walk_variant that ran, its timing (the
+    measured plan on the product wave, the walk's first plan on the exact
+    slice's gate, the others at their timed shapes in the K3 phases), its
+    calls in those phases and the counter of its launches on the runs."""
+    timed = {"measured": wave, "lane": k3["plan_lane"],
+             "split": k3["plan_split"]}
+    walk_timed = {"edge_a_thread": walk,
+                  "edges_a_thread": walk_report["walk_V40"]}
+    keys = ("ms", "plain_ms", "bound_ms", "bound_by", "share_of_bound")
+    out = []
+    for mode, plans, calls in (
+            ("footprint_cost", timed, k3["plans"]),
+            ("footprint_walk", walk_timed, walk_report["plans"])):
+        for plan, t in plans.items():
+            out.append({"plan": plan, "mode": mode,
+                        "shape": t.get("shape"), "max_abs_err": 0.0,
+                        "library_ms": None, "calls_in_k3_phase":
+                        calls.get(plan, 0), "counter": f"{mode}:{plan}",
+                        **{k: t[k] for k in keys}})
+    return out
 
 
 def main() -> int:
@@ -2809,7 +3144,7 @@ def main() -> int:
     k1 = isolated("phase_kernels")
     k2 = isolated("phase_k2")
     k3 = phase_k3(device)
-    phase_k3_walk(device)
+    walk_report = phase_k3_walk(device)
     progress("kernel phases")
     slices = {}
     # K3's calls are captured in the product slice's warm-up (the gate, the
@@ -2826,8 +3161,9 @@ def main() -> int:
     wave = next(v for k, v in captured.items() if k.startswith("wave"))
     phase_k3_captured(recorders["rolling"], WARM_TICKS, "rolling",
                       required=("view",))
-    phase_k3_captured(recorders["exact"], WARM_TICKS, "exact",
-                      required=("walk",))
+    exact = phase_k3_captured(recorders["exact"], WARM_TICKS, "exact",
+                              required=("walk",))
+    walk = next(v for k, v in exact.items() if k.startswith("walk"))
     phase_map_refresh(device, smi)
     progress("captured K3 and map refresh")
     compact = phase_arms(device, smi, COMPACT_ARMS, "compaction")
@@ -2845,6 +3181,8 @@ def main() -> int:
     controller = phase_controller(device, smi)
     phase_adapter_and_cli(device, smi)
     progress("controller")
+    wide = phase_wide_footprints(device, smi)
+    progress("wide footprints")
     horizons = phase_horizons(device, smi)
     progress("horizons")
     phase_launches_per_tick(device, slices)
@@ -2869,12 +3207,15 @@ def main() -> int:
         "footprint_cost": dict(max_abs_err=k3["footprint_cost_max_abs_err"],
                                ms=wave["ms"], plain_ms=wave["plain_ms"],
                                bound_ms=wave["bound_ms"],
-                               bound_by=wave["bound_by"], library_ms=None),
+                               bound_by=wave["bound_by"], library_ms=None,
+                               variants=k3_variants(k3, walk_report, wave,
+                                                    walk)),
     }
     # The launches of the timed runs: the slices, the SQP schedules' arms,
-    # the sharded engine, the controller routes and the horizons' loops.
+    # the sharded engine, the controller routes, the wide footprints and
+    # the horizons' loops.
     runs = {**slices, **compact, **waves, "sharded": sharded, **controller,
-            **horizons}
+            **wide, **horizons}
     print(json.dumps({"kernels": kernels_line(runs, measured)}), flush=True)
     print(_nvidia_smi(), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -37,7 +37,6 @@ from .ops.footprint import Footprint, required_edge_samples
 from .ops.objective import Limits, Scenario, make_objective
 from .ops.pursuit import Plan
 from .sqp import make_sqp_solver
-from .tree import tree_map
 from .utils.viz import (carrot_msg, local_plan_msg, plan_msg,
                         predicted_footprint_msg)
 
@@ -258,8 +257,8 @@ class NeoMpcController:
             max_vel_y=base.max_vel_y * scale, min_vel_y=base.min_vel_y * scale,
         )
         # One lane, no batch dim: the engine adds the lane dim itself.
-        self._limits = tree_map(lambda t: t[0],
-                                Limits.from_config(self.cfg, 1, self.device))
+        self._limits = Limits.from_config(base, device=self.device).scaled(
+            scale)
 
     # ---- the tick (cpp:202-254) ----
     def compute_velocity_commands(self, pose, velocity,

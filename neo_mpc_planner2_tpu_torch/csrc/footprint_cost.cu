@@ -53,7 +53,16 @@
 //   - S is a template parameter for 8, 16, 32 and 64 (any other S takes a
 //     general instance): each lane steps its (edge, sample) pair by
 //     (32 / S, 32 % S) with one carry, so no sample divides (for S up to
-//     32 a lane's sample index never changes).
+//     32 a lane's sample index never changes). The step holds for any
+//     S >= 1: after it the sample index is below 2S, so one carry ends it.
+//   - Where a block of the measured shape cannot stage its lanes' R
+//     polygons (kernels/binding.py::k3_variant), a block takes one lane;
+//     where one lane's R polygons do not fit either, a second grid axis
+//     splits them into chunks of `chunk` polygons, each block staging
+//     only its chunk's edges. The polygons are independent, so every plan
+//     computes the same costs; the measured plan (chunk = R, one chunk) is
+//     the launch every earlier shape had. What remains is one polygon's
+//     16 V + 4 bytes and the S parameters' 4 S bytes in one block.
 //   - The map is read in place through the read-only path (__ldg), not
 //     staged: a wave touches fewer cells than its patch holds.
 //
@@ -77,7 +86,9 @@
 // (polygon, edge) with early exit at its end cell or past t = 1, and a
 // polygon's edges sit on 2^k adjacent threads of one warp, whose maximum
 // is a shuffle reduction; no shared memory. The steps of a warp's walks
-// run in lockstep to its longest walk.
+// run in lockstep to its longest walk. Above 32 vertices a polygon takes
+// a whole warp, and thread v walks its edges v, v + 32, ...; at most 32
+// vertices each thread walks one edge, as before.
 #include <cuda_runtime.h>
 #include <math.h>
 
@@ -97,8 +108,11 @@ __device__ __forceinline__ float cell_of(float p, float o, float res) {
 // (so a lane's sample index and parameter stay in registers), or 0 for
 // any other count, taken from S_rt.
 //
-// Shared memory: for each of the block's lanes, R * V edges of 4 floats
-// (sx, sy, dx, dy) and R valid counts; then the S edge parameters.
+// Block (x, y) takes lanes x * lanes_per_block, ... and of each the
+// polygons y * chunk, ... (at most chunk of them; chunk = R: all).
+// Shared memory: for each of the block's lanes, chunk * V edges of 4
+// floats (sx, sy, dx, dy) and chunk valid counts; then the S edge
+// parameters.
 template <int kS, bool kShift>
 __global__ void footprint_cost_kernel(
     const float* __restrict__ data, const float* __restrict__ origin,
@@ -106,25 +120,30 @@ __global__ void footprint_cost_kernel(
     const int* __restrict__ shift, const float* __restrict__ verts,
     const int* __restrict__ n_valid,
     const float* __restrict__ t, float* __restrict__ out, int Bm, int R,
-    int H, int W, int V, int S_rt, int lanes_per_block, int warps_per_lane) {
+    int H, int W, int V, int S_rt, int lanes_per_block, int warps_per_lane,
+    int chunk) {
   const int S = kS ? kS : S_rt;
   extern __shared__ float4 smem[];
-  const int edges_per_lane = R * V;
+  const size_t edges_per_lane = static_cast<size_t>(chunk) * V;
   float4* edges = smem;
   int* nv_s = reinterpret_cast<int*>(edges + lanes_per_block * edges_per_lane);
-  float* t_s = reinterpret_cast<float*>(nv_s + lanes_per_block * R);
+  float* t_s = reinterpret_cast<float*>(nv_s + lanes_per_block * chunk);
   const int lane0 = blockIdx.x * lanes_per_block;
+  const int p_first = blockIdx.y * chunk;   // this block's first polygon
+  const int Rc = min(chunk, R - p_first);   // and its polygons a lane
 
   // Stage, a thread a polygon: its valid count and valid edges.
   for (int k = threadIdx.x; k < S; k += blockDim.x) t_s[k] = __ldg(t + k);
-  for (int q = threadIdx.x; q < lanes_per_block * R; q += blockDim.x) {
-    const int li = q / R;
+  for (int q = threadIdx.x; q < lanes_per_block * Rc; q += blockDim.x) {
+    const int li = q / Rc;
+    const int p = q - li * Rc;
     const int b = lane0 + li;
-    const size_t poly = static_cast<size_t>(b) * R + (q - li * R);
+    const size_t poly = static_cast<size_t>(b) * R + p_first + p;
     const int nv = b < Bm ? min(__ldg(n_valid + poly), V) : 0;
-    nv_s[q] = nv;
+    const size_t slot = static_cast<size_t>(li) * chunk + p;
+    nv_s[slot] = nv;
     const float* vp = verts + poly * V * 2;
-    float4* ep = edges + static_cast<size_t>(q) * V;
+    float4* ep = edges + slot * V;
     for (int v = 0; v < nv; ++v) {
       const int e = (v + 1 < nv) ? v + 1 : 0;
       const float sx = __ldg(vp + 2 * v), sy = __ldg(vp + 2 * v + 1);
@@ -173,7 +192,8 @@ __global__ void footprint_cost_kernel(
     }
   };
 
-  for (int p0 = w; p0 < R; p0 += kGroup * warps_per_lane) {
+  const size_t lane_slot = static_cast<size_t>(li) * chunk;
+  for (int p0 = w; p0 < Rc; p0 += kGroup * warps_per_lane) {
     int n[kGroup];
     const float4* pe[kGroup];
     float best[kGroup];
@@ -181,8 +201,8 @@ __global__ void footprint_cost_kernel(
 #pragma unroll
     for (int g = 0; g < kGroup; ++g) {
       const int p = p0 + g * warps_per_lane;
-      n[g] = p < R ? nv_s[li * R + p] * S : 0;
-      pe[g] = edges + (li * R + (p < R ? p : 0)) * V;
+      n[g] = p < Rc ? nv_s[lane_slot + p] * S : 0;
+      pe[g] = edges + (lane_slot + (p < Rc ? p : 0)) * V;
       best[g] = -INFINITY;
       most = max(most, n[g]);
     }
@@ -231,20 +251,21 @@ __global__ void footprint_cost_kernel(
       for (int off = 16; off > 0; off >>= 1)
         best[g] = fmaxf(best[g], __shfl_xor_sync(0xffffffffu, best[g], off));
       const int p = p0 + g * warps_per_lane;
-      if (lane == 0 && p < R) out[static_cast<size_t>(b) * R + p] = best[g];
+      if (lane == 0 && p < Rc)
+        out[static_cast<size_t>(b) * R + p_first + p] = best[g];
     }
   }
 }
 
 template <int kS, bool kShift>
-cudaError_t launch_footprint(unsigned blocks, int threads, long long smem,
+cudaError_t launch_footprint(dim3 blocks, int threads, long long smem,
                              cudaStream_t stream, const float* data,
                              const float* origin, const float* res,
                              const int* bounds, const int* shift,
                              const float* verts, const int* n_valid,
                              const float* t, float* out, int Bm, int R, int H,
                              int W, int V, int S, int lanes_per_block,
-                             int warps_per_lane) {
+                             int warps_per_lane, int chunk) {
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
         footprint_cost_kernel<kS, kShift>,
@@ -254,24 +275,25 @@ cudaError_t launch_footprint(unsigned blocks, int threads, long long smem,
   footprint_cost_kernel<kS, kShift>
       <<<blocks, threads, static_cast<size_t>(smem), stream>>>(
           data, origin, res, bounds, shift, verts, n_valid, t, out, Bm, R, H,
-          W, V, S, lanes_per_block, warps_per_lane);
+          W, V, S, lanes_per_block, warps_per_lane, chunk);
   return cudaGetLastError();
 }
 
 // The instance for S samples an edge, with or without a shift.
 template <bool kShift>
-cudaError_t launch_footprint_s(unsigned blocks, int threads, long long smem,
+cudaError_t launch_footprint_s(dim3 blocks, int threads, long long smem,
                                cudaStream_t stream, const float* data,
                                const float* origin, const float* res,
                                const int* bounds, const int* shift,
                                const float* verts, const int* n_valid,
                                const float* t, float* out, int Bm, int R,
                                int H, int W, int V, int S,
-                               int lanes_per_block, int warps_per_lane) {
-  cudaError_t (*launch)(unsigned, int, long long, cudaStream_t, const float*,
+                               int lanes_per_block, int warps_per_lane,
+                               int chunk) {
+  cudaError_t (*launch)(dim3, int, long long, cudaStream_t, const float*,
                         const float*, const float*, const int*, const int*,
                         const float*, const int*, const float*, float*, int,
-                        int, int, int, int, int, int, int) =
+                        int, int, int, int, int, int, int, int) =
       S == 8    ? launch_footprint<8, kShift>
       : S == 16 ? launch_footprint<16, kShift>
       : S == 32 ? launch_footprint<32, kShift>
@@ -279,7 +301,7 @@ cudaError_t launch_footprint_s(unsigned blocks, int threads, long long smem,
                 : launch_footprint<0, kShift>;
   return launch(blocks, threads, smem, stream, data, origin, res, bounds,
                 shift, verts, n_valid, t, out, Bm, R, H, W, V, S,
-                lanes_per_block, warps_per_lane);
+                lanes_per_block, warps_per_lane, chunk);
 }
 
 // The cost of world-frame cell (x, y): the map value inside the bounds
@@ -341,9 +363,10 @@ __device__ float walk_edge(const float* map, float x0, float y0, float x1,
   return best;
 }
 
-// Thread g walks edge g mod 2^log_vp of polygon g >> log_vp (2^log_vp >= V,
-// so a polygon's edges are adjacent threads of one warp); every thread
-// reaches the shuffles.
+// Thread g walks edge g mod 2^log_vp of polygon g >> log_vp, and above 32
+// vertices (log_vp = 5) also its edges + 32, + 64, ... (2^log_vp >= V up
+// to 32 vertices, so a polygon's edges are adjacent threads of one warp);
+// every thread reaches the shuffles.
 __global__ void footprint_walk_kernel(
     const float* __restrict__ data, const float* __restrict__ origin,
     const float* __restrict__ res, const int* __restrict__ bounds,
@@ -370,11 +393,19 @@ __global__ void footprint_walk_kernel(
       }
       const int sh_x = shift != nullptr ? __ldg(shift + 2 * b) : 0;
       const int sh_y = shift != nullptr ? __ldg(shift + 2 * b + 1) : 0;
-      best = walk_edge(data + b * H * W, __ldg(vp + 2 * v),
-                       __ldg(vp + 2 * v + 1), __ldg(vp + 2 * e),
-                       __ldg(vp + 2 * e + 1), __ldg(origin + 2 * b),
-                       __ldg(origin + 2 * b + 1), __ldg(res + b), sh_x, sh_y,
-                       lo_x, lo_y, hi_x, hi_y, H, W);
+      const float* map = data + b * H * W;
+      const float ox = __ldg(origin + 2 * b), oy = __ldg(origin + 2 * b + 1);
+      const float rs = __ldg(res + b);
+      best = walk_edge(map, __ldg(vp + 2 * v), __ldg(vp + 2 * v + 1),
+                       __ldg(vp + 2 * e), __ldg(vp + 2 * e + 1), ox, oy, rs,
+                       sh_x, sh_y, lo_x, lo_y, hi_x, hi_y, H, W);
+      for (int u = v + (1 << log_vp); u < nv; u += 1 << log_vp) {
+        const int f = (u + 1 < nv) ? u + 1 : 0;
+        best = fmaxf(best, walk_edge(map, __ldg(vp + 2 * u),
+                                     __ldg(vp + 2 * u + 1), __ldg(vp + 2 * f),
+                                     __ldg(vp + 2 * f + 1), ox, oy, rs, sh_x,
+                                     sh_y, lo_x, lo_y, hi_x, hi_y, H, W));
+      }
     }
   }
   for (int off = (1 << log_vp) >> 1; off > 0; off >>= 1)
@@ -385,10 +416,11 @@ __global__ void footprint_walk_kernel(
 }  // namespace neo_mpc
 
 // Shared memory a block of the launch needs, in bytes (as
-// kernels/binding.py::k3_smem_bytes computes it).
-static long long footprint_cost_smem(int R, int V, int S,
+// kernels/binding.py::k3_smem_bytes computes it): `chunk` polygons of each
+// of its lanes.
+static long long footprint_cost_smem(int chunk, int V, int S,
                                      int lanes_per_block) {
-  return static_cast<long long>(lanes_per_block) * R *
+  return static_cast<long long>(lanes_per_block) * chunk *
              (V * static_cast<long long>(sizeof(float4)) + sizeof(int)) +
          static_cast<long long>(S) * sizeof(float);
 }
@@ -396,11 +428,13 @@ static long long footprint_cost_smem(int R, int V, int S,
 // data (Bm, H, W), origin (Bm, 2), res (Bm,), bounds (Bm, 4) int32 or null
 // (the whole grid), shift (Bm, 2) int32 or null (no shift), verts
 // (Bm, R, V, 2), n_valid (Bm, R) int32, t (S,); out (Bm, R). All
-// contiguous. lanes_per_block * warps_per_lane warps a block. Returns
-// cudaGetLastError().
+// contiguous. lanes_per_block * warps_per_lane warps a block, and a block
+// takes `chunk` polygons of each of its lanes (chunk = R: all of them; the
+// grid's second axis then has one block). Returns cudaGetLastError().
 extern "C" int neo_footprint_cost_f32(int Bm, int R, int H, int W, int V,
                                       int S, int lanes_per_block,
-                                      int warps_per_lane, const void* data,
+                                      int warps_per_lane, int chunk,
+                                      const void* data,
                                       const void* origin, const void* res,
                                       const void* bounds, const void* shift,
                                       const void* verts, const void* n_valid,
@@ -408,11 +442,16 @@ extern "C" int neo_footprint_cost_f32(int Bm, int R, int H, int W, int V,
                                       void* stream) {
   if (static_cast<long long>(Bm) * R == 0) return 0;
   const int threads = 32 * lanes_per_block * warps_per_lane;
-  if (S < 1 || lanes_per_block < 1 || warps_per_lane < 1 || threads > 1024)
+  if (S < 1 || V < 1 || lanes_per_block < 1 || warps_per_lane < 1 ||
+      threads > 1024 || chunk < 1)
     return static_cast<int>(cudaErrorInvalidValue);
-  const long long smem = footprint_cost_smem(R, V, S, lanes_per_block);
-  const unsigned blocks =
-      static_cast<unsigned>((Bm + lanes_per_block - 1) / lanes_per_block);
+  if (chunk > R) chunk = R;   // the kernel strides its staging by chunk
+  const long long chunks = (static_cast<long long>(R) + chunk - 1) / chunk;
+  if (chunks > 65535) return static_cast<int>(cudaErrorInvalidValue);
+  const long long smem = footprint_cost_smem(chunk, V, S, lanes_per_block);
+  const dim3 blocks(
+      static_cast<unsigned>((Bm + lanes_per_block - 1) / lanes_per_block),
+      static_cast<unsigned>(chunks));
   const auto cs = static_cast<cudaStream_t>(stream);
   const auto* d = static_cast<const float*>(data);
   const auto* o = static_cast<const float*>(origin);
@@ -426,10 +465,10 @@ extern "C" int neo_footprint_cost_f32(int Bm, int R, int H, int W, int V,
   if (sh != nullptr)
     return static_cast<int>(neo_mpc::launch_footprint_s<true>(
         blocks, threads, smem, cs, d, o, r, bo, sh, v, nv, tt, ou, Bm, R, H,
-        W, V, S, lanes_per_block, warps_per_lane));
+        W, V, S, lanes_per_block, warps_per_lane, chunk));
   return static_cast<int>(neo_mpc::launch_footprint_s<false>(
       blocks, threads, smem, cs, d, o, r, bo, sh, v, nv, tt, ou, Bm, R, H, W,
-      V, S, lanes_per_block, warps_per_lane));
+      V, S, lanes_per_block, warps_per_lane, chunk));
 }
 
 // K3's walk mode. data (Bm, H, W), origin (Bm, 2), res (Bm,), bounds
@@ -444,10 +483,11 @@ extern "C" int neo_footprint_walk_f32(int Bm, int R, int H, int W, int V,
                                       void* out, void* stream) {
   const long long polys = static_cast<long long>(Bm) * R;
   if (polys == 0) return 0;
-  if (V < 1 || V > 32 || threads < 32 || threads > 1024 || threads % 32)
+  if (V < 1 || threads < 32 || threads > 1024 || threads % 32)
     return static_cast<int>(cudaErrorInvalidValue);
+  // Threads a polygon: V rounded up to a power of two, at most a warp.
   int log_vp = 0;
-  while ((1 << log_vp) < V) ++log_vp;
+  while ((1 << log_vp) < V && log_vp < 5) ++log_vp;
   const long long total = polys << log_vp;
   const unsigned blocks = static_cast<unsigned>((total + threads - 1) / threads);
   neo_mpc::footprint_walk_kernel<<<blocks, threads, 0,

@@ -19,11 +19,13 @@ import torch
 from .engine import ControlState
 from .ops.costmap import Costmap
 from .ops.footprint import Footprint
+from .ops.objective import Limits, Weights
 from .ops.pursuit import Plan
 from .scenarios import ScenarioBatch
 
 __all__ = ["costmap_from_numpy", "plan_from_numpy", "footprint_from_numpy",
-           "control_state_from_numpy", "scenario_batch_from_numpy"]
+           "control_state_from_numpy", "scenario_batch_from_numpy",
+           "weights_from_numpy", "limits_from_numpy"]
 
 
 def _get(src, name):
@@ -76,3 +78,16 @@ def scenario_batch_from_numpy(src, device="cuda") -> ScenarioBatch:
         costmap=costmap_from_numpy(_get(src, "costmap"), device),
         footprint=footprint_from_numpy(_get(src, "footprint"), device),
         delta_t=_t(_get(src, "delta_t"), device))
+
+
+def weights_from_numpy(src, device="cuda") -> Weights:
+    """w_trans, w_orient, w_control, w_terminal, w_costmap, w_footprint
+    (e.g. a JAX Weights.grid): each () or (B,)."""
+    return Weights(**{name: _t(_get(src, name), device)
+                      for name in Weights.__dataclass_fields__})
+
+
+def limits_from_numpy(src, device="cuda") -> Limits:
+    """vel_lo, vel_hi, max_vel_trans, acc (e.g. a JAX Limits.scaled)."""
+    return Limits(**{name: _t(_get(src, name), device)
+                     for name in Limits.__dataclass_fields__})

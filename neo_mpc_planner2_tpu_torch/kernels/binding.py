@@ -17,7 +17,9 @@ __all__ = ["MAX_SMEM", "team_ld", "K1_WARP_TEAM_MAX_M", "k1_block_smem_bytes",
            "K1_MAX_M", "qp_admm_variant", "K2_UNROLLED_M",
            "k2_block_smem_bytes", "K2_MAX_M", "spd_inv_variant",
            "QP_INPUTS", "QP_OUTPUTS", "qp_rows", "K3_WALK_THREADS",
-           "k3_launch_shape", "k3_smem_bytes",
+           "k3_launch_shape", "k3_smem_bytes", "K3_WIDE_WARPS",
+           "K3_MAX_CHUNKS", "k3_max_samples", "k3_variant",
+           "K3_WALK_WARP_VERTICES", "k3_walk_variant",
            "K2_WIDTHS", "K2_WIDE_BLOCKS_PER_SM", "k2_launch_shape",
            "launch_qp_admm", "launch_spd_inv", "launch_footprint_cost"]
 
@@ -125,8 +127,73 @@ K3_WALK_THREADS = 128
 def k3_smem_bytes(R: int, V: int, S: int, lanes_per_block: int) -> int:
     """Dynamic shared memory of one K3 block: a lane's R·V staged edges (16
     bytes each) and R valid counts, for each lane of the block, and the S
-    edge parameters."""
+    edge parameters. R: the polygons a block takes of each lane (a chunk's
+    in the split plan)."""
     return lanes_per_block * R * (16 * V + 4) + 4 * S
+
+
+# Warps of a one-lane block in K3's "lane" and "split" plans: a block of
+# four warps, as the measured shapes have.
+K3_WIDE_WARPS = 4
+# The most chunks of a lane in the split plan (a grid's second axis).
+K3_MAX_CHUNKS = 65535
+
+
+def k3_max_samples(V: int) -> int:
+    """The most samples an edge K3 takes at V vertices a polygon: one
+    polygon's staged edges and count and the S edge parameters fill one
+    block (16 V + 4 + 4 S <= MAX_SMEM): 58,079 at V = 8. Its one cap."""
+    return (MAX_SMEM - (16 * V + 4)) // 4
+
+
+def k3_variant(R: int, V: int, S: int) -> tuple[str, tuple[int, int, int]]:
+    """K3's launch plan for R polygons of V vertices a lane and S samples
+    an edge: (name, (lanes_per_block, warps_per_lane, chunk)), a block
+    taking `chunk` polygons of each of its lanes.
+
+    - "measured": k3_launch_shape(R), the whole of each lane's R polygons
+      in one block, where that block fits MAX_SMEM (every shape of the
+      slices: R <= 880 at V = 8, S = 16);
+    - "lane": one lane a block of K3_WIDE_WARPS warps, where that fits
+      (R <= 1,760 at V = 8, S = 16);
+    - "split": one lane a block, its R polygons in chunks of as many as
+      fit one block, over a second grid axis of at most K3_MAX_CHUNKS.
+
+    Raises ValueError where one polygon does not fit a block
+    (S > k3_max_samples(V)) or the chunks exceed K3_MAX_CHUNKS."""
+    if R < 1 or V < 1 or S < 1:
+        raise ValueError(f"footprint_cost: R={R}, V={V}, S={S} must be >= 1")
+    lanes, warps = k3_launch_shape(R)
+    if k3_smem_bytes(R, V, S, lanes) <= MAX_SMEM:
+        return "measured", (lanes, warps, R)
+    if k3_smem_bytes(R, V, S, 1) <= MAX_SMEM:
+        return "lane", (1, K3_WIDE_WARPS, R)
+    if S > k3_max_samples(V):
+        raise ValueError(
+            f"footprint_cost: one polygon of {V} vertices with {S} samples "
+            f"an edge needs {k3_smem_bytes(1, V, S, 1)} bytes of shared "
+            f"memory, a block may take {MAX_SMEM} (K3 takes at most "
+            f"{k3_max_samples(V)} samples an edge at {V} vertices)")
+    chunk = (MAX_SMEM - 4 * S) // (16 * V + 4)
+    if -(-R // chunk) > K3_MAX_CHUNKS:
+        raise ValueError(
+            f"footprint_cost: {R} polygons a lane need more than "
+            f"{K3_MAX_CHUNKS} chunks of {chunk}")
+    return "split", (1, K3_WIDE_WARPS, chunk)
+
+
+# Above this many vertices a polygon of K3's walk mode takes a whole warp,
+# each thread walking every 32nd edge; up to it, a thread an edge.
+K3_WALK_WARP_VERTICES = 32
+
+
+def k3_walk_variant(V: int) -> str:
+    """K3's walk-mode plan at V vertices a polygon: "edge_a_thread"
+    (V <= K3_WALK_WARP_VERTICES, every earlier launch) or
+    "edges_a_thread" (above). The walk has no cap: it stages nothing."""
+    if V < 1:
+        raise ValueError(f"footprint_walk: V={V} must be >= 1")
+    return "edge_a_thread" if V <= K3_WALK_WARP_VERTICES else "edges_a_thread"
 
 
 def _check(rc: int, what: str) -> None:
@@ -201,10 +268,11 @@ def launch_footprint_cost(data, origin, res, bounds, verts, n_valid, t,
     """data (Bm, H, W), origin (Bm, 2), res (Bm,), bounds (Bm, 4) int32 or
     None (the whole grid), verts (Bm, R, V, 2), n_valid (Bm, R) int32,
     t (S,) or None, shift (Bm, 2) int32 or None (a view's win_lo).
-    With t, K3's sampled mode (neo_footprint_cost_f32) at shape =
-    (lanes_per_block, warps_per_lane), k3_launch_shape(R) by default;
-    with t None, its walk mode (neo_footprint_walk_f32) at K3_WALK_THREADS
-    a block. Returns the (Bm, R) costs."""
+    With t, K3's sampled mode (neo_footprint_cost_f32) at k3_variant's
+    plan, or at shape = (lanes_per_block, warps_per_lane) with a lane's R
+    polygons in one block when a shape is given; with t None, its walk
+    mode (neo_footprint_walk_f32) at K3_WALK_THREADS a block. Returns the
+    (Bm, R) costs."""
     lib = load_library()
     Bm, H, W = data.shape
     R, V = verts.shape[1], verts.shape[2]
@@ -219,9 +287,12 @@ def launch_footprint_cost(data, origin, res, bounds, verts, n_valid, t,
                                         _stream(data.device))
         _check(rc, "footprint_cost (walk)")
         return out
-    lanes, warps = k3_launch_shape(R) if shape is None else shape
+    if shape is None:
+        _, (lanes, warps, chunk) = k3_variant(R, V, t.shape[0])
+    else:
+        (lanes, warps), chunk = shape, R
     rc = lib.neo_footprint_cost_f32(
-        Bm, R, H, W, V, t.shape[0], lanes, warps, *maps, t.data_ptr(),
+        Bm, R, H, W, V, t.shape[0], lanes, warps, chunk, *maps, t.data_ptr(),
         out.data_ptr(), _stream(data.device))
     _check(rc, "footprint_cost")
     return out

@@ -39,8 +39,9 @@ SIGNATURES = {
     "neo_qp_admm_f32": (_i, [_i, _i, _i, _f, _f, _f] + [_vp] * 20),
     # m, B, warps_per_block; A, X; stream.
     "neo_spd_inv_f32": (_i, [_i] * 3 + [_vp] * 3),
-    # Bm, R, H, W, V, S, lanes_per_block, warps_per_lane; 9 arrays; stream.
-    "neo_footprint_cost_f32": (_i, [_i] * 8 + [_vp] * 10),
+    # Bm, R, H, W, V, S, lanes_per_block, warps_per_lane, chunk; 9 arrays;
+    # stream.
+    "neo_footprint_cost_f32": (_i, [_i] * 9 + [_vp] * 10),
     # Bm, R, H, W, V, threads; 8 arrays; stream.
     "neo_footprint_walk_f32": (_i, [_i] * 6 + [_vp] * 9),
 }

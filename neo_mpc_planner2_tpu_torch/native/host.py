@@ -164,6 +164,13 @@ class NativeHost:
     """Single-robot host state machine (the NeoMpcPlanner plugin equivalent).
     Constructing one builds the library if needed."""
 
+    @staticmethod
+    def available() -> bool:
+        """Whether a NativeHost can be made here: the library is built
+        from the port's sources, or g++ is on PATH to build it at first
+        use (the check _load makes before it raises)."""
+        return library_path().exists() or shutil.which("g++") is not None
+
     def __init__(self, lookahead_dist_min=0.5, lookahead_dist_max=0.5,
                  lookahead_dist_close_to_goal=0.5, controller_frequency=30.0):
         lib = _load()

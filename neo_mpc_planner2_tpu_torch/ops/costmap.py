@@ -41,6 +41,7 @@ import math
 import torch
 
 __all__ = ["Costmap", "CostmapPatch", "LETHAL_COST", "U8_AUTO_MIN_CELLS",
+           "occupancy_to_cost",
            "u8_source_enabled", "grid_bounds", "grid_origin", "world_to_map",
            "cost_at_cell", "cost_at_cells_onehot", "extract_window",
            "extract_window_onehot", "write_window_", "cost_at_world",
@@ -133,6 +134,33 @@ class Costmap:
         f = lambda a: torch.as_tensor(a, dtype=torch.float32, device=device)
         return Costmap(data=f(data), origin=f(origin), resolution=f(resolution))
 
+    @staticmethod
+    def from_nav2_costmap(raw, origin=(0.0, 0.0), resolution=0.05,
+                          inscribed_is_lethal: bool = False,
+                          device="cuda") -> "Costmap":
+        """From the raw nav2 Costmap2D 0-255 scale (the C++ plugin's world,
+        NeoMpcPlanner.cpp:218/234): each value over 255, so only 255
+        (LETHAL_OBSTACLE / NO_INFORMATION) is exactly 1.0. Raw 254
+        (INSCRIBED_INFLATED) maps to 254/255: it trips the predicted-
+        collision latch (>= 0.99, py:338) but not the lethal gates (== 1.0,
+        py:257/262, cpp:234), as in the reference. inscribed_is_lethal=True
+        folds 254 into 1.0 too (the conservative choice)."""
+        raw = torch.as_tensor(raw, device=device)
+        norm = raw.to(torch.float32) / 255.0
+        if inscribed_is_lethal:
+            norm = torch.where(raw >= 254, 1.0, norm)
+        return Costmap.create(norm, origin, resolution, device)
+
+    @staticmethod
+    def from_occupancy_grid(grid, origin=(0.0, 0.0), resolution=0.05,
+                            unknown_is_lethal: bool = True,
+                            device="cuda") -> "Costmap":
+        """From a nav_msgs/OccupancyGrid payload (int8: 0..100 occupancy,
+        -1 unknown), by occupancy_to_cost: 100 -> 1.0 lethal, unknown
+        lethal by default (nav2's conservative convention) or free."""
+        return Costmap.create(occupancy_to_cost(grid, unknown_is_lethal),
+                              origin, resolution, device)
+
     @property
     def shape(self):
         return self.data.shape
@@ -150,6 +178,18 @@ class Costmap:
             return self.flat
         h, w = self.data.shape[-2], self.data.shape[-1]
         return self.data.reshape(self.data.shape[:-2] + (h * w,))
+
+
+def occupancy_to_cost(grid, unknown_is_lethal: bool = True):
+    """OccupancyGrid values (-1 unknown, 0..100 occupancy) as a float32
+    numpy array of normalized cost: occupancy / 100 clipped to [0, 1],
+    unknown 1.0 (lethal) or 0.0. The one conversion of the port: the
+    costmap constructor and the ROS adapter's topic callback both use it."""
+    import numpy as np
+
+    g = np.asarray(grid, dtype=np.float32)
+    return np.where(g < 0, np.float32(1.0 if unknown_is_lethal else 0.0),
+                    np.clip(g / 100.0, 0.0, 1.0)).astype(np.float32)
 
 
 def grid_bounds(cm: Costmap):
@@ -508,9 +548,13 @@ class ProductPatchSampler:
     and every footprint boundary sample of one solve reads the map through
     the window of `halfwidth` cells around the lane's centre (cx, cy),
     lethal outside it. `bounds` (*lead, 4) is that window ∩ the grid, which
-    footprint_cost takes as is."""
+    footprint_cost takes as is. exact: the JAX package's pick precision
+    for its one-hot contractions (solver_patch_exact_picks); accepted and
+    without effect, as the port's reads are exact gathers."""
 
-    def __init__(self, cm: Costmap, cx, cy, halfwidth: int):
+    def __init__(self, cm: Costmap, cx, cy, halfwidth: int,
+                 exact: bool = True):
+        self.exact = exact
         if cm.win_cells is not None:
             raise ValueError(
                 "product patch sampling is not supported on a rolling-window "

@@ -25,6 +25,7 @@ never requires grad.
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 import functools
 import math
@@ -111,13 +112,6 @@ def required_edge_samples(points, resolution: float, minimum: int = 8) -> int:
     edges = np.roll(pts, -1, axis=0) - pts
     max_edge = float(np.max(np.linalg.norm(edges, axis=-1)))
     return max(minimum, int(np.ceil(max_edge / float(resolution))) + 2)
-
-
-# The widths K3 is built and tested for (vertices a polygon, samples an
-# edge); its shared memory also bounds R·V a lane (binding.k3_smem_bytes).
-# The walk mode takes the same vertex limit.
-K3_MAX_VERTICES = 16
-K3_MAX_SAMPLES = 64
 
 
 def _edges(verts, n_valid):
@@ -270,7 +264,9 @@ def footprint_walk_batch_plain(data, origin, res, bounds, verts, n_valid,
 
 def _check_kernel_inputs(data, origin, res, bounds, verts, n_valid, t,
                          shift=None):
-    """What K3 takes; t None for the walk mode. Raises on anything else."""
+    """What K3 takes; t None for the walk mode. Raises on anything else.
+    Returns the name of the launch plan (binding.k3_variant,
+    binding.k3_walk_variant), None where there are no polygons."""
     what = "footprint_cost_batch" if t is not None else "footprint_walk_batch"
     Bm, H, W = data.shape
     R, V = verts.shape[1], verts.shape[2]
@@ -293,20 +289,15 @@ def _check_kernel_inputs(data, origin, res, bounds, verts, n_valid, t,
         if tuple(a.shape) != shapes[name]:
             raise ValueError(f"{what}: {name} has shape "
                              f"{tuple(a.shape)}, expected {shapes[name]}")
-    S = 0 if t is None else t.shape[0]
-    if V > K3_MAX_VERTICES or S > K3_MAX_SAMPLES:
-        raise ValueError(f"{what}: the kernel takes at most "
-                         f"{K3_MAX_VERTICES} vertices and {K3_MAX_SAMPLES} "
-                         f"samples, got {V} and {S}")
     if H * W >= 2 ** 31 or max(H, W) >= 2 ** 24:
         raise ValueError(f"{what}: map too large for int32 cell indices or "
                          "float32 cell bounds")
+    if Bm * R == 0:
+        return None
+    # The launch plan; raises on the one cap left (binding.k3_max_samples).
     if t is None:
-        return
-    lanes, _ = binding.k3_launch_shape(R)
-    if binding.k3_smem_bytes(R, V, S, lanes) > binding.MAX_SMEM:
-        raise ValueError(f"{what}: {R} polygons of {V} vertices a lane do "
-                         "not fit a block's shared memory")
+        return binding.k3_walk_variant(V)
+    return binding.k3_variant(R, V, t.shape[0])[0]
 
 
 def _device_of(data, what: str) -> str:
@@ -325,16 +316,20 @@ def footprint_cost_batch(data, origin, res, bounds, verts, n_valid, t,
     if _device_of(data, "footprint_cost_batch") == "cpu":
         return footprint_cost_batch_plain(data, origin, res, bounds, verts,
                                           n_valid, t, shift)
-    _check_kernel_inputs(data, origin, res, bounds, verts, n_valid, t, shift)
-    if verts.shape[0] * verts.shape[1] == 0:
+    plan = _check_kernel_inputs(data, origin, res, bounds, verts, n_valid,
+                                t, shift)
+    if plan is None:
         return verts.new_empty(verts.shape[:2])
     out = binding.launch_footprint_cost(data, origin, res, bounds, verts,
                                         n_valid, t, shift)
     footprint_cost_batch.launches += 1
+    footprint_cost_batch.plans[plan] += 1
     return out
 
 
+# Launches, and launches by plan (binding.k3_variant's names).
 footprint_cost_batch.launches = 0
+footprint_cost_batch.plans = collections.Counter()
 
 
 def footprint_walk_batch(data, origin, res, bounds, verts, n_valid,
@@ -345,21 +340,24 @@ def footprint_walk_batch(data, origin, res, bounds, verts, n_valid,
     if _device_of(data, "footprint_walk_batch") == "cpu":
         return footprint_walk_batch_plain(data, origin, res, bounds, verts,
                                           n_valid, shift)
-    _check_kernel_inputs(data, origin, res, bounds, verts, n_valid, None,
-                         shift)
-    if verts.shape[0] * verts.shape[1] == 0:
+    plan = _check_kernel_inputs(data, origin, res, bounds, verts, n_valid,
+                                None, shift)
+    if plan is None:
         return verts.new_empty(verts.shape[:2])
     out = binding.launch_footprint_cost(data, origin, res, bounds, verts,
                                         n_valid, None, shift)
     footprint_walk_batch.launches += 1
+    footprint_walk_batch.plans[plan] += 1
     return out
 
 
+# Launches, and launches by plan (binding.k3_walk_variant's names).
 footprint_walk_batch.launches = 0
+footprint_walk_batch.plans = collections.Counter()
 
 
 def footprint_cost(cm: Costmap, fp: Footprint, samples: int = 32,
-                   mode: str = "gather",
+                   mode: str = "gather", sample_fn=None,
                    bounds: "torch.Tensor | None" = None) -> torch.Tensor:
     """Max cost along the polygon boundary. Edges run i -> (i + 1) mod
     n_valid; padded vertices start no edge.
@@ -374,7 +372,11 @@ def footprint_cost(cm: Costmap, fp: Footprint, samples: int = 32,
     the JAX package's does, and takes no bounds. On a view every read goes
     through its window (K3 with the window's origin, the window as bounds
     and win_lo as shift); a view takes no bounds, as no patch sampler is
-    built on one. Returns the polygons' leading shape, without gradient."""
+    built on one. sample_fn: optional (wx, wy) -> costs override of the
+    sampled modes' boundary reads, called on the sample points
+    (*polygons, V, S) (the JAX package's; no kernel then); ignored in
+    exact mode, as there. Returns the polygons' leading shape, without
+    gradient."""
     if mode not in ("gather", "onehot", "exact"):
         raise ValueError(f"unknown footprint sampling mode {mode!r}")
     if mode == "exact" and bounds is not None:
@@ -394,6 +396,16 @@ def footprint_cost(cm: Costmap, fp: Footprint, samples: int = 32,
     if mode == "exact":
         out = footprint_walk_batch(data, origin, res, bounds, *polygons,
                                    shift)
+    elif sample_fn is not None:
+        ends, valid = _edges(*polygons)
+        pts = (polygons[0][..., :, None, :] + (ends - polygons[0])[
+            ..., :, None, :] * _edge_parameters_on(samples, verts.device)[
+                :, None])                                  # (Bm, R, V, S, 2)
+        costs = sample_fn(pts[..., 0].reshape(poly + pts.shape[-3:-1]),
+                          pts[..., 1].reshape(poly + pts.shape[-3:-1]))
+        costs = torch.where(valid.reshape(poly + (V, 1)), costs.detach(),
+                            -torch.inf)
+        return costs.amax(dim=(-2, -1))
     else:
         out = footprint_cost_batch(
             data, origin, res, bounds, *polygons,

@@ -40,7 +40,7 @@ _WEIGHT_NAMES = ("w_trans", "w_orient", "w_control", "w_terminal",
 
 @dataclasses.dataclass
 class Weights:
-    """Per-lane cost-weight overrides, each (B,)."""
+    """Per-lane cost-weight overrides, each (B,) (or () for one lane)."""
 
     w_trans: torch.Tensor
     w_orient: torch.Tensor
@@ -49,33 +49,70 @@ class Weights:
     w_costmap: torch.Tensor
     w_footprint: torch.Tensor
 
+    def replace(self, **kw) -> "Weights":
+        return dataclasses.replace(self, **kw)
+
     @staticmethod
-    def from_config(cfg: MpcConfig, batch: int,
+    def from_config(cfg: MpcConfig, batch: int | None = None,
                     device="cuda") -> "Weights":
-        return Weights(*(torch.full((batch,), getattr(cfg, n),
+        """The config's weights: each (batch,), or () with batch None (the
+        JAX package's unbatched Weights)."""
+        shape = () if batch is None else (batch,)
+        return Weights(*(torch.full(shape, getattr(cfg, n),
                                     dtype=torch.float32, device=device)
                          for n in _WEIGHT_NAMES))
+
+    @staticmethod
+    def grid(cfg: MpcConfig, device="cuda", **axes) -> "Weights":
+        """Cartesian weight grid flattened to a batch (the `ij` meshgrid of
+        the axes, the config's value on an axis not given):
+        Weights.grid(cfg, w_trans=[0.5, 0.82], w_control=[0.01, 0.05, 0.2])
+        -> a batch of 6."""
+        import numpy as np
+
+        arrays = [np.asarray(axes.get(n, [getattr(cfg, n)]), np.float32)
+                  for n in _WEIGHT_NAMES]
+        mesh = np.meshgrid(*arrays, indexing="ij")
+        return Weights(*(torch.as_tensor(m.reshape(-1), device=device)
+                         for m in mesh))
 
 
 @dataclasses.dataclass
 class Limits:
-    """Per-lane runtime velocity/acceleration limits."""
+    """Per-lane runtime velocity/acceleration limits (without the lane dim
+    for one lane)."""
 
     vel_lo: torch.Tensor         # (B, 3) min_vel_x, min_vel_y, min_vel_theta
     vel_hi: torch.Tensor         # (B, 3)
     max_vel_trans: torch.Tensor  # (B,)
     acc: torch.Tensor            # (B, 3) acc_x_limit, acc_y_limit, acc_theta
 
+    def replace(self, **kw) -> "Limits":
+        return dataclasses.replace(self, **kw)
+
     @staticmethod
-    def from_config(cfg: MpcConfig, batch: int,
+    def from_config(cfg: MpcConfig, batch: int | None = None,
                     device="cuda") -> "Limits":
+        """The config's limits: (batch, 3) and (batch,), or (3,) and ()
+        with batch None (the JAX package's unbatched Limits)."""
+        lead = () if batch is None else (batch,)
         f = lambda *v: torch.tensor(v, dtype=torch.float32,
-                                    device=device).expand(batch, len(v))
+                                    device=device).expand(lead + (len(v),))
         return Limits(
             vel_lo=f(cfg.min_vel_x, cfg.min_vel_y, cfg.min_vel_theta),
             vel_hi=f(cfg.max_vel_x, cfg.max_vel_y, cfg.max_vel_theta),
-            max_vel_trans=f(cfg.max_vel_trans)[:, 0],
+            max_vel_trans=f(cfg.max_vel_trans)[..., 0],
             acc=f(cfg.acc_x_limit, cfg.acc_y_limit, cfg.acc_theta_limit))
+
+    def scaled(self, scale) -> "Limits":
+        """The translational bounds scaled by a speed-limit fraction
+        (setSpeedLimit's percentage of the robot's maximum speed); the yaw
+        rate and the accelerations untouched."""
+        s = torch.as_tensor(scale, dtype=torch.float32,
+                            device=self.vel_lo.device)
+        m = torch.stack([s, s, torch.ones_like(s)])
+        return Limits(vel_lo=self.vel_lo * m, vel_hi=self.vel_hi * m,
+                      max_vel_trans=self.max_vel_trans * s, acc=self.acc)
 
 
 @dataclasses.dataclass
@@ -102,6 +139,28 @@ class Scenario:
 
     def replace(self, **kw) -> "Scenario":
         return dataclasses.replace(self, **kw)
+
+    @staticmethod
+    def create(current_pose, carrot_pose, goal_pose, current_vel,
+               footprint: Footprint, costmap: Costmap, switch_opt=False,
+               weights=None, control_interval=None, limits=None,
+               device=None) -> "Scenario":
+        """One lane's request, without a lane dim (as solve_step takes
+        it): the poses and velocity as float32 tensors on `device`, the
+        costmap's by default."""
+        device = costmap.data.device if device is None else device
+        f32 = lambda a: torch.as_tensor(a, dtype=torch.float32,
+                                        device=device)
+        return Scenario(
+            current_pose=f32(current_pose), carrot_pose=f32(carrot_pose),
+            goal_pose=f32(goal_pose), current_vel=f32(current_vel),
+            footprint=footprint, costmap=costmap,
+            switch_opt=torch.as_tensor(switch_opt, dtype=torch.bool,
+                                       device=device),
+            weights=weights,
+            control_interval=(None if control_interval is None
+                              else f32(control_interval)),
+            limits=limits)
 
 
 def buggy_odom_yaw(current_yaw: torch.Tensor, goal_yaw: torch.Tensor):

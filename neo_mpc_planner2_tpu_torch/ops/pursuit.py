@@ -38,6 +38,9 @@ class Plan:
     pyaw: torch.Tensor
     n_valid: torch.Tensor
 
+    def replace(self, **kw) -> "Plan":
+        return dataclasses.replace(self, **kw)
+
     @property
     def poses(self) -> torch.Tensor:
         return torch.stack([self.px, self.py, self.pyaw], dim=-1)

@@ -148,9 +148,9 @@ def occupancy_values_to_cost(data: Any, h: int, w: int) -> "np.ndarray":
     optimizer service."""
     import numpy as np
 
-    arr = np.asarray(data, dtype=np.float32).reshape(h, w)
-    return np.where(arr < 0, np.float32(1.0),
-                    np.clip(arr / 100.0, 0.0, 1.0)).astype(np.float32)
+    from .ops.costmap import occupancy_to_cost
+
+    return occupancy_to_cost(np.asarray(data).reshape(h, w))
 
 
 def occupancy_grid_to_costmap_msg(msg: Any) -> dict:

@@ -2,9 +2,11 @@
 
 Plans, start poses, velocities and obstacle layouts are drawn with numpy's
 RNG in the same order as the JAX package, so they are bit-identical for the
-same seed. The (B, H, W) obstacle maps are synthesized with torch on the
-target device from the drawn blob parameters (float32, like the JAX
-package's on-device synthesis).
+same seed. The (B, H, W) obstacle maps are synthesized on the host in
+numpy, as the JAX package's default path does (bit-identical to it), or,
+with maps_on_device=True, with torch on the target device from the drawn
+blob parameters (float32, the port of the JAX package's on-device
+synthesis: only the parameters cross to the card).
 """
 
 from __future__ import annotations
@@ -92,6 +94,43 @@ def _corridor_clamp(data, corridor_pts, map_size, resolution,
                        data.clamp_max(corridor_max_cost), data)
 
 
+def _blob_maps_host(centers, amp, corridor_pts, map_size, resolution,
+                    lethal_threshold, clear_corridor_m, corridor_max_cost):
+    """The JAX package's host synthesis of the maps, in numpy op for op:
+    (B, H, W) float32 from the blob parameters (B, O, 2), (B, O) and the
+    window-local corridor points (B, P', 2) or None."""
+    batch = amp.shape[0]
+    half = map_size * resolution / 2.0
+    yy, xx = np.meshgrid(
+        np.arange(map_size, dtype=np.float32) * resolution - half
+        + resolution / 2,
+        np.arange(map_size, dtype=np.float32) * resolution - half
+        + resolution / 2, indexing="ij")
+    d2 = ((xx[None, None] - centers[..., 0, None, None]) ** 2
+          + (yy[None, None] - centers[..., 1, None, None]) ** 2)
+    blobs = amp[..., None, None] * np.exp(-d2 / (2 * BLOB_SIGMA2))
+    data = np.clip(np.max(blobs, axis=1), 0.0, 1.0).astype(np.float32)
+    if lethal_threshold is not None:
+        data = np.where(data > lethal_threshold, 1.0,
+                        data).astype(np.float32)
+    if corridor_pts is not None:
+        # Lanes in chunks, to bound the (C, H*W, P') distance array.
+        cx = xx.reshape(-1).astype(np.float32)
+        cy = yy.reshape(-1).astype(np.float32)
+        r2 = np.float32(clear_corridor_m) ** 2
+        chunk = max(1, (1 << 25) // (cx.size * corridor_pts.shape[1]))
+        for i in range(0, batch, chunk):
+            p = corridor_pts[i:i + chunk]
+            d2p = ((cx[None, :, None] - p[:, None, :, 0]) ** 2
+                   + (cy[None, :, None] - p[:, None, :, 1]) ** 2).min(-1)
+            near = (d2p < r2).reshape(-1, map_size, map_size)
+            data[i:i + chunk] = np.where(
+                near, np.minimum(data[i:i + chunk],
+                                 np.float32(corridor_max_cost)),
+                data[i:i + chunk])
+    return data
+
+
 class ScenarioBatch(NamedTuple):
     state: ControlState       # (B, ...) control state
     plan: Plan                # (B, P)
@@ -111,11 +150,21 @@ def make_scenario_batch(cfg: MpcConfig, batch: int, seed: int = 0,
                         clear_corridor_m: float | None = None,
                         corridor_max_cost: float = 0.6,
                         center_on: str = "start",
+                        maps_on_device: bool = False,
                         footprint: Footprint | None = None,
                         device="cuda") -> ScenarioBatch:
     """Random curved plans + Gaussian-blob obstacle maps + perturbed starts;
     the arguments are the JAX package's. Every tensor lies on `device`: the
-    card unless the caller asks for the CPU (device="cpu")."""
+    card unless the caller asks for the CPU (device="cpu").
+
+    maps_on_device: synthesize the maps (and the corridor clearing) with
+    torch on `device` from the host-drawn blob parameters instead of in
+    numpy on the host (float64, then float32, as the JAX package's
+    default). The plans, poses and obstacle layout are the same either
+    way; the maps agree within ~1e-6 (float32 against float64), so
+    fidelity checks keep the host path and fleet-size runs take this one:
+    at 4096 lanes the host path's (B, O, H, W) float64 blobs are ~0.8 GB
+    at 64² cells."""
     rng = np.random.default_rng(seed)
 
     # --- plans: arcs with random curvature/length, starting at the origin ---
@@ -151,13 +200,21 @@ def make_scenario_batch(cfg: MpcConfig, batch: int, seed: int = 0,
         < 0.8, centers + 1.2, centers)
     amp = rng.uniform(0.3, 0.95, (batch, n_obstacles))
     f32 = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=device)
-    data = blob_maps(f32(centers), f32(amp), map_size, resolution,
-                     lethal_threshold)
+    corridor_pts = None
     if clear_corridor_m is not None:
         corridor_pts = (poses[:, :plan_points:2, :2]
                         - shift[:, None, :]).astype(np.float32)
-        data = _corridor_clamp(data, f32(corridor_pts), map_size, resolution,
-                               clear_corridor_m, corridor_max_cost)
+    if maps_on_device:
+        data = blob_maps(f32(centers), f32(amp), map_size, resolution,
+                         lethal_threshold)
+        if corridor_pts is not None:
+            data = _corridor_clamp(data, f32(corridor_pts), map_size,
+                                   resolution, clear_corridor_m,
+                                   corridor_max_cost)
+    else:
+        data = f32(_blob_maps_host(centers, amp, corridor_pts, map_size,
+                                   resolution, lethal_threshold,
+                                   clear_corridor_m, corridor_max_cost))
     costmap = Costmap(data=data, origin=f32(shift - half),
                       resolution=torch.full((batch,), resolution,
                                             dtype=torch.float32,

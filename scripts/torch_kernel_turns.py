@@ -22,6 +22,13 @@ same card:
 - K1 at B = 4096, m in {9, 15}, 60 iterations: its device time, with every
   output held bit-identical to the first turn's.
 
+`--k3-old DIR` builds an earlier `footprint_cost.cu` from DIR (e.g.
+`git show <commit>:neo_mpc_planner2_tpu_torch/csrc/footprint_cost.cu`)
+and holds the port's K3 bit for bit against it at the shapes the earlier
+kernel took (B in {1, 131, 4096}, R in {1, 3, 21}, S in {8, 16, 32, 64},
+the whole grid, patch bounds and a view; the walk at the same B and R)
+and on the product slice's captured calls, whose device times it takes
+in turns (old, new, new, old).
 `--shapes` times K3 on the arguments of its calls in the product slice
 (4096 lanes, a 2-tick run) at each (lanes_per_block, warps_per_lane);
 `--k2-shapes` times K2 at each of its widths (warps a block), each held
@@ -211,6 +218,110 @@ def k3_shapes(device, batch: int):
         print(json.dumps(out), flush=True)
 
 
+def load_old_k3(old_dir: pathlib.Path):
+    """Build and load an earlier K3 source, whose sampled launcher took no
+    chunk (its block staged a lane's R polygons whole)."""
+    from neo_mpc_planner2_tpu_torch.kernels import build
+
+    path = build.build_library(
+        csrc=old_dir, build_dir=ROOT / "build" / "old_k3_lib",
+        sources=("footprint_cost.cu",), headers=())
+    lib = ctypes.CDLL(str(path))
+    vp, i = ctypes.c_void_p, ctypes.c_int
+    lib.neo_footprint_cost_f32.restype = i
+    lib.neo_footprint_cost_f32.argtypes = [i] * 8 + [vp] * 10
+    lib.neo_footprint_walk_f32.restype = i
+    lib.neo_footprint_walk_f32.argtypes = [i] * 6 + [vp] * 9
+    return lib
+
+
+def k3_old(device, old_dir: pathlib.Path, turns: str, batch: int):
+    """The port's K3 against an earlier build: bit for bit at the earlier
+    shapes, timed in turns on the product slice's captured calls."""
+    import numpy as np
+    import torch
+
+    from neo_mpc_planner2_tpu_torch.kernels import binding
+    from neo_mpc_planner2_tpu_torch.ops import costmap as cmap
+    from neo_mpc_planner2_tpu_torch.ops import footprint as fpm
+    from neo_mpc_planner2_tpu_torch.scenarios import make_scenario_batch
+    from neo_mpc_planner2_tpu_torch.simulation import batch_simulate
+
+    lib = load_old_k3(old_dir)
+    stream = lambda: torch.cuda.current_stream(device).cuda_stream
+
+    def old(data, origin, res, bounds, verts, n_valid, t, shift=None):
+        Bm, H, W = data.shape
+        R, V = verts.shape[1], verts.shape[2]
+        out = torch.empty((Bm, R), dtype=torch.float32, device=device)
+        ptrs = [None if a is None else a.data_ptr()
+                for a in (data, origin, res, bounds, shift, verts, n_valid)]
+        if t is None:
+            rc = lib.neo_footprint_walk_f32(Bm, R, H, W, V,
+                                            binding.K3_WALK_THREADS, *ptrs,
+                                            out.data_ptr(), stream())
+        else:
+            lanes, warps = binding.k3_launch_shape(R)
+            rc = lib.neo_footprint_cost_f32(Bm, R, H, W, V, t.shape[0],
+                                            lanes, warps, *ptrs,
+                                            t.data_ptr(), out.data_ptr(),
+                                            stream())
+        if rc != 0:
+            raise RuntimeError(f"old K3 launch failed: cudaError {rc}")
+        return out
+
+    rng = np.random.default_rng(11)
+    cases = 0
+    for B in (1, 131, 4096):
+        for R in (1, 3, 21):
+            for walk in (False, True):
+                make = cs._walk_inputs if walk else cs._k3_inputs
+                data, origin, res, verts, nv = make(rng, B, R, device)
+                cm = cmap.Costmap(data=data, origin=origin, resolution=res)
+                cx = torch.as_tensor(rng.uniform(-2.0, 2.0, B),
+                                     dtype=torch.float32, device=device)
+                view = cm.replace(win_lo=torch.as_tensor(
+                    rng.integers(0, 25, (B, 2)), dtype=torch.int32,
+                    device=device), win_cells=40)
+                vo, vb, vs = (a.contiguous()
+                              for a in fpm.kernel_map_arguments(view))
+                maps = [(origin, None, None), (vo, vb, vs)]
+                if not walk:
+                    maps.append((origin, cmap.product_patch_bounds(
+                        cm, cx, cx.flip(0), 28), None))
+                for S in ((None,) if walk else (8, 16, 32, 64)):
+                    t = None if S is None else fpm.edge_parameters(S, device)
+                    for o, bnd, shift in maps:
+                        args = (data, o, res, bnd, verts, nv, t, shift)
+                        want = old(*args)
+                        got = binding.launch_footprint_cost(*args)
+                        torch.cuda.synchronize()
+                        if not torch.equal(got, want):
+                            raise AssertionError(
+                                f"K3 B={B} R={R} S={S}: differs from the "
+                                "earlier build")
+                        cases += 1
+    cfg = cs.product_cfg()
+    sb = make_scenario_batch(cfg, batch, seed=0, map_size=64, plan_points=64,
+                             maps_on_device=True, device=device)
+    with cs.K3Recorder() as rec:
+        batch_simulate(cfg, sb, 2, parity=False)
+    times = {}
+    for label, args in cs.captured_k3_cases(rec).items():
+        new = lambda: binding.launch_footprint_cost(*args)
+        if not torch.equal(new(), old(*args)):
+            raise AssertionError(f"K3 {label}: differs from the earlier "
+                                 "build")
+        cases += 1
+        for which in turns.split(","):
+            f = new if which == "new" else (lambda: old(*args))
+            times.setdefault(f"{label}_{which}_ms", []).append(
+                cs._device_ms(f, "footprint_cost_kernel"))
+    print(json.dumps({"phase": "K3 against the earlier build",
+                      "bit_equal_cases": cases, "turns": turns, **times,
+                      "card": cs._nvidia_smi()}), flush=True)
+
+
 def k2_shapes(device):
     """K2's device time at each of binding.K2_WIDTHS warps a block, B in
     {4096, ..., 65536}, m in K2_M, the launches rotating over copies that
@@ -263,6 +374,8 @@ def main(argv=None) -> int:
                     help="time K3's launch shapes instead of the turns")
     ap.add_argument("--k2-shapes", action="store_true",
                     help="time K2's launch shapes instead of the turns")
+    ap.add_argument("--k3-old", type=pathlib.Path,
+                    help="directory with an earlier footprint_cost.cu")
     ap.add_argument("--batch", type=int, default=4096)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -281,7 +394,10 @@ def main(argv=None) -> int:
         k3_shapes(device, args.batch)
     if args.k2_shapes:
         k2_shapes(device)
-    if args.old is None and not (args.shapes or args.k2_shapes):
+    if args.k3_old is not None:
+        k3_old(device, args.k3_old, args.turns, args.batch)
+    if args.old is None and not (args.shapes or args.k2_shapes
+                                 or args.k3_old):
         ap.error("--old is required for the turns")
     if args.old is not None:
         from neo_mpc_planner2_tpu_torch import sqp

@@ -1,6 +1,7 @@
 """The CUDA kernels K1 (qp_admm) and K2 (chol_inverse) at the widths of
 every horizon (each design, and each kernel at its cap), K3
-(footprint_cost_batch) on the card, one step of each slice against the
+(footprint_cost_batch, and its walk) on the card at each launch plan and
+past 16 vertices and 64 samples an edge, one step of each slice against the
 CPU, and the single-robot controller's ticks (both routes) against the
 CPU, with K1 and K3 read from a traced tick.
 
@@ -327,6 +328,8 @@ def test_footprint_cost_kernel_matches_plain_on_product_slice_calls(dev):
 
 
 def test_footprint_cost_wrapper_raises_on_what_the_kernel_does_not_take(dev):
+    from neo_mpc_planner2_tpu_torch.kernels import binding
+
     rng = np.random.default_rng(5)
     data, origin, res, verts, nv = _chip_smoke()._k3_inputs(rng, 4, 3, dev)
     t = fpm.edge_parameters(16, dev)
@@ -336,8 +339,10 @@ def test_footprint_cost_wrapper_raises_on_what_the_kernel_does_not_take(dev):
         (TypeError, dict(n_valid=nv.long())),
         (ValueError, dict(verts=verts.transpose(0, 1))),     # not contiguous
         (ValueError, dict(n_valid=nv.cpu())),                # mixed devices
-        (ValueError, dict(t=fpm.edge_parameters(65, dev))),  # S > 64
-        (ValueError, dict(verts=torch.zeros(4, 3, 17, 2, device=dev))),
+        # Past the one cap left: one polygon's edges and the samples fill a
+        # block (binding.k3_max_samples).
+        (ValueError, dict(t=torch.zeros(binding.k3_max_samples(8) + 1,
+                                        device=dev))),
         (ValueError, dict(bounds=torch.zeros(4, 3, dtype=torch.int32,
                                              device=dev))),  # wrong shape
     ]
@@ -485,6 +490,67 @@ def test_live_map_step_on_the_card_matches_the_cpu(dev, name):
                             **tree_map(to_cpu, run)).cmds[:, 0]
     diff = (gpu - cpu).abs().amax(-1)
     assert float((diff <= 1e-3).float().mean()) >= 0.99
+
+
+@pytest.mark.parametrize("B,R,V,S,plan", [
+    (131, 1, 20, 32, "measured"), (131, 21, 20, 32, "measured"),
+    (4096, 1, 8, 68, "measured"), (131, 5, 8, 101, "measured"),
+    (131, 21, 8, 100, "measured"), (131, 3, 40, 12, "measured"),
+    (64, 1000, 8, 16, "lane"), (64, 2000, 8, 16, "split"),
+    (16, 1200, 40, 12, "split")])
+def test_footprint_cost_kernel_past_the_old_caps_matches_plain(dev, B, R, V,
+                                                               S, plan):
+    """K3 at more than 16 vertices, more than 64 or an unbuilt count of
+    samples an edge (the general-S instance) and more polygons a lane than
+    a block of the measured shape stages (the one-lane and split plans of
+    binding.k3_variant): exactly its plain version, on the whole grid,
+    patch bounds and a view; one launch a call, counted under its plan."""
+    from neo_mpc_planner2_tpu_torch.kernels import binding
+
+    cs = _chip_smoke()
+    rng = np.random.default_rng(B + R + V + S)
+    data, origin, res, verts, nv = cs._k3_inputs(rng, B, R, dev)
+    verts, nv = cs._widen(rng, verts, nv, V)
+    assert binding.k3_variant(R, V, S)[0] == plan
+    cm = cmap.Costmap(data=data, origin=origin, resolution=res)
+    cx = torch.as_tensor(rng.uniform(-2.0, 2.0, B), dtype=torch.float32,
+                         device=dev)
+    view = cm.replace(win_lo=torch.as_tensor(
+        rng.integers(0, 25, (B, 2)), dtype=torch.int32, device=dev),
+        win_cells=40)
+    vo, vb, vs = (a.contiguous() for a in fpm.kernel_map_arguments(view))
+    t = fpm.edge_parameters(S, dev)
+    for o, bounds, shift in ((origin, None, None),
+                             (origin, cmap.product_patch_bounds(
+                                 cm, cx, cx.flip(0), 28), None),
+                             (vo, vb, vs)):
+        args = (data, o, res, bounds, verts, nv, t, shift)
+        before = fpm.footprint_cost_batch.plans[plan]
+        got = fpm.footprint_cost_batch(*args)
+        torch.cuda.synchronize()
+        assert fpm.footprint_cost_batch.plans[plan] == before + 1
+        assert torch.equal(got, fpm.footprint_cost_batch_plain(*args))
+
+
+@pytest.mark.parametrize("V", [20, 40])
+@pytest.mark.parametrize("R", [1, 21])
+def test_footprint_walk_kernel_past_32_vertices_matches_plain(dev, R, V):
+    """K3's walk at 20 vertices (a thread an edge) and 40 (a thread every
+    32nd edge of its polygon): exactly the plain walk, on the whole grid
+    and through a view."""
+    cs = _chip_smoke()
+    rng = np.random.default_rng(R + V)
+    data, origin, res, verts, nv = cs._walk_inputs(rng, 131, R, dev)
+    verts, nv = cs._widen(rng, verts, nv, V)
+    view = cmap.Costmap(data=data, origin=origin, resolution=res).replace(
+        win_lo=torch.as_tensor(rng.integers(0, 25, (131, 2)),
+                               dtype=torch.int32, device=dev), win_cells=40)
+    vo, vb, vs = (a.contiguous() for a in fpm.kernel_map_arguments(view))
+    for o, bounds, shift in ((origin, None, None), (vo, vb, vs)):
+        args = (data, o, res, bounds, verts, nv, shift)
+        got = fpm.footprint_walk_batch(*args)
+        torch.cuda.synchronize()
+        assert torch.equal(got, fpm.footprint_walk_batch_plain(*args))
 
 
 @pytest.mark.parametrize("R", [1, 3, 21])

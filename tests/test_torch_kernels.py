@@ -461,7 +461,7 @@ def test_chip_smoke_last_lines_name_the_card(monkeypatch, capsys):
     monkeypatch.setattr(build, "last_build",
                         {"built": False, "seconds": 0.0, "log": ""})
     one = dict(max_abs_err=0.0, ms=0.01, plain_ms=1.0, bound_ms=0.002,
-               bound_by="bytes")
+               bound_by="bytes", share_of_bound=0.2)
     variant = lambda m: {"m": m, "ms": 0.01, "plain_ms": 1.0,
                          "bound_ms": 0.002, "bound_by": "operations",
                          "library_ms": None}
@@ -483,9 +483,11 @@ def test_chip_smoke_last_lines_name_the_card(monkeypatch, capsys):
         "launches": {k["name"]: 20 for k in chip_smoke.KERNELS},
         "ticks": 20, "control_steps": s} for s, _ in chip_smoke.HORIZONS}
     monkeypatch.setattr(chip_smoke, "phase_horizons", lambda d, smi: horizons)
-    monkeypatch.setattr(chip_smoke, "phase_k3",
-                        lambda d: {"footprint_cost_max_abs_err": 0.0})
-    monkeypatch.setattr(chip_smoke, "phase_k3_walk", lambda d: {})
+    monkeypatch.setattr(chip_smoke, "phase_k3", lambda d: {
+        "footprint_cost_max_abs_err": 0.0, "plan_lane": one,
+        "plan_split": one, "plans": {"measured": 3, "lane": 2, "split": 2}})
+    monkeypatch.setattr(chip_smoke, "phase_k3_walk", lambda d: {
+        "walk_V40": one, "plans": {"edges_a_thread": 2}})
     monkeypatch.setattr(chip_smoke, "phase_serving", lambda d, smi: {})
     monkeypatch.setattr(chip_smoke, "phase_slice", lambda *a, **kw: {
         "launches": {k["name"]: 40 for k in chip_smoke.KERNELS},
@@ -493,7 +495,7 @@ def test_chip_smoke_last_lines_name_the_card(monkeypatch, capsys):
     monkeypatch.setattr(chip_smoke, "phase_card_vs_cpu",
                         lambda *a, **kw: None)
     monkeypatch.setattr(chip_smoke, "phase_k3_captured",
-                        lambda *a, **kw: {"wave_R21": one})
+                        lambda *a, **kw: {"wave_R21": one, "walk_R1": one})
     monkeypatch.setattr(chip_smoke, "phase_map_refresh", lambda *a: {})
     monkeypatch.setattr(chip_smoke, "phase_launches_per_tick",
                         lambda d, s: {})
@@ -503,6 +505,10 @@ def test_chip_smoke_last_lines_name_the_card(monkeypatch, capsys):
             "ticks": 30} for route in ("fused", "native")})
     monkeypatch.setattr(chip_smoke, "phase_adapter_and_cli",
                         lambda d, smi: {})
+    wide = {"launches": {**{k["name"]: 10 for k in chip_smoke.KERNELS},
+                         "footprint_cost:measured": 10}, "ticks": 10}
+    monkeypatch.setattr(chip_smoke, "phase_wide_footprints", lambda d, smi: {
+        "server_mpo500": wide, "controller_20gon": wide})
     monkeypatch.setattr(chip_smoke, "phase_arms", lambda d, smi, arms, label: {
         name: {"launches": {k["name"]: 20 for k in chip_smoke.KERNELS},
                "ticks": 40} for name in arms})
@@ -521,9 +527,9 @@ def test_chip_smoke_last_lines_name_the_card(monkeypatch, capsys):
     assert [k["name"] for k in kernels] == [k["name"]
                                             for k in chip_smoke.KERNELS]
     # The launches of the timed runs: the slices, the SQP schedules' arms,
-    # the sharded engine and the controller routes.
+    # the sharded engine, the controller routes and the wide footprints.
     arms = len(chip_smoke.COMPACT_ARMS) + len(chip_smoke.WAVE_ARMS)
-    at_m9 = 40 * len(chip_smoke.SLICES) + 20 * arms + 5 + 60
+    at_m9 = 40 * len(chip_smoke.SLICES) + 20 * arms + 5 + 60 + 20
     assert [k["launches"] for k in kernels] == [
         at_m9 + 20 * len(horizons)] * len(kernels)
     assert kernels[0]["launches_per_tick"]["controller_native"] == 1.0
@@ -535,6 +541,11 @@ def test_chip_smoke_last_lines_name_the_card(monkeypatch, capsys):
         (9, at_m9), (36, 20), (237, 0)]
     assert [(v["m"], v["launches"]) for v in kernels[1]["variants"]] == [
         (4, 0)]
+    # K3's launch plans get the launches their counters counted.
+    assert [(v["plan"], v["launches"], v["calls_in_k3_phase"])
+            for v in kernels[2]["variants"]] == [
+        ("measured", 20, 3), ("lane", 0, 2), ("split", 0, 2),
+        ("edge_a_thread", 0, 0), ("edges_a_thread", 0, 2)]
 
 
 def test_chip_smoke_isolated_phases_need_a_card():
@@ -671,18 +682,30 @@ def test_launch_footprint_cost_packs_operands_in_c_order(stub_library):
     (name, args), = stub_library.calls
     sig = _c_signature(name)
     assert len(args) == len(sig)
-    assert [n for _, n in sig[8:-1]] == ["data", "origin", "res", "bounds",
+    assert [n for _, n in sig[9:-1]] == ["data", "origin", "res", "bounds",
                                          "shift", "verts", "n_valid", "t",
                                          "out"]
-    assert args[:8] == (Bm, R, H, W, V, S, *binding.k3_launch_shape(R))
-    assert list(args[8:-1]) == [a.data_ptr() for a in
+    # The measured plan: k3_launch_shape(R), the lane's R polygons a block.
+    assert binding.k3_variant(R, V, S) == ("measured",
+                                           (*binding.k3_launch_shape(R), R))
+    assert args[:9] == (Bm, R, H, W, V, S, *binding.k3_launch_shape(R), R)
+    assert list(args[9:-1]) == [a.data_ptr() for a in
                                 (data, origin, res, bounds, shift, verts, nv,
                                  t, out)]
     assert out.shape == (Bm, R)
     binding.launch_footprint_cost(data, origin, res, None, verts, nv, t,
                                   shape=(2, 3))
     args = stub_library.calls[-1][1]
-    assert args[6:8] == (2, 3) and args[11] is None and args[12] is None
+    assert args[6:9] == (2, 3, R) and args[12] is None and args[13] is None
+    # Past one block a lane, the split plan: chunks of the polygons that
+    # fit one block.
+    R = 2000
+    verts = torch.zeros(Bm, R, V, 2)
+    nv = torch.zeros(Bm, R, dtype=torch.int32)
+    binding.launch_footprint_cost(data, origin, res, None, verts, nv, t)
+    chunk = (binding.MAX_SMEM - 4 * S) // (16 * V + 4)
+    assert stub_library.calls[-1][1][:9] == (Bm, R, H, W, V, S, 1,
+                                             binding.K3_WIDE_WARPS, chunk)
 
 
 @pytest.mark.parametrize("fault", ["lane_minor", "float64", "strided",
@@ -710,18 +733,65 @@ def test_qp_admm_kernel_operands_are_checked(fault):
         tsqp._check_qp_operands(args, m)
 
 
+@pytest.mark.parametrize("V,S", [(8, 16), (8, 68), (20, 32), (40, 12),
+                                 (8, 101)])
+def test_k3_variant_boundaries(V, S):
+    """binding.k3_variant at its boundaries: the last R a block of the
+    measured shape (two lanes of two warps) stages, the first R of the
+    one-lane plan, its last, and the first split, whose chunks fill a block
+    and cover the lane's polygons."""
+    poly = 16 * V + 4
+    two = (binding.MAX_SMEM - 4 * S) // (2 * poly)
+    one = (binding.MAX_SMEM - 4 * S) // poly
+    assert binding.k3_launch_shape(two) == (2, 2)
+    assert binding.k3_variant(two, V, S) == ("measured", (2, 2, two))
+    assert binding.k3_smem_bytes(two + 1, V, S, 2) > binding.MAX_SMEM
+    assert binding.k3_variant(two + 1, V, S) == (
+        "lane", (1, binding.K3_WIDE_WARPS, two + 1))
+    assert binding.k3_variant(one, V, S) == (
+        "lane", (1, binding.K3_WIDE_WARPS, one))
+    name, (lanes, warps, chunk) = binding.k3_variant(one + 1, V, S)
+    assert (name, lanes, warps, chunk) == ("split", 1,
+                                           binding.K3_WIDE_WARPS, one)
+    assert binding.k3_smem_bytes(chunk, V, S, 1) <= binding.MAX_SMEM
+    assert binding.k3_smem_bytes(chunk + 1, V, S, 1) > binding.MAX_SMEM
+    # The split's grid axis bounds R: K3_MAX_CHUNKS chunks.
+    last = binding.K3_MAX_CHUNKS * chunk
+    assert binding.k3_variant(last, V, S)[0] == "split"
+    with pytest.raises(ValueError, match="chunks"):
+        binding.k3_variant(last + 1, V, S)
+    # The slices' shapes (R = 1, 3, control_steps, a wave's 21) stay
+    # measured at the MPO-700's eight vertex slots.
+    if V == 8 and S <= 101:
+        for R in (1, 3, 5, 21, 35):
+            assert binding.k3_variant(R, V, S) == (
+                "measured", (*binding.k3_launch_shape(R), R))
+
+
 def test_footprint_cost_kernel_limits_are_checked():
+    """What K3 takes: any R, V and S whose one polygon fits a block; the
+    plan that serves each (binding.k3_variant); a raise past the one cap
+    left, the samples an edge (binding.k3_max_samples)."""
     meta = lambda *s, dt=torch.float32: torch.empty(s, dtype=dt,
                                                     device="meta")
     ok = (meta(2, 8, 8), meta(2, 2), meta(2), None, meta(2, 21, 8, 2),
           meta(2, 21, dt=torch.int32), meta(16))
-    tfp._check_kernel_inputs(*ok)
+    assert tfp._check_kernel_inputs(*ok) == "measured"
     assert binding.k3_smem_bytes(21, 8, 16, 4) == 4 * 21 * (16 * 8 + 4) + 64
-    too_many = (meta(2, 8, 8), meta(2, 2), meta(2), None,
-                meta(2, 1000, 16, 2), meta(2, 1000, dt=torch.int32),
-                meta(16))
+    many = (meta(2, 8, 8), meta(2, 2), meta(2), None,
+            meta(2, 1000, 16, 2), meta(2, 1000, dt=torch.int32), meta(16))
+    assert tfp._check_kernel_inputs(*many) == "split"
+    # Above 16 vertices and 64 samples an edge: the measured plan still.
+    wide = (meta(2, 8, 8), meta(2, 2), meta(2), None, meta(2, 1, 40, 2),
+            meta(2, 1, dt=torch.int32), meta(101))
+    assert tfp._check_kernel_inputs(*wide) == "measured"
+    S_cap = binding.k3_max_samples(8)
+    assert S_cap == (binding.MAX_SMEM - 16 * 8 - 4) // 4 == 58079
+    at_cap = (meta(2, 8, 8), meta(2, 2), meta(2), None, meta(2, 1, 8, 2),
+              meta(2, 1, dt=torch.int32), meta(S_cap))
+    assert tfp._check_kernel_inputs(*at_cap) == "lane"
     with pytest.raises(ValueError, match="shared memory"):
-        tfp._check_kernel_inputs(*too_many)
+        tfp._check_kernel_inputs(*at_cap[:6], meta(S_cap + 1))
     wide = (meta(2, 1, 2 ** 24), *ok[1:])
     with pytest.raises(ValueError, match="too large"):
         tfp._check_kernel_inputs(*wide)
@@ -945,10 +1015,12 @@ def test_footprint_walk_batch_checks_and_refuses_other_devices():
     tfp._check_kernel_inputs(meta(2, 8, 8), meta(2, 2), meta(2), None,
                              meta(2, 5000, 16, 2),
                              meta(2, 5000, dt=torch.int32), None)
-    with pytest.raises(ValueError, match="footprint_walk_batch.*vertices"):
-        tfp._check_kernel_inputs(meta(2, 8, 8), meta(2, 2), meta(2), None,
-                                 meta(2, 1, 17, 2),
-                                 meta(2, 1, dt=torch.int32), None)
+    # Nor a vertex cap: above 32 vertices a thread walks every 32nd edge.
+    for V, plan in ((32, "edge_a_thread"), (33, "edges_a_thread"),
+                    (500, "edges_a_thread")):
+        assert tfp._check_kernel_inputs(
+            meta(2, 8, 8), meta(2, 2), meta(2), None, meta(2, 1, V, 2),
+            meta(2, 1, dt=torch.int32), None) == plan
 
 
 def test_k3_walk_cells_match_a_brute_force_count():
