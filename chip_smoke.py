@@ -45,7 +45,7 @@ shard equal to the uninterrupted one, the directory loaded whole by a
 process with no group bit-equal to the ranks' states); and the server's
 fleet ops sharded over the visible cards, answering as one card does.
 Then the horizons: the fleet closed loop at control_steps 1, 5, 8 and 12
-(m = 3, 15, 24, 36; 12 runs K1's block-team design), each with K1's first
+(m = 3, 15, 24, 36; 8 and 12 run K1's warp-lane design), each with K1's first
 call held against its plain version and its first tick against the CPU;
 the product loop at control_steps 5 with K3 held on its captured calls;
 tests/test_horizons.py's oracle cases with the solve on the card; and a
@@ -108,9 +108,9 @@ KERNEL_KEYS = ("name", "route", "source", "replaces", "launches",
 TIMING = ("*_ms: the kernel's device time (torch.profiler, median of 3 x "
           "20 launches); *_wrapper_ms and *_plain_ms: one call between CUDA "
           "events, median of 20; *_library_ms: the device time of one "
-          "PyTorch call's kernels, mean of 20; from m = 36 on, where one "
-          "call takes over 1 ms, *_ms and *_library_ms are one call between "
-          "CUDA events too (median of 20, of 2 at the caps)")
+          "PyTorch call's kernels, mean of 20; from m = 36 on *_ms and "
+          "*_library_ms are one call between CUDA events too, the enqueue "
+          "included (median of 20, of 2 at the caps)")
 
 SLICE_TICKS = 20
 # Each slice's warm-up run (the product and rolling slices' K3 calls are
@@ -138,7 +138,9 @@ def _ptxas_report(log: str) -> dict:
     """Registers, stack and spill bytes per kernel instance from nvcc's
     `-Xptxas -v` output, keyed like "qp_admm_m15", "spd_inv_m9_w4",
     "footprint_cost_S16", "footprint_walk", or, for the kernels that take m
-    at run time, "qp_admm_block_team" and "spd_inv_runtime_m"."""
+    at run time, "qp_admm_warp_lane_64" (its row capacity),
+    "qp_admm_block_lane", "spd_inv_runtime_warp" and
+    "spd_inv_runtime_block"."""
     import re
 
     report, name = {}, None
@@ -147,7 +149,8 @@ def _ptxas_report(log: str) -> dict:
                          r"footprint_walk_kernel", line)
         runtime_m = re.search(r"Compiling entry function '\w*?"
                               r"(qp_admm|spd_inv)_kernel_"
-                              r"(block_team|runtime_m)", line)
+                              r"(warp_lane|block_lane|runtime_warp|"
+                              r"runtime_block)(?:ILi(\d+)E)?", line)
         hit = re.search(r"Compiling entry function '\w*?"
                         r"(qp_admm|spd_inv|footprint_cost)_kernelILi(\d+)E"
                         r"(?:Li(\d+)E)?(?:Lb(\d)E)?", line)
@@ -156,6 +159,8 @@ def _ptxas_report(log: str) -> dict:
             report[name] = {}
         elif runtime_m:
             name = f"{runtime_m.group(1)}_{runtime_m.group(2)}"
+            if runtime_m.group(3):
+                name += f"_{runtime_m.group(3)}"
             report[name] = {}
         elif hit:
             # K1 instances are keyed by m, K2's by m and warps a block, K3's
@@ -371,12 +376,24 @@ def _qp_inputs(rng, B, m, device):
             t(hi), *(t(a) for a in carry)]
 
 
+def _spd_inputs(rng, B, m, device):
+    """B random SPD m x m matrices, batch-major (B, m, m)."""
+    import numpy as np
+    import torch
+
+    A = rng.normal(size=(B, m, m)).astype(np.float32) * 0.3
+    return torch.as_tensor(
+        A @ np.swapaxes(A, -1, -2) + np.eye(m, dtype=np.float32),
+        device=device)
+
+
 def phase_launch_counts(device) -> dict:
     """One qp_admm call is one CUDA launch and one kernel on the card at
-    every width of K1_TIMED (B = 4096, 60 iterations), and so is one
-    chol_inverse call of each K2 design (m = 9 unrolled, 24 runtime-m; B =
-    4096). First after the build: torch.profiler may lose the device
-    records of a short trace once the process has taken many traces."""
+    every width of K1_TIMED (B = 4096, 60 iterations: each design), and so
+    is one chol_inverse call of each K2 plan (m = 9 unrolled, 24 a warp a
+    matrix, 65 a block a matrix; B = 4096). First after the build:
+    torch.profiler may lose the device records of a short trace once the
+    process has taken many traces."""
     import numpy as np
 
     from neo_mpc_planner2_tpu_torch import sqp
@@ -390,8 +407,8 @@ def phase_launch_counts(device) -> dict:
         args = _qp_inputs(rng, 4096, m, device)
         calls[f"qp_admm_m{m}"] = (lambda a: lambda: sqp.qp_admm(
             *a, iters=60))(args)
-    for m in (9, 24):
-        A = _qp_inputs(rng, 4096, m, device)[0].reshape(4096, m, m)
+    for m in (9, 24, 65):
+        A = _spd_inputs(rng, 4096, m, device)
         calls[f"spd_inv_m{m}"] = (lambda M: lambda: sqp.chol_inverse(M))(
             A.contiguous())
     for name, call in calls.items():
@@ -405,12 +422,14 @@ def phase_launch_counts(device) -> dict:
 
 
 # K1's checked cases: (m, batch sizes, iteration counts). m = 6, 9, 15 at
-# every size; the horizons' new widths (m = 3, 24 in the warp-team design,
-# 36 and K1's cap in the block-team design) at B = 1 and 4096.
+# every size; the other designs' boundaries and the horizons' widths (the
+# warp team at 3 and 18, the warp lane at 21, 24, 33, 36 and 63, the block
+# lane at 66, 96 and K1's cap) at B = 1 and 4096.
 K1_CASES = tuple((m, (1, 131, 4096), (6, 60)) for m in (6, 9, 15)) + tuple(
-    (m, (1, 4096), (60,)) for m in (3, 24, 36, "cap"))
-# The widths timed at B = 4096, 60 iterations.
-K1_TIMED = (3, 9, 15, 24, 36, "cap")
+    (m, (1, 4096), (60,))
+    for m in (3, 18, 21, 24, 33, 36, 63, 66, 96, "cap"))
+# The widths timed at B = 4096, 60 iterations: every design's boundaries.
+K1_TIMED = (3, 9, 15, 18, 21, 24, 36, 63, 66, 96, "cap")
 
 
 def _reps(m: int) -> int:
@@ -419,9 +438,11 @@ def _reps(m: int) -> int:
     return 20 if m <= 36 else 2
 
 
-# From this width on a K1 or K2 call takes over 1 ms, and its device time
-# is one call between CUDA events (the enqueue is under 1 % of it): fewer
-# profiler sessions after the heavy plain versions.
+# From this width on a K1 or K2 call's device time is one call between
+# CUDA events, the host's enqueue included: fewer profiler sessions after
+# the heavy plain versions. (The runtime-m designs take 0.1-0.2 ms at
+# m = 36, where the events read ~0.06 ms above the profiler's device
+# time.)
 EVENTS_FROM_M = 36
 
 
@@ -477,7 +498,7 @@ def phase_kernels(device):
                 reps = _reps(m)
                 ms = _kernel_ms(call, "qp_admm_kernel", m)
                 report[f"qp_admm_m{m}_ms"] = ms
-                if m in (9, 15):
+                if m in (9, 15, 36):
                     report[f"qp_admm_m{m}_iters0_ms"] = _device_ms(
                         lambda: sqp.qp_admm(*args, iters=0, rho=1.0,
                                             sigma=1e-6), "qp_admm_kernel")
@@ -489,7 +510,8 @@ def phase_kernels(device):
                 report[f"qp_admm_m{m}_bound_ms"] = work["bound_ms"]
                 report[f"qp_admm_m{m}_bound_by"] = work["bound_by"]
                 report["variants"].append({
-                    "m": m, "variant": binding.qp_admm_variant(m), "B": B,
+                    "m": m, "variant": binding.qp_admm_variant(m),
+                    "warps_per_lane": binding.k1_warps_per_lane(m), "B": B,
                     "iters": iters, "ms": ms, "plain_ms": plain_ms,
                     "bound_ms": work["bound_ms"],
                     "bound_by": work["bound_by"],
@@ -508,19 +530,21 @@ def phase_kernels(device):
 K2_SIZES = (1, 131, 4096, 65536)
 K2_TIMED = (4096, 65536)
 # K2's checked cases: (m, batch sizes). m = 6, 9, 15 at every size of
-# K2_SIZES; the horizons' widths (m = 3 unrolled; 4, 24, 36 and K2's cap
-# in the runtime-m design) at B = 1 and 4096.
+# K2_SIZES; m = 3 (unrolled) and the runtime-m kernel's widths (a warp a
+# matrix at 1, 2, 4, 19, 24, 33, 36 and 40, its last; a block a matrix at
+# 41, its first, 64, 96 and K2's cap) at B = 1 and 4096.
 K2_CASES = tuple((m, K2_SIZES) for m in (6, 9, 15)) + tuple(
-    (m, (1, 4096)) for m in (3, 4, 24, 36, "cap"))
+    (m, (1, 4096))
+    for m in (3, 1, 2, 4, 19, 24, 33, 36, 40, 41, 64, 96, "cap"))
 
 
 def phase_k2(device):
     """K2 against its plain version at every case of K2_CASES and on
-    tests/test_solver.py's ill-conditioned diagonal, within rtol 2e-4 /
-    atol 2e-5, with the residual |MX - I|; timed at B = 4096 (and 65536),
-    each timed call on the next of copies of M that together exceed twice
-    the L2: the kernel, the whole call, the plain version, the library
-    call (torch.linalg.inv), the bound (one launch a call:
+    tests/test_solver.py's ill-conditioned diagonal (in each plan), within
+    rtol 2e-4 / atol 2e-5, with the residual |MX - I|; timed at B = 4096
+    (and 65536), each timed call on the next of copies of M that together
+    exceed twice the L2: the kernel, the whole call, the plain version, the
+    library call (torch.linalg.inv), the bound (one launch a call:
     phase_launch_counts)."""
     import numpy as np
     import torch
@@ -532,17 +556,17 @@ def phase_k2(device):
     rtol, atol = 2e-4, 2e-5
     inv = {"cap_m": binding.K2_MAX_M, "variants": []}
     worst_inv, worst_res = 0.0, 0.0
-    ill = torch.diag(torch.tensor([1e4, 1e3, 1e2, 10, 1, 1, 0.1, 0.01, 1e-3],
-                                  device=device))[None]
-    cases = [(9, ill)]
     cap = binding.K2_MAX_M
+    # The ill-conditioned diagonal in each plan: unrolled at 9, a warp a
+    # matrix at 24, a block a matrix at 41 and the cap (padded with ones).
+    diag = [1e4, 1e3, 1e2, 10, 1, 1, 0.1, 0.01, 1e-3]
+    cases = [(m, torch.diag(torch.tensor(diag + [1.0] * (m - 9),
+                                         device=device))[None])
+             for m in (9, 24, 41, cap)]
     for m, sizes in K2_CASES:
         m = cap if m == "cap" else m
         for B in sizes:
-            A = rng.normal(size=(B, m, m)).astype(np.float32) * 0.3
-            cases.append((m, torch.as_tensor(
-                A @ np.swapaxes(A, -1, -2) + np.eye(m, dtype=np.float32),
-                device=device)))
+            cases.append((m, _spd_inputs(rng, B, m, device)))
     for m, M in cases:
         B = M.shape[0]
         got = sqp.chol_inverse(M)
@@ -567,8 +591,9 @@ def phase_k2(device):
         call = rotating(sqp.chol_inverse, ring)
         reps = _reps(m)
         inv[f"spd_inv_{tag}_copies"] = len(ring)
+        shape = binding.spd_inv_shape(m, B, device)
         inv[f"spd_inv_{tag}_variant"] = binding.spd_inv_variant(m)
-        inv[f"spd_inv_{tag}_warps"] = binding.k2_launch_shape(B, device)
+        inv[f"spd_inv_{tag}_shape"] = shape
         inv[f"spd_inv_{tag}_ms"] = _kernel_ms(call, "spd_inv_kernel", m)
         inv[f"spd_inv_wrapper_{tag}_ms"] = _time_ms(call, reps)
         inv[f"spd_inv_plain_{tag}_ms"] = _time_ms(
@@ -585,7 +610,11 @@ def phase_k2(device):
         inv[f"spd_inv_{tag}_share_of_bound"] = (work["bound_ms"]
                                                 / inv[f"spd_inv_{tag}_ms"])
         inv["variants"].append({
-            "m": m, "variant": inv[f"spd_inv_{tag}_variant"], "B": B,
+            "m": m, "variant": inv[f"spd_inv_{tag}_variant"],
+            "plan": ("unrolled" if m in binding.K2_UNROLLED_M
+                     else binding.k2_runtime_plan(shape)),
+            "warps_per_block": shape[0], "matrices_per_block": shape[1],
+            "B": B,
             "ms": inv[f"spd_inv_{tag}_ms"],
             "plain_ms": inv[f"spd_inv_plain_{tag}_ms"],
             "bound_ms": work["bound_ms"], "bound_by": work["bound_by"],
@@ -1561,7 +1590,7 @@ def phase_arm_launches(device, arms: dict, batch: int = 4096) -> dict:
 
 # The horizons phase: (control_steps, prediction_horizon) pairs of the
 # JAX package's horizon tests (tests/test_horizons.py:14) and 12, the first
-# horizon past one warp's team (K1's block-team design); the product
+# horizon past one warp's team (K1's warp-lane design); the product
 # point's horizon; the rows of the first tick held against the CPU.
 HORIZONS = ((1, 0.3), (5, 1.0), (8, 1.6), (12, 2.4))
 HORIZON_PRODUCT = (5, 1.0)

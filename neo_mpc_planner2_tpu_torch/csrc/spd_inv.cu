@@ -38,15 +38,26 @@
 // static shared memory there (56 KB at m = 21), and a thread's factor,
 // m (m + 1) / 2 floats, fills its 255 registers (231 at m = 21).
 //
-// The runtime-m design (spd_inv_kernel_runtime_m), every other m: one matrix a
-// block, a thread a row (m rounded up to whole warps), the matrix in dynamic
-// shared memory at an odd row stride, inverted in place by spd_inverse.cuh's
-// team_inverse, whose sums keep the unrolled design's _tree_sum order. Its
-// shared memory, (m team_ld(m) + m) floats, caps m at 240 (m = 241 would take
-// 233,288 bytes of the 232,448 a block may have); from 48 KB on the launcher
-// raises the kernel's dynamic shared memory limit. Its bound is its dependent
-// chain: thread 0 computes the longest column, ~m^2 terms through TreeSum's
-// merges, with a barrier for each of the factor's m columns.
+// The runtime-m design, every other m up to K2's cap (240: a block's
+// matrix at an odd stride and its reciprocal diagonal, (m team_ld(m) + m)
+// floats, must fit the 232,448 bytes a block may have; from 48 KB on the
+// launcher raises the kernel's dynamic shared memory limit). What bounds it
+// on an H100: operations, ~m^3 a matrix (Cholesky, L^-1 and L^-T L^-1, a
+// third each) on entries in shared memory; left to one thread a column,
+// they are a dependent chain of ~m^2 sums with a barrier a pivot.
+// spd_inverse.cuh's team_inverse spreads every pass of a right-looking
+// sweep over a team of threads, four pivots a pass and two syncs of the
+// team a pass (~m/2 in all), each trailing entry loaded and stored once a
+// pass. The design:
+//   - a team of threads shares each matrix: a warp (spd_inv_kernel_
+//     runtime_warp: several matrices a block, each warp staging, inverting
+//     and writing back its own, synchronised by __syncwarp alone) or, for
+//     wide matrices, a whole block (spd_inv_kernel_runtime_block, up to
+//     1024 threads a matrix over the entries of each step);
+//     binding.k2_runtime_shape picks the plan and the threads from m, by a
+//     measurement on the card (PERF.md);
+//   - staging in is asynchronous and coalesced (4-byte cp.async into the
+//     odd stride), write-back coalesced 16-byte stores where aligned.
 // TMA and wgmma do not fit: each matrix is its own small problem with no
 // operand shared between matrices, and a block's 10 KB (m = 9) of
 // contiguous floats is one sweep of cp.async.
@@ -183,52 +194,131 @@ cudaError_t launch_inv(const void* Av, void* Xv, int B, int warps,
   }
 }
 
-// One matrix a block: staged whole (coalesced), inverted by team_inverse,
-// written back whole.
-__global__ void __launch_bounds__(256) spd_inv_kernel_runtime_m(
+// Writes the whole inverse that team_inverse left in the lower triangle of
+// S to global dst, m*m floats row-major, coalesced: 16-byte stores where
+// dst is on a 16-byte boundary and m*m a multiple of 4, 4-byte stores
+// otherwise.
+template <class Team>
+__device__ __forceinline__ void write_inverse(float* dst, const float* S,
+                                              int ld, int m,
+                                              const Team& team) {
+  const int n = m * m;
+  if (n % 4 == 0 && (reinterpret_cast<uintptr_t>(dst) & 15) == 0) {
+    if (4 * team.rank >= n) return;
+    GridWalk g(4 * team.rank, 4 * team.size, m);
+    for (int q = team.rank; 4 * q < n; q += team.size, g.next()) {
+      float v[4];
+      int r = g.q, c = g.r;
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        v[u] = inverse_at(S, ld, r, c);
+        if (++c == m) {
+          c = 0;
+          ++r;
+        }
+      }
+      reinterpret_cast<float4*>(dst)[q] = make_float4(v[0], v[1], v[2], v[3]);
+    }
+  } else {
+    if (team.rank >= n) return;
+    GridWalk g(team.rank, team.size, m);
+    for (int e = team.rank; e < n; e += team.size, g.next())
+      dst[e] = inverse_at(S, ld, g.q, g.r);
+  }
+}
+
+// Floats of shared memory of one matrix of the runtime-m kernels: the
+// matrix at stride team_ld(m) and its reciprocal diagonal.
+__host__ __device__ constexpr long long runtime_floats(int m) {
+  return static_cast<long long>(m) * team_ld(m) + m;
+}
+
+// The runtime-m kernel, a warp a matrix: blockDim.x / 32 consecutive
+// matrices a block, each staged, inverted and written back by its own warp
+// with no block barrier.
+__global__ void __launch_bounds__(1024) spd_inv_kernel_runtime_warp(
+    const float* __restrict__ A, float* __restrict__ Xout, int B, int m) {
+  extern __shared__ float spd_smem[];
+  const int ld = team_ld(m);
+  const int warp = threadIdx.x >> 5;
+  const long long b =
+      static_cast<long long>(blockIdx.x) * (blockDim.x >> 5) + warp;
+  if (b >= B) return;
+  const WarpTeam team{static_cast<int>(threadIdx.x & 31)};
+  float* S = spd_smem + warp * runtime_floats(m);
+  float* D = S + m * ld;
+  const long long base = b * m * m;
+  stage_matrix(S, ld, A + base, m, team);
+  __pipeline_commit();
+  __pipeline_wait_prior(0);
+  team.sync();
+  team_inverse<kPanel>(S, D, m, ld, team);
+  write_inverse(Xout + base, S, ld, m, team);
+}
+
+// The runtime-m kernel, a block a matrix: every thread of the block shares
+// each step of the inverse.
+__global__ void __launch_bounds__(1024) spd_inv_kernel_runtime_block(
     const float* __restrict__ A, float* __restrict__ Xout, int m) {
   extern __shared__ float spd_smem[];
   const int ld = team_ld(m);
+  const BlockTeam team{static_cast<int>(threadIdx.x),
+                       static_cast<int>(blockDim.x)};
   float* S = spd_smem;
   float* D = S + m * ld;
   const long long base = static_cast<long long>(blockIdx.x) * m * m;
-  for (int k = threadIdx.x; k < m * m; k += blockDim.x)
-    S[(k / m) * ld + k % m] = __ldg(A + base + k);
-  __syncthreads();
-  team_inverse(S, D, m, threadIdx.x);
-  for (int k = threadIdx.x; k < m * m; k += blockDim.x)
-    Xout[base + k] = S[(k / m) * ld + k % m];
+  stage_matrix(S, ld, A + base, m, team);
+  __pipeline_commit();
+  __pipeline_wait_prior(0);
+  team.sync();
+  team_inverse<kPanel>(S, D, m, ld, team);
+  write_inverse(Xout + base, S, ld, m, team);
 }
 
-static long long spd_block_smem(int m) {
-  return 4LL * (static_cast<long long>(m) * team_ld(m) + m);
-}
-
-static cudaError_t launch_inv_block(const void* A, void* X, int B, int m,
-                                    cudaStream_t s) {
-  const long long smem = spd_block_smem(m);
-  if (m < 1 || smem > kMaxBlockSmem) return cudaErrorInvalidValue;
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        spd_inv_kernel_runtime_m,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-    if (err != cudaSuccess) return err;
+// A warp a matrix where matrices == warps (blocks of `warps` matrices),
+// else a block of `warps` warps a matrix (matrices == 1).
+static cudaError_t launch_inv_runtime(const void* Av, void* Xv, int B, int m,
+                                      int warps, int matrices,
+                                      cudaStream_t s) {
+  if (m < 1 || warps < 1 || warps > 32) return cudaErrorInvalidValue;
+  const bool warp_each = matrices == warps;
+  if (!warp_each && matrices != 1) return cudaErrorInvalidValue;
+  const long long smem = 4 * runtime_floats(m) * (warp_each ? matrices : 1);
+  const cudaError_t err = set_smem(
+      warp_each ? reinterpret_cast<const void*>(spd_inv_kernel_runtime_warp)
+                : reinterpret_cast<const void*>(spd_inv_kernel_runtime_block),
+      smem);
+  if (err != cudaSuccess) return err;
+  const float* A = static_cast<const float*>(Av);
+  float* X = static_cast<float*>(Xv);
+  if (warp_each) {
+    const long long blocks =
+        (static_cast<long long>(B) + matrices - 1) / matrices;
+    spd_inv_kernel_runtime_warp<<<static_cast<unsigned>(blocks), 32 * warps,
+                                  static_cast<size_t>(smem), s>>>(A, X, B, m);
+  } else {
+    spd_inv_kernel_runtime_block<<<static_cast<unsigned>(B), 32 * warps,
+                                   static_cast<size_t>(smem), s>>>(A, X, m);
   }
-  const int threads = (m + 31) / 32 * 32;
-  spd_inv_kernel_runtime_m<<<static_cast<unsigned>(B), threads,
-                             static_cast<size_t>(smem), s>>>(
-      static_cast<const float*>(A), static_cast<float*>(X), m);
   return cudaGetLastError();
 }
 
 }  // namespace neo_mpc
 
-// A, X: batch-major (B, m, m) float32; warps_per_block 1 or 4 (read by the
-// unrolled design only). Returns cudaGetLastError().
+// A, X: batch-major (B, m, m) float32. The unrolled design (m = 3, 6, ..,
+// 18) takes blocks of 32 matrices (matrices_per_block = 32) at
+// warps_per_block 1 or 4; the runtime-m kernel (any other m up to K2's cap)
+// a warp a matrix where matrices_per_block == warps_per_block, a block of
+// warps_per_block warps a matrix where matrices_per_block == 1. Returns
+// cudaGetLastError().
 extern "C" int neo_spd_inv_f32(int m, int B, int warps_per_block,
-                               const void* A, void* X, void* stream) {
+                               int matrices_per_block, const void* A,
+                               void* X, void* stream) {
   if (B <= 0) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const bool unrolled = m >= 3 && m <= 18 && m % 3 == 0;
+  if (unrolled && matrices_per_block != neo_mpc::kMatricesPerBlock)
+    return static_cast<int>(cudaErrorInvalidValue);
   switch (m) {
     case 3: return neo_mpc::launch_inv<3>(A, X, B, warps_per_block, s);
     case 6: return neo_mpc::launch_inv<6>(A, X, B, warps_per_block, s);
@@ -237,6 +327,7 @@ extern "C" int neo_spd_inv_f32(int m, int B, int warps_per_block,
     case 15: return neo_mpc::launch_inv<15>(A, X, B, warps_per_block, s);
     case 18: return neo_mpc::launch_inv<18>(A, X, B, warps_per_block, s);
     default:
-      return static_cast<int>(neo_mpc::launch_inv_block(A, X, B, m, s));
+      return static_cast<int>(neo_mpc::launch_inv_runtime(
+          A, X, B, m, warps_per_block, matrices_per_block, s));
   }
 }

@@ -1,19 +1,24 @@
-// Device functions of the SPD inverse (K2, spd_inv.cu) and the pairwise sum
-// both kernels share. K1's warp-team design (qp_admm.cu) has its own team
-// inverse and takes only tree_sum and max_nan from here; K1's block-team
-// design and K2's runtime-m kernel share team_inverse below.
+// Device functions of the SPD inverse, shared by K1 (qp_admm.cu) and K2
+// (spd_inv.cu).
 //
-// Mirrors neo_mpc_planner2_tpu/sqp.py::_chol_inverse_unrolled: Cholesky with
-// the diagonal carried as its reciprocal square root (rsqrtf, so neither the
+// The unrolled functions (tree_sum, cholesky, inverse_column: K2's unrolled
+// design; K1's warp team takes tree_sum and max_nan) mirror
+// neo_mpc_planner2_tpu/sqp.py::_chol_inverse_unrolled: Cholesky with the
+// diagonal carried as its reciprocal square root (rsqrtf, so neither the
 // factorization nor the substitutions divide), forward substitution for
 // Y = L^-1 (lower triangular), back substitution for the lower triangle of
-// X = L^-T Y, mirrored to the upper. Every inner dot product is summed
-// pairwise in the order of the reference's _tree_sum.
-//
-// The unrolled functions (tree_sum, cholesky, inverse_column) are fully
+// X = L^-T Y, mirrored to the upper, every inner dot product summed
+// pairwise in the order of the reference's _tree_sum. They are fully
 // unrolled: every index is a compile-time constant, so ptxas keeps the
-// arrays in registers. TreeSum and team_inverse take m at run time.
+// arrays in registers.
+//
+// team_inverse takes m at run time and spreads each step over a team of
+// threads (a warp or a block): K1's warp-lane and block-lane designs and
+// K2's runtime-m kernel.
 #pragma once
+
+#include <cuda_pipeline.h>
+#include <cuda_runtime.h>
 
 namespace neo_mpc {
 
@@ -103,134 +108,288 @@ __device__ __forceinline__ void inverse_column(const float (&L)[M][M],
   }
 }
 
-// The pairwise sum of sqp.py::_tree_sum over terms fed one at a time, for
-// up to 2^kTreeLevels - 1 terms. _tree_sum pairs neighbours level by level
-// and carries an odd tail up, so its result is the sum of the aligned
-// power-of-two blocks of the terms: block[l] holds the pending block of
-// 2^l terms when bit l of the count is set; a new term merges with the
-// pending blocks of the count's trailing ones (left operand first), and at
-// the end the pending blocks combine from the smallest (rightmost) up.
-// Every index of `block` is a compile-time constant (the loops unroll and
-// the count only selects), so it stays in registers.
-constexpr int kTreeLevels = 8;
-
-struct TreeSum {
-  float block[kTreeLevels];
-  int count = 0;
-
-  __device__ __forceinline__ void add(float v) {
-    bool placed = false;
-#pragma unroll
-    for (int l = 0; l < kTreeLevels; ++l) {
-      if (!placed) {
-        if ((count >> l) & 1) {
-          v = block[l] + v;
-        } else {
-          block[l] = v;
-          placed = true;
-        }
-      }
-    }
-    ++count;
-  }
-
-  // The sum of the terms added; 0 if none.
-  __device__ __forceinline__ float sum() const {
-    float s = 0.0f;
-    bool any = false;
-#pragma unroll
-    for (int l = 0; l < kTreeLevels; ++l) {
-      if ((count >> l) & 1) {
-        s = any ? block[l] + s : block[l];
-        any = true;
-      }
-    }
-    return s;
-  }
-};
 
 // The most shared memory a block may take on an H100 (227 KB).
 constexpr long long kMaxBlockSmem = 232448;
 
+// Lets a kernel take `smem` bytes of dynamic shared memory: above 48 KB
+// the kernel's limit must be raised first; above kMaxBlockSmem it cannot.
+static inline cudaError_t set_smem(const void* kernel, long long smem) {
+  if (smem > kMaxBlockSmem) return cudaErrorInvalidValue;
+  if (smem <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(kernel,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(smem));
+}
+
 // Row stride of a team's matrix in shared memory: m rounded up to odd, so
-// that threads reading one column each of consecutive rows hit distinct
-// banks.
+// that threads reading one column of consecutive rows hit distinct banks.
 __host__ __device__ constexpr int team_ld(int m) { return m | 1; }
 
-// The SPD inverse of one m x m matrix by the threads of a block, m at run
-// time: thread i < m owns row i (threads from m on only meet the barriers).
-// S holds the matrix at row stride team_ld(m) in shared memory, of which
-// only the lower triangle (i >= j) is read; D is m floats of shared memory.
-// On return (after a barrier) S holds the whole symmetric inverse and D the
-// reciprocal diagonal of the Cholesky factor. The same arithmetic as
-// sqp.py::_chol_inverse_unrolled, every inner product summed in its
-// _tree_sum order (TreeSum):
-//   - Cholesky, column by column: thread j takes the pivot, then every row
-//     below it its entry of column j, each row of L written over the row of
-//     the matrix by its own thread;
-//   - thread c then computes column c of Y = L^-1 (forward substitution)
-//     into the strict upper part of row c, Y[r][c] at S[c][r], which no
-//     thread reads as L, and column c of X = L^-T Y (back substitution)
-//     over it, X[c][c] on the diagonal (whose L entry nothing reads after
-//     the factorization: the substitutions scale by D);
-//   - each row i then mirrors X[i][j], j < i, from S[j][i] into its lower
-//     part.
-// The strict upper triangle is written before it is read, so garbage there
-// never reaches the result.
+// The threads that share one matrix: a warp (its lanes synchronised by
+// __syncwarp) or a whole block (by __syncthreads).
+struct WarpTeam {
+  int rank;
+  static constexpr int size = 32;
+  __device__ __forceinline__ void sync() const { __syncwarp(); }
+};
+
+struct BlockTeam {
+  int rank;
+  int size;
+  __device__ __forceinline__ void sync() const { __syncthreads(); }
+};
+
+// floor(a / w) for 0 <= a < 2^21 and 1 <= w < 2^21: (a + 1/2) / w lies at
+// least 1/(2w) from an integer, further than the float32 rounding of the
+// reciprocal and the product can move it, so truncation is exact; a few
+// instructions where an integer division takes ~20 (on an H100 the
+// runtime-m kernels ran 4-6 % faster with it; PERF.md).
+__device__ __forceinline__ int div_small(int a, int w) {
+  return __float2int_rz((static_cast<float>(a) + 0.5f) *
+                        __frcp_rn(static_cast<float>(w)));
+}
+
+// Walks the indices first, first + step, ... of a row-major grid w wide as
+// (q, r) = (e / w, e % w), with two divisions in all, not two a step.
+struct GridWalk {
+  int q, r, dq, dr, w;
+  __device__ __forceinline__ GridWalk(int first, int step, int width)
+      : w(width) {
+    q = div_small(first, w);
+    r = first - q * w;
+    dq = div_small(step, w);
+    dr = step - dq * w;
+  }
+  __device__ __forceinline__ void next() {
+    r += dr;
+    q += dq;
+    if (r >= w) {
+      r -= w;
+      ++q;
+    }
+  }
+};
+
+// The lower triangle of an n x n matrix, its n (n + 1) / 2 entries (a, b),
+// b <= a, folded onto a grid n + 1 wide: grid row q holds row q (b = 0..q)
+// and then row n - 1 - q, so consecutive indices take consecutive entries
+// of one row.
+__device__ __forceinline__ void fold(const GridWalk& g, int n, int& a,
+                                     int& b) {
+  if (g.r <= g.q) {
+    a = g.q;
+    b = g.r;
+  } else {
+    a = n - 1 - g.q;
+    b = g.r - g.q - 1;
+  }
+}
+
+// Pivots a pass of team_inverse where a thread may take 64 registers (a
+// block of up to 1024 threads); wider panels spilled there.
+constexpr int kPanel = 4;
+
+// The SPD inverse of one m x m matrix by a team of threads, m at run time
+// (K1's warp-lane and block-lane designs, K2's runtime-m kernel). S holds
+// the matrix at row stride ld in shared memory, of which only the lower
+// triangle (i >= j) is read; D is m floats of shared memory. On return
+// (after team.sync()) the lower triangle of S holds that of the inverse X
+// (X[i][j] = X[j][i] at S[i][j], i >= j) and D the reciprocal diagonal of
+// the Cholesky factor L. The semantics of
+// sqp.py::_chol_inverse_unrolled: Cholesky with the pivot max_nan(s,
+// 1e-20) carried as its reciprocal square root, Y = L^-1, and X = L^-T Y
+// (here Y^T Y). Each sum runs in its own order, one multiply-add a term in
+// the order of a right-looking sweep (not _tree_sum's pairs); the two
+// differ by float32 rounding only.
+//
+// Both sweeps go PANEL pivots a pass, two team.sync()s a pass, every part
+// of a pass spread over the whole team, so the depth is ~m/2 syncs of
+// parallel work:
+//   1. Cholesky, right-looking. (a) Every thread factors the pass's
+//      PANEL x PANEL diagonal block itself (the same values everywhere:
+//      no barrier for it), then the team computes the panel below it, a
+//      thread a row: L[i][k+p] = (S[i][k+p] - sum_{r<p} L[i][k+r]
+//      L[k+p][k+r]) D[k+p]. (b) The team updates the trailing triangle,
+//      S[i][j] -= sum_p L[i][k+p] L[j][k+p], a thread a share of its
+//      entries, PANEL terms an entry for one load and one store of it.
+//   2. Y = L^-1, right-looking: W[r][c] = [r == c] - sum_{j<k} L[r][j]
+//      Y[j][c] is row r's partial sum. (a) The team finishes the pass's
+//      PANEL rows of Y, a thread a column c: Y[k+q][c] = (W[k+q][c] -
+//      sum_{p<q} L[k+q][k+p] Y[k+p][c]) D[k+q], Y[k][k] = D[k]. (b) It
+//      subtracts sum_p L[r][k+p] Y[k+p][c] from every W[r][c] below, a
+//      thread a share of the entries. W[r][c], then Y[r][c], lies at
+//      S[c][r], in the strict upper triangle; the first update of each
+//      entry (the pass of pivot c) writes it without reading it, so the
+//      input's upper triangle is never read.
+//   3. X[i][j] = sum_{k >= i} Y[k][i] Y[k][j], i >= j: independent dot
+//      products, a thread a share of them, written over L.
+// A pass adds its PANEL terms to each entry in the order the one-pivot
+// sweep would, so the result does not depend on PANEL or on the team's
+// size. Consecutive threads take consecutive entries of a row (or of a
+// column stored as a row of S) and read a column of S at the odd stride
+// ld, so no step meets a bank conflict beyond its broadcasts.
+template <int PANEL, class Team>
 __device__ __forceinline__ void team_inverse(float* S, float* D, int m,
-                                             int i) {
-  const int ld = team_ld(m);
-  const bool row = i < m;
+                                             int ld, const Team& team) {
   const float tiny = 1e-20f;
-  for (int j = 0; j < m; ++j) {
-    if (i == j) {
-      float s = S[j * ld + j];
-      if (j > 0) {
-        TreeSum t;
-        for (int k = 0; k < j; ++k) t.add(S[j * ld + k] * S[j * ld + k]);
-        s = s - t.sum();
+  const int t = team.rank, P = team.size;
+  for (int k = 0; k < m; k += PANEL) {
+    const int kb = min(PANEL, m - k);
+    // The diagonal block's factor: Lb[q][p] = L[k+q][k+p], p < q; dq.
+    float Lb[PANEL][PANEL], dq[PANEL];
+#pragma unroll
+    for (int q = 0; q < PANEL; ++q) {
+      if (q < kb) {
+#pragma unroll
+        for (int p = 0; p < q; ++p) {
+          float v = S[(k + q) * ld + k + p];
+#pragma unroll
+          for (int r = 0; r < p; ++r) v = fmaf(-Lb[q][r], Lb[p][r], v);
+          Lb[q][p] = v * dq[p];
+        }
+        float v = S[(k + q) * ld + k + q];
+#pragma unroll
+        for (int r = 0; r < q; ++r) v = fmaf(-Lb[q][r], Lb[q][r], v);
+        dq[q] = rsqrtf(max_nan(v, tiny));
       }
-      s = max_nan(s, tiny);
-      D[j] = rsqrtf(s);
     }
-    __syncthreads();
-    if (row && i > j) {
-      float si = S[i * ld + j];
-      if (j > 0) {
-        TreeSum t;
-        for (int k = 0; k < j; ++k) t.add(S[i * ld + k] * S[j * ld + k]);
-        si = si - t.sum();
+    // The panel, a thread a row.
+    for (int i = k + kb + t; i < m; i += P) {
+      float li[PANEL];
+#pragma unroll
+      for (int p = 0; p < PANEL; ++p) {
+        if (p < kb) {
+          float v = S[i * ld + k + p];
+#pragma unroll
+          for (int r = 0; r < p; ++r) v = fmaf(-li[r], Lb[p][r], v);
+          li[p] = v * dq[p];
+          S[i * ld + k + p] = li[p];
+        }
       }
-      S[i * ld + j] = si * D[j];
+    }
+    team.sync();
+    if (t == 0) {
+#pragma unroll
+      for (int q = 0; q < PANEL; ++q) {
+        if (q < kb) {
+          D[k + q] = dq[q];
+#pragma unroll
+          for (int p = 0; p < q; ++p) S[(k + q) * ld + k + p] = Lb[q][p];
+        }
+      }
+    }
+    const int j0 = k + kb, n = m - j0, total = n * (n + 1) / 2;
+    if (t < total) {
+      GridWalk g(t, P, n + 1);
+      for (int e = t; e < total; e += P, g.next()) {
+        int a, b;
+        fold(g, n, a, b);
+        const int i = j0 + a, j = j0 + b;
+        float v = S[i * ld + j];
+#pragma unroll
+        for (int p = 0; p < PANEL; ++p)
+          if (p < kb) v = fmaf(-S[i * ld + k + p], S[j * ld + k + p], v);
+        S[i * ld + j] = v;
+      }
+    }
+    team.sync();
+  }
+  for (int k = 0; k < m; k += PANEL) {
+    const int kb = min(PANEL, m - k);
+    float Lb[PANEL][PANEL], dq[PANEL];
+#pragma unroll
+    for (int q = 0; q < PANEL; ++q) {
+      if (q < kb) {
+        dq[q] = D[k + q];
+#pragma unroll
+        for (int p = 0; p < q; ++p) Lb[q][p] = S[(k + q) * ld + k + p];
+      }
+    }
+    // Rows k .. k + kb - 1 of Y, a thread a column c < k + kb.
+    for (int c = t; c < k + kb; c += P) {
+      float y[PANEL];
+#pragma unroll
+      for (int q = 0; q < PANEL; ++q) {
+        if (q < kb && c < k + q) {
+          // p0 >= 0: c is the block's column k + p0 (< k + q), whose
+          // first term -L[k+q][c] D[c] starts the sum.
+          const int p0 = c - k;
+          float w = p0 >= 0 ? 0.0f : S[c * ld + k + q];
+#pragma unroll
+          for (int r = 0; r < PANEL; ++r) {
+            if (r < q && r == p0)
+              w = -(Lb[q][r] * dq[r]);
+            else if (r < q && r > p0)
+              w = fmaf(-Lb[q][r], y[r], w);
+          }
+          y[q] = w * dq[q];
+          S[c * ld + k + q] = y[q];
+        } else {
+          y[q] = (q < kb && c == k + q) ? dq[q] : 0.0f;
+        }
+      }
+    }
+    team.sync();
+    // W[r][c] -= sum_p L[r][k+p] Y[k+p][c], r >= k + kb, c < k + kb.
+    const int r0 = k + kb, n = m - r0, total = n * (k + kb);
+    if (t < total) {
+      GridWalk g(t, P, n);  // q: the column c, r: the row below the pass
+      for (int e = t; e < total; e += P, g.next()) {
+        const int c = g.q, r = r0 + g.r;
+        const int p0 = c - k;  // the block's own column if >= 0
+        float w;
+        if (p0 >= 0)
+          w = -(S[r * ld + c] * D[c]);
+        else
+          w = S[c * ld + r];
+#pragma unroll
+        for (int p = 0; p < PANEL; ++p)
+          if (p < kb && p > p0)
+            w = fmaf(-S[r * ld + k + p], S[c * ld + k + p], w);
+        S[c * ld + r] = w;
+      }
+    }
+    team.sync();
+  }
+  const int total = m * (m + 1) / 2;
+  if (t < total) {
+    GridWalk g(t, P, m + 1);
+    for (int e = t; e < total; e += P, g.next()) {
+      int i, j;
+      fold(g, m, i, j);
+      float acc = D[i] * (i == j ? D[i] : S[j * ld + i]);
+#pragma unroll 4
+      for (int k = i + 1; k < m; ++k)
+        acc = fmaf(S[i * ld + k], S[j * ld + k], acc);
+      S[i * ld + j] = acc;
     }
   }
-  __syncthreads();
-  if (row) {
-    const int c = i;
-    // Forward: Y[r][c] = -sum_{k in [c, r)} L[r][k] Y[k][c] * D[r], with
-    // Y[c][c] = D[c].
-    for (int r = c + 1; r < m; ++r) {
-      TreeSum t;
-      t.add(S[r * ld + c] * D[c]);
-      for (int k = c + 1; k < r; ++k) t.add(S[r * ld + k] * S[c * ld + k]);
-      S[c * ld + r] = -t.sum() * D[r];
-    }
-    // Backward: X[r][c] = (Y[r][c] - sum_{k > r} L[k][r] X[k][c]) * D[r].
-    for (int r = m - 1; r >= c; --r) {
-      float acc = (r == c) ? D[c] : S[c * ld + r];
-      if (r + 1 < m) {
-        TreeSum t;
-        for (int k = r + 1; k < m; ++k)
-          t.add(S[k * ld + r] * S[c * ld + k]);
-        acc = acc - t.sum();
-      }
-      S[c * ld + r] = acc * D[r];
-    }
-  }
-  __syncthreads();
-  if (row)
-    for (int j = 0; j < i; ++j) S[i * ld + j] = S[j * ld + i];
-  __syncthreads();
+  team.sync();
+}
+
+// Stages one matrix's m*m contiguous floats from global src into shared S
+// at row stride ld: each thread of the team copies every team.size-th
+// float as an asynchronous 4-byte copy (cp.async: the global side is
+// coalesced, and no copy passes through a register). 16-byte copies would
+// need rows on 16-byte boundaries, and the odd stride that keeps the
+// inverse's column reads free of bank conflicts rules those out. The
+// caller commits the copies and waits for them.
+template <class Team>
+__device__ __forceinline__ void stage_matrix(float* S, int ld,
+                                             const float* src, int m,
+                                             const Team& team) {
+  const int n = m * m;
+  if (team.rank >= n) return;
+  GridWalk g(team.rank, team.size, m);
+  for (int e = team.rank; e < n; e += team.size, g.next())
+    __pipeline_memcpy_async(S + g.q * ld + g.r, src + e, sizeof(float));
+}
+
+// X[r][c] after team_inverse: the lower triangle holds both halves.
+__device__ __forceinline__ float inverse_at(const float* S, int ld, int r,
+                                            int c) {
+  return r >= c ? S[r * ld + c] : S[c * ld + r];
 }
 
 }  // namespace neo_mpc

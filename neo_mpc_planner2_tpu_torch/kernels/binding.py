@@ -13,9 +13,13 @@ import torch
 
 from .build import load_library
 
-__all__ = ["MAX_SMEM", "team_ld", "K1_WARP_TEAM_MAX_M", "k1_block_smem_bytes",
-           "K1_MAX_M", "qp_admm_variant", "K2_UNROLLED_M",
+__all__ = ["MAX_SMEM", "team_ld", "K1_WARP_TEAM_MAX_M", "K1_WARP_LANE_MAX_M",
+           "K1_BLOCK_LANE_ROWS_PER_WARP", "K1_BLOCK_LANE_ENTRIES_PER_WARP",
+           "k1_block_smem_bytes", "K1_MAX_M", "qp_admm_variant",
+           "k1_warps_per_lane", "K2_UNROLLED_M", "K2_UNROLLED_MATRICES",
+           "K2_WARP_MAX_M", "K2_WARP_MATRICES", "K2_BLOCK_ENTRIES_PER_WARP",
            "k2_block_smem_bytes", "K2_MAX_M", "spd_inv_variant",
+           "k2_runtime_shape", "k2_runtime_plan", "spd_inv_shape",
            "QP_INPUTS", "QP_OUTPUTS", "qp_rows", "K3_WALK_THREADS",
            "k3_launch_shape", "k3_smem_bytes", "K3_WIDE_WARPS",
            "K3_MAX_CHUNKS", "k3_max_samples", "k3_variant",
@@ -28,51 +32,95 @@ MAX_SMEM = 232448
 
 
 def team_ld(m: int) -> int:
-    """Row stride of a block team's matrix in shared memory: m rounded up
-    to odd (spd_inverse.cuh: team_ld)."""
+    """Row stride of a team's matrix in shared memory in the runtime-m
+    designs: m rounded up to odd (spd_inverse.cuh: team_ld)."""
     return m | 1
 
 
-# K1's warp-team design (csrc/qp_admm.cu: qp_admm_kernel<M>) is built at
-# every m = 3N up to this; its block-team design takes m above.
-K1_WARP_TEAM_MAX_M = 30
+# K1's designs (csrc/qp_admm.cu): the warp team (qp_admm_kernel<M>, several
+# lanes a warp, built at every m = 3N <= 30) serves m up to
+# K1_WARP_TEAM_MAX_M; the warp lane (qp_admm_kernel_warp_lane, a warp a
+# lane, its rows of M^-1 in registers) up to K1_WARP_LANE_MAX_M; the block
+# lane (qp_admm_kernel_block_lane, a block a lane) above, up to K1_MAX_M.
+# Measured on an H100 (PERF.md, scripts/torch_kernel_turns.py): the warp
+# lane ran ahead of the warp team from m = 21 on, and of the block lane up
+# to m = 63 (a thread holds two rows of at most 64 floats).
+K1_WARP_TEAM_MAX_M = 18
+K1_WARP_LANE_MAX_M = 63
+# Rows a warp owns in the block lane: ten whole cone triples.
+K1_BLOCK_LANE_ROWS_PER_WARP = 30
+# The block lane's warps: one per 30 rows, and more at large m, one per
+# K1_BLOCK_LANE_ENTRIES_PER_WARP entries of M, up to 32: 3 at m = 66, 5 at
+# 96, 28 at 237 (each fastest or within 3 % of it, PERF.md).
+K1_BLOCK_LANE_ENTRIES_PER_WARP = 2048
 
 
 def k1_block_smem_bytes(m: int) -> int:
-    """Shared memory of one block of K1's block-team design: the matrix at
-    stride team_ld(m), its reciprocal diagonal, rhs and d."""
-    return 4 * (m * team_ld(m) + 3 * m)
+    """Shared memory of one block of K1's block-lane design: two rhs
+    buffers of m rounded up to whole float4s, the matrix at stride
+    team_ld(m) and its reciprocal diagonal."""
+    return 4 * (2 * (-(-m // 4) * 4) + m * team_ld(m) + m)
 
 
-# The largest m whose block-team block fits MAX_SMEM: 237 (control_steps 79).
+# The largest m whose block-lane block fits MAX_SMEM: 237 (control_steps 79).
 K1_MAX_M = max(m for m in range(3, 400, 3)
                if k1_block_smem_bytes(m) <= MAX_SMEM)
 
 
 def qp_admm_variant(m: int) -> str:
-    """The K1 design that serves m: "warp_team" (m = 3N <= 30) or
-    "block_team" (30 < m = 3N <= K1_MAX_M). Raises ValueError for any
-    other m."""
+    """The K1 design that serves m: "warp_team" (m = 3N <= 30),
+    "warp_lane" (<= K1_WARP_LANE_MAX_M) or "block_lane" (<= K1_MAX_M).
+    Raises ValueError for any other m."""
     if m < 3 or m % 3:
         raise ValueError(f"qp_admm: m={m} is not 3 x control_steps")
     if m <= K1_WARP_TEAM_MAX_M:
         return "warp_team"
+    if m <= K1_WARP_LANE_MAX_M:
+        return "warp_lane"
     if m <= K1_MAX_M:
-        return "block_team"
+        return "block_lane"
     raise ValueError(
         f"qp_admm: m={m} is above K1's cap m={K1_MAX_M} (control_steps "
         f"{K1_MAX_M // 3}): its block would need {k1_block_smem_bytes(m)} "
         f"bytes of shared memory, a block may take {MAX_SMEM}")
 
 
+def k1_warps_per_lane(m: int) -> int:
+    """neo_qp_admm_f32's warps_per_lane for m: 0 (the warp team: a lane a
+    team inside a warp), 1 (the warp lane) or the block lane's warps, one
+    per K1_BLOCK_LANE_ROWS_PER_WARP rows or one per
+    K1_BLOCK_LANE_ENTRIES_PER_WARP entries of M (at most 32), whichever is
+    more."""
+    variant = qp_admm_variant(m)
+    if variant == "warp_team":
+        return 0
+    if variant == "warp_lane":
+        return 1
+    return max(-(-m // K1_BLOCK_LANE_ROWS_PER_WARP),
+               min(32, -(-m * m // K1_BLOCK_LANE_ENTRIES_PER_WARP)))
+
+
 # K2's unrolled design (csrc/spd_inv.cu: spd_inv_kernel<M, T>) is built at
-# these m; its runtime-m design takes every other m up to K2_MAX_M.
+# these m, in blocks of K2_UNROLLED_MATRICES; its runtime-m kernel takes
+# every other m up to K2_MAX_M.
 K2_UNROLLED_M = (3, 6, 9, 12, 15, 18)
+K2_UNROLLED_MATRICES = 32
+# The runtime-m kernel takes a warp a matrix, K2_WARP_MATRICES matrices (and
+# warps) a block, up to K2_WARP_MAX_M (spd_inv_kernel_runtime_warp); a
+# block a matrix above (spd_inv_kernel_runtime_block), one warp per
+# K2_BLOCK_ENTRIES_PER_WARP entries of the matrix, at least 2 and at most
+# 32. Measured on an H100 at B = 4096 (PERF.md): a warp a matrix ran
+# ahead at m = 36, a block at 48 (2 warps), 64 (2), 96 (4), 128 (8) and
+# 240 (16-20, within 3 % of 23).
+K2_WARP_MAX_M = 40
+K2_WARP_MATRICES = 4
+K2_BLOCK_ENTRIES_PER_WARP = 2560
 
 
 def k2_block_smem_bytes(m: int) -> int:
-    """Shared memory of one block of K2's runtime-m design: the matrix at
-    stride team_ld(m) and its reciprocal diagonal."""
+    """Shared memory of one matrix of K2's runtime-m kernel (a block's, in
+    its block plan): the matrix at stride team_ld(m) and its reciprocal
+    diagonal."""
     return 4 * (m * team_ld(m) + m)
 
 
@@ -93,6 +141,24 @@ def spd_inv_variant(m: int) -> str:
         f"chol_inverse: m={m} is outside K2's range 1..{K2_MAX_M} (its "
         f"cap): a block would need {k2_block_smem_bytes(m)} bytes of shared "
         f"memory, a block may take {MAX_SMEM}")
+
+
+def k2_runtime_shape(m: int) -> tuple[int, int]:
+    """The runtime-m kernel's launch shape at m, (warps_per_block,
+    matrices_per_block): (K2_WARP_MATRICES, K2_WARP_MATRICES), a warp a
+    matrix, up to K2_WARP_MAX_M; (warps, 1), a block a matrix, above, one
+    warp per K2_BLOCK_ENTRIES_PER_WARP entries (2 to 32)."""
+    if m <= K2_WARP_MAX_M:
+        return K2_WARP_MATRICES, K2_WARP_MATRICES
+    return min(32, max(2, -(-m * m // K2_BLOCK_ENTRIES_PER_WARP))), 1
+
+
+def k2_runtime_plan(shape: tuple[int, int]) -> str:
+    """"warp" (a warp a matrix) or "block" (a block a matrix) for a
+    runtime-m launch shape."""
+    warps, matrices = shape
+    return "warp" if matrices == warps else "block"
+
 
 # K1's operands and outputs, in the order of neo_qp_admm_f32's arguments.
 QP_INPUTS = ("Bflat", "g", "x", "c", "dxy", "lo", "hi", "d0", "zb0", "zc0",
@@ -207,14 +273,16 @@ def _stream(device) -> int:
 
 def launch_qp_admm(ins, m: int, iters: int, rho: float, sigma: float):
     """ins: the 12 batch-major operands of QP_INPUTS, each (B, rows).
-    Returns the 7 batch-major outputs of QP_OUTPUTS."""
-    qp_admm_variant(m)
+    Returns the 7 batch-major outputs of QP_OUTPUTS, from the design of
+    k1_warps_per_lane(m)."""
+    warps_per_lane = k1_warps_per_lane(m)
     lib = load_library()
     B = ins[0].shape[0]
     rows = qp_rows(m)
     outs = [torch.empty((B, rows[name]), dtype=torch.float32,
                         device=ins[0].device) for name in QP_OUTPUTS]
-    rc = lib.neo_qp_admm_f32(m, B, int(iters), float(rho), float(sigma),
+    rc = lib.neo_qp_admm_f32(m, B, warps_per_lane, int(iters), float(rho),
+                             float(sigma),
                              float(sigma + rho),
                              *(t.data_ptr() for t in ins),
                              *(t.data_ptr() for t in outs),
@@ -224,7 +292,8 @@ def launch_qp_admm(ins, m: int, iters: int, rho: float, sigma: float):
 
 
 # K2's widths (warps a block of 32 matrices) that csrc/spd_inv.cu builds
-# for its unrolled design (the runtime-m design takes a thread a row).
+# for its unrolled design (the runtime-m kernel's shape is
+# k2_runtime_shape's).
 K2_WIDTHS = (1, 4)
 # K2 takes four warps a block while its blocks are at most this many to an
 # SM, one above.
@@ -247,11 +316,22 @@ def k2_launch_shape(B: int, device) -> int:
     return 4 if blocks <= K2_WIDE_BLOCKS_PER_SM * _sms(device) else 1
 
 
-def _launch_spd_inv_at(M: torch.Tensor, warps: int) -> torch.Tensor:
+def spd_inv_shape(m: int, B: int, device) -> tuple[int, int]:
+    """K2's launch shape for B matrices of m x m on `device`,
+    (warps_per_block, matrices_per_block): the unrolled design's
+    (k2_launch_shape(B, device), K2_UNROLLED_MATRICES), or the runtime-m
+    kernel's k2_runtime_shape(m)."""
+    if spd_inv_variant(m) == "unrolled":
+        return k2_launch_shape(B, device), K2_UNROLLED_MATRICES
+    return k2_runtime_shape(m)
+
+
+def _launch_spd_inv_at(M: torch.Tensor,
+                       shape: tuple[int, int]) -> torch.Tensor:
     spd_inv_variant(M.shape[-1])
     lib = load_library()
     X = torch.empty_like(M)
-    rc = lib.neo_spd_inv_f32(M.shape[-1], M.shape[0], warps, M.data_ptr(),
+    rc = lib.neo_spd_inv_f32(M.shape[-1], M.shape[0], *shape, M.data_ptr(),
                              X.data_ptr(), _stream(M.device))
     _check(rc, "spd_inv")
     return X
@@ -259,8 +339,9 @@ def _launch_spd_inv_at(M: torch.Tensor, warps: int) -> torch.Tensor:
 
 def launch_spd_inv(M: torch.Tensor) -> torch.Tensor:
     """M: batch-major (B, m, m). Returns the inverses, (B, m, m), at
-    k2_launch_shape's width."""
-    return _launch_spd_inv_at(M, k2_launch_shape(M.shape[0], M.device))
+    spd_inv_shape's launch shape."""
+    return _launch_spd_inv_at(
+        M, spd_inv_shape(M.shape[-1], M.shape[0], M.device))
 
 
 def launch_footprint_cost(data, origin, res, bounds, verts, n_valid, t,

@@ -35,10 +35,11 @@ _vp, _i, _f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # The C interface of the library: name -> (restype, argtypes), in the order
 # of the `extern "C"` declarations in csrc/.
 SIGNATURES = {
-    # m, B, iters, rho, sigma, sigma + rho; 12 operands, 7 outputs; stream.
-    "neo_qp_admm_f32": (_i, [_i, _i, _i, _f, _f, _f] + [_vp] * 20),
-    # m, B, warps_per_block; A, X; stream.
-    "neo_spd_inv_f32": (_i, [_i] * 3 + [_vp] * 3),
+    # m, B, warps_per_lane, iters, rho, sigma, sigma + rho; 12 operands,
+    # 7 outputs; stream.
+    "neo_qp_admm_f32": (_i, [_i] * 4 + [_f] * 3 + [_vp] * 20),
+    # m, B, warps_per_block, matrices_per_block; A, X; stream.
+    "neo_spd_inv_f32": (_i, [_i] * 4 + [_vp] * 3),
     # Bm, R, H, W, V, S, lanes_per_block, warps_per_lane, chunk; 9 arrays;
     # stream.
     "neo_footprint_cost_f32": (_i, [_i] * 9 + [_vp] * 10),

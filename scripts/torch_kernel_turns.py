@@ -8,19 +8,21 @@ K2 and K3.
     done
     python3 scripts/torch_kernel_turns.py --old build/old_kernels
 
-Builds the earlier sources from `--old` into their own library beside the
-port's and binds them with their C signatures: K2 as one thread a matrix
-on lane-minor operands, behind its wrapper's two transposing copies; K1
-with the batch-major interface it has had since it became one launch a
-call. Then, for each turn of `--turns` (default old,new,new,old) on the
-same card:
+`--old` builds the earlier sources (those of a commit from before the
+runtime-m redesign: a C interface with no launch-shape argument for K1 and
+one, warps a block, for K2) into their own library beside the port's and
+binds them. Then, for each turn of `--turns` (default old,new,new,old) on
+the same card:
 
-- K2 at B in {4096, 65536} and m in {6, 9, 15}: the kernel's device time
-  (torch.profiler), the whole `chol_inverse` call's time (CUDA events) and
-  the CUDA launches of one call, with the inverses held against the first
-  turn's;
-- K1 at B = 4096, m in {9, 15}, 60 iterations: its device time, with every
-  output held bit-identical to the first turn's.
+- K2 at B = 4096 and each m of K2_TURN_M (the unrolled m = 9, the runtime-m
+  widths 4, 24, 36 and the cap 240): the kernel's device time, one
+  `torch.linalg.inv` call's and the bound, the inverses held against the
+  plain version (rtol 2e-4 / atol 2e-5), each timed call on the next of
+  copies of M that together exceed twice the L2;
+- K1 at B = 4096, 60 iterations, each m of K1_TURN_M: its device time and
+  bound, its outputs held against the plain version and, at the widths
+  both builds serve with the same warp-team instance (m <= 18), bit for bit
+  against the first turn's.
 
 `--k3-old DIR` builds an earlier `footprint_cost.cu` from DIR (e.g.
 `git show <commit>:neo_mpc_planner2_tpu_torch/csrc/footprint_cost.cu`)
@@ -51,22 +53,29 @@ import chip_smoke as cs  # noqa: E402
 
 K2_SIZES = (4096, 65536)
 K2_M = (6, 9, 15)
+# The turns' widths: K2 at B = 4096 (unrolled at 9, runtime-m otherwise),
+# K1 at B = 4096 and 60 iterations (the warp team at 9 and 18 in both
+# builds; 21-30 the warp team before, the warp lane now; 36 and the cap).
+K2_TURN_M = (4, 9, 24, 36, 240)
+K1_TURN_M = (9, 18, 21, 24, 27, 30, 36, 237)
 
 
 def load_old(old_dir: pathlib.Path):
-    """Build and load the earlier K1 and K2 sources."""
+    """Build and load the earlier K1 and K2 sources, with the C interface
+    they had before the runtime-m redesign: neo_qp_admm_f32(m, B, iters,
+    rho, sigma, sigma + rho, 12 operands, 7 outputs, stream) and
+    neo_spd_inv_f32(m, B, warps_per_block, A, X, stream)."""
     from neo_mpc_planner2_tpu_torch.kernels import build
 
     path = build.build_library(
         csrc=old_dir, build_dir=ROOT / "build" / "old_kernels_lib",
         sources=("qp_admm.cu", "spd_inv.cu"), headers=("spd_inverse.cuh",))
     lib = ctypes.CDLL(str(path))
-    vp, i = ctypes.c_void_p, ctypes.c_int
-    restype, argtypes = build.SIGNATURES["neo_qp_admm_f32"]
-    lib.neo_qp_admm_f32.restype, lib.neo_qp_admm_f32.argtypes = (restype,
-                                                                 argtypes)
+    vp, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib.neo_qp_admm_f32.restype = i
+    lib.neo_qp_admm_f32.argtypes = [i, i, i, f, f, f] + [vp] * 20
     lib.neo_spd_inv_f32.restype = i
-    lib.neo_spd_inv_f32.argtypes = [i, i, vp, vp, vp]
+    lib.neo_spd_inv_f32.argtypes = [i, i, i, vp, vp, vp]
     print(json.dumps({"phase": "old build", "seconds":
                       build.last_build["seconds"],
                       "ptxas": cs._ptxas_report(build.last_build["log"])}),
@@ -75,32 +84,24 @@ def load_old(old_dir: pathlib.Path):
 
 
 def old_wrappers(lib):
-    """The earlier chol_inverse (lane-minor kernel: one copy in, one out),
-    its kernel alone on a lane-minor (m*m, B) operand, and qp_admm, over
-    the old library."""
+    """The earlier chol_inverse (batch-major, the unrolled design's warps a
+    block from binding.k2_launch_shape, which the earlier runtime-m kernel
+    ignored) and qp_admm, over the old library."""
     import torch
 
     from neo_mpc_planner2_tpu_torch.kernels import binding
 
     stream = lambda dev: torch.cuda.current_stream(dev).cuda_stream
 
-    def kernel(At):
-        mm, B = At.shape
-        Xt = torch.empty_like(At)
-        rc = lib.neo_spd_inv_f32(round(mm ** 0.5), B, At.data_ptr(),
-                                 Xt.data_ptr(), stream(At.device))
+    def chol_inverse(M):
+        X = torch.empty_like(M)
+        rc = lib.neo_spd_inv_f32(M.shape[-1], M.shape[0],
+                                 binding.k2_launch_shape(M.shape[0],
+                                                         M.device),
+                                 M.data_ptr(), X.data_ptr(), stream(M.device))
         if rc:
             raise RuntimeError(f"old spd_inv launch failed: cudaError {rc}")
-        return Xt
-
-    def chol_inverse(M):
-        B, m = M.shape[0], M.shape[-1]
-        Xt = kernel(M.reshape(B, m * m).t().contiguous())
-        return Xt.t().reshape(B, m, m).contiguous()
-
-    def lane_minor(M):
-        B, m = M.shape[0], M.shape[-1]
-        return M.reshape(B, m * m).t().contiguous()
+        return X
 
     def qp_admm(*args, iters, rho=1.0, sigma=1e-6):
         B, m = args[2].shape
@@ -117,8 +118,7 @@ def old_wrappers(lib):
         d_out, d, zb, zc, wb, wc, y_cone = outs
         return d_out, y_cone, d, zb, zc, wb, wc
 
-    return {"chol_inverse": chol_inverse, "qp_admm": qp_admm,
-            "kernel": kernel, "operand": lane_minor}
+    return {"chol_inverse": chol_inverse, "qp_admm": qp_admm}
 
 
 def spd_batch(rng, B: int, m: int, device):
@@ -141,45 +141,66 @@ def kernel_turn(which: str, fns: dict, device, ref: dict) -> dict:
     """One turn. K2's timed calls rotate over copies of their operands that
     together exceed twice the L2 (chip_smoke.rotating): every launch reads
     its input from, and writes its output to, memory the card's L2 does not
-    hold. The earlier kernel is timed alone on its lane-minor operand, so
-    that it too reads what its wrapper's copy did not just write."""
+    hold. From m = 36 on a call takes over 0.1 ms and is timed between CUDA
+    events (chip_smoke._kernel_ms)."""
     import numpy as np
     import torch
 
+    from neo_mpc_planner2_tpu_torch import sqp
+    from neo_mpc_planner2_tpu_torch.kernels import binding, bounds
+
     out = {"turn": which}
     rng = np.random.default_rng(0)
-    for B in K2_SIZES:
-        for m in K2_M:
-            ring = spd_ring(spd_batch(rng, B, m, device))
-            call = cs.rotating(fns["chol_inverse"], ring)
-            got = fns["chol_inverse"](ring[0])
-            key = f"spd_inv_B{B}_m{m}"
-            if key in ref:
-                out[f"{key}_max_diff_vs_first_turn"] = float(
-                    (got - ref[key]).abs().max())
-            else:
-                ref[key] = got
-            kernel = call if "kernel" not in fns else cs.rotating(
-                fns["kernel"], [fns["operand"](M) for M in ring])
-            out[f"{key}_copies"] = len(ring)
-            out[f"{key}_ms"] = cs._device_ms(kernel, "spd_inv_kernel")
-            out[f"{key}_wrapper_ms"] = cs._time_ms(call)
-            out[f"{key}_launches_per_call"] = cs.count_launches(call)
-            del ring, call, kernel
-    for m in (9, 15):
+    for m in K2_TURN_M:
+        ring = spd_ring(spd_batch(rng, 4096, m, device))
+        call = cs.rotating(fns["chol_inverse"], ring)
+        key = f"spd_inv_m{m}"
+        if key not in ref:
+            ref[key] = sqp.chol_inverse_plain(ring[0][:256])
+        got = fns["chol_inverse"](ring[0])
+        torch.cuda.synchronize()
+        ex = cs._excess(got[:256], ref[key], 2e-4, 2e-5)
+        if ex > 0:
+            raise AssertionError(f"K2 m={m}: the {which} design is off its "
+                                 f"plain version by {ex:.3g}")
+        out[f"{key}_max_abs_err"] = float((got[:256] - ref[key]).abs().max())
+        out[f"{key}_ms"] = cs._kernel_ms(call, "spd_inv_kernel", m)
+        library = cs.rotating(torch.linalg.inv, ring)
+        out[f"{key}_library_ms"] = (cs._time_ms(library, cs._reps(m))
+                                    if m >= cs.EVENTS_FROM_M
+                                    else cs._device_total_ms(library))
+        out[f"{key}_bound_ms"] = bounds.spd_inv_work(4096, m)["bound_ms"]
+        del ring, call, library
+    for m in K1_TURN_M:
         args = cs._qp_inputs(rng, 4096, m, device)
-        call = lambda: fns["qp_admm"](*args, iters=60, rho=1.0, sigma=1e-6)
+        kw = dict(iters=60, rho=1.0, sigma=1e-6)
+        call = lambda: fns["qp_admm"](*args, **kw)
         got = call()
         key = f"qp_admm_m{m}"
-        if key in ref:
-            same = all(torch.equal(g, w) for g, w in zip(got, ref[key]))
+        if key not in ref:
+            J = sqp._cone_jacobian(args[4][:256], m)
+            ref[key] = sqp.qp_admm_plain(*(a[:256] for a in args[:4]), J,
+                                         *(a[:256] for a in args[5:]), **kw)
+            ref[key + "_first"] = got
+        torch.cuda.synchronize()
+        ex = max(cs._excess(g[:256], w, 2e-4, 2e-5)
+                 for g, w in zip(got, ref[key]))
+        if ex > 0:
+            raise AssertionError(f"K1 m={m}: the {which} design is off its "
+                                 f"plain version by {ex:.3g}")
+        if m <= binding.K1_WARP_TEAM_MAX_M:
+            same = all(torch.equal(g, w)
+                       for g, w in zip(got, ref[key + "_first"]))
             if not same:
                 raise AssertionError(f"K1 m={m}: the {which} design's "
                                      "outputs differ from the first turn's")
             out[f"{key}_bit_identical_to_first_turn"] = same
         else:
-            ref[key] = got
-        out[f"{key}_ms"] = cs._device_ms(call, "qp_admm_kernel")
+            out[f"{key}_max_diff_vs_first_turn"] = max(
+                float((g - w).abs().max())
+                for g, w in zip(got, ref[key + "_first"]))
+        out[f"{key}_ms"] = cs._kernel_ms(call, "qp_admm_kernel", m)
+        out[f"{key}_bound_ms"] = bounds.qp_admm_work(4096, m, 60)["bound_ms"]
     print(json.dumps(out), flush=True)
     return out
 
@@ -344,7 +365,8 @@ def k2_shapes(device):
                    "default": binding.k2_launch_shape(B, device)}
             first = None
             for warps in binding.K2_WIDTHS:
-                at = lambda A: binding._launch_spd_inv_at(A, warps)
+                at = lambda A: binding._launch_spd_inv_at(
+                    A, (warps, binding.K2_UNROLLED_MATRICES))
                 got, odd = at(M), at(M[1:132])
                 torch.cuda.synchronize()
                 ex = max(cs._excess(got, want, 2e-4, 2e-5),
@@ -410,7 +432,7 @@ def main(argv=None) -> int:
                 for w in args.turns.split(",")]
         summary = {}
         keys = [k for k in rows[0] if isinstance(rows[0][k], float)
-                and "diff" not in k]
+                and "diff" not in k and "err" not in k and "bound" not in k]
         for w in ("old", "new"):
             summary[w] = {k: [r[k] for r in rows if r["turn"] == w]
                           for k in keys}

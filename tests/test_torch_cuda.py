@@ -17,6 +17,7 @@ version: K1 and K2 at rtol 2e-4 / atol 2e-5, the gate of
 tests/test_pallas.py; K3 exactly, since it returns picked map values.
 """
 
+import functools
 import pathlib
 import sys
 
@@ -68,11 +69,26 @@ def _plain(args, m, **kw):
     return sqp.qp_admm_plain(*args[:4], J, *args[5:], **kw)
 
 
-# K1's widths on the card: the slices' 6, 9 and 15; the horizons' 3 and 24
-# (warp team) and 36 (block team).
-K1_M = [3, 6, 9, 15, 24, 36]
-# K2's: unrolled at 3, 6, 9, 15; the runtime-m kernel at 4, 24 and 36.
-K2_M = [3, 4, 6, 9, 15, 24, 36]
+# K1's widths on the card: the warp team at the slices' 6, 9 and 15, the
+# horizons' 3 and its last width 18; the warp lane at its first width 21,
+# the horizons' 24 and 36, 33 and its last 63; the block lane at its first
+# width 66, 96 and the cap.
+K1_M = [3, 6, 9, 15, 18, 21, 24, 33, 36, 63, 66, 96, 237]
+# K2's: unrolled at 3, 6, 9, 15; the runtime-m kernel a warp a matrix at 1,
+# 2, 4, 19, 21, 24, 32, 33, 36 and 40 (its last), a block a matrix at 41
+# (its first), 64, 65 and the cap.
+K2_M = [1, 2, 3, 4, 6, 9, 15, 19, 21, 24, 32, 33, 36, 40, 41, 64, 65, 240]
+# Batch sizes: 65536 lanes only up to m = 36 (at the cap one batch would
+# take 15 GB).
+K2_CASES = [(m, B) for m in K2_M for B in (1, 131, 4096, 65536)
+            if B < 65536 or m <= 36]
+
+
+def _ill(m):
+    """tests/test_solver.py's ill-conditioned diagonal (1e4 down to 1e-3),
+    cut or padded with ones to m."""
+    d = [1e4, 1e3, 1e2, 10, 1, 1, 0.1, 0.01, 1e-3] + [1.0] * max(0, m - 9)
+    return torch.tensor(d[:m])
 
 
 @pytest.mark.parametrize("iters", [6, 60])
@@ -106,18 +122,67 @@ def test_qp_admm_lane_does_not_depend_on_its_batch(dev, m):
         assert torch.equal(f[1:], s)
 
 
+# Counts the CUDA launches and the kernels on the card of one qp_admm call
+# (B = 512, 60 iterations) or of one chol_inverse call (B = 4096) at each
+# of a few widths, with chip_smoke.count_launches, in a process of its
+# own: late in a process that has run many kernel calls or taken many
+# traces, torch.profiler was seen to report none of a trace's device
+# records (PERF.md), and chip_smoke counts first for that
+# reason.
+_COUNT_LAUNCHES = """
+import json, sys
+import numpy as np
+import torch
+sys.path.insert(0, ".")
+import chip_smoke as cs
+from neo_mpc_planner2_tpu_torch import sqp
+dev = torch.device("cuda")
+rng = np.random.default_rng(0)
+out = {}
+for m in %s:
+    if "%s" == "qp_admm":
+        args = cs._qp_inputs(rng, 512, m, dev)
+        call = lambda: sqp.qp_admm(*args, iters=60)
+    else:
+        M = cs._spd_inputs(rng, 4096, m, dev)
+        call = lambda: sqp.chol_inverse(M)
+    out[m] = cs.count_launches(call)
+print(json.dumps(out))
+"""
+
+
+# Widths counted a process, the widest first.
+_COUNTS_A_PROCESS = 6
+
+
+@functools.lru_cache(maxsize=None)
+def _launch_counts_of(kernel: str, widths: tuple) -> dict:
+    import json
+    import subprocess
+
+    proc = subprocess.run(
+        [sys.executable, "-c", _COUNT_LAUNCHES % (list(widths), kernel)],
+        cwd=ROOT, capture_output=True, text=True, timeout=900)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    counts = json.loads(proc.stdout.strip().splitlines()[-1])
+    return {int(m): n for m, n in counts.items()}
+
+
+def _launch_counts(kernel: str, m: int) -> dict:
+    widths = sorted(K1_M if kernel == "qp_admm" else K2_M, reverse=True)
+    k = widths.index(m) // _COUNTS_A_PROCESS * _COUNTS_A_PROCESS
+    return _launch_counts_of(kernel,
+                             tuple(widths[k:k + _COUNTS_A_PROCESS]))[m]
+
+
 @pytest.mark.parametrize("m", K1_M)
 def test_qp_admm_is_one_launch(dev, m):
     """One qp_admm call on the card is one CUDA launch: the operands and
     outputs are batch-major, so the wrapper copies nothing."""
-    args = _qp_inputs(np.random.default_rng(0), 512, m, dev)
-    n = _chip_smoke().count_launches(
-        lambda: sqp.qp_admm(*args, iters=60))
-    assert n == {"launches": 1, "kernels": 1}
+    assert _launch_counts("qp_admm", m) == {"launches": 1, "kernels": 1}
 
 
-@pytest.mark.parametrize("B", [1, 131, 4096, 65536])
-@pytest.mark.parametrize("m", K2_M)
+@pytest.mark.parametrize("m,B", K2_CASES)
 def test_chol_inverse_kernel_matches_plain(dev, m, B):
     M = torch.as_tensor(_spd(np.random.default_rng(m + B), B, m), device=dev)
     before = sqp.chol_inverse.launches
@@ -131,9 +196,12 @@ def test_chol_inverse_kernel_matches_plain(dev, m, B):
     assert torch.equal(got, got.transpose(-1, -2))
 
 
-def test_chol_inverse_ill_conditioned_matches_plain(dev):
-    """tests/test_solver.py's ill-conditioned diagonal (1e4 down to 1e-3)."""
-    d = torch.tensor([1e4, 1e3, 1e2, 10, 1, 1, 0.1, 0.01, 1e-3], device=dev)
+@pytest.mark.parametrize("m", [9, 4, 24, 40, 41, 240])
+def test_chol_inverse_ill_conditioned_matches_plain(dev, m):
+    """tests/test_solver.py's ill-conditioned diagonal (1e4 down to 1e-3,
+    cut or padded with ones to m) in each plan: unrolled (m = 9), a warp a
+    matrix (4, 24, 40), a block a matrix (41, 240)."""
+    d = _ill(m).to(dev)
     M = torch.diag(d)[None].contiguous()
     got = sqp.chol_inverse(M)
     torch.testing.assert_close(got, sqp.chol_inverse_plain(M), rtol=RTOL,
@@ -142,35 +210,56 @@ def test_chol_inverse_ill_conditioned_matches_plain(dev):
                                atol=0.0)
 
 
+@pytest.mark.parametrize("m", [9, 18, 21, 36, 63, 66, 237])
+def test_qp_admm_ill_conditioned_matches_plain(dev, m):
+    """K1 with the ill-conditioned diagonal as its curvature B, in each
+    design: the warp team (m = 9, 18), the warp lane (21, 36, 63), the
+    block lane (66, the cap)."""
+    args = _qp_inputs(np.random.default_rng(m), 3, m, dev)
+    args[0] = torch.diag(_ill(m)).reshape(1, m * m).repeat(3, 1).to(dev)
+    kw = dict(iters=60, rho=1.0, sigma=1e-6)
+    for gt, w in zip(sqp.qp_admm(*args, **kw), _plain(args, m, **kw)):
+        torch.testing.assert_close(gt, w, rtol=RTOL, atol=ATOL)
+
+
 @pytest.mark.parametrize("m", K2_M)
 def test_chol_inverse_is_one_launch(dev, m):
     """One chol_inverse call on the card is one CUDA launch: the kernel
     reads and writes (B, m, m) itself, so the wrapper copies nothing."""
-    M = torch.as_tensor(_spd(np.random.default_rng(m), 4096, m), device=dev)
-    n = _chip_smoke().count_launches(lambda: sqp.chol_inverse(M))
-    assert n == {"launches": 1, "kernels": 1}
+    assert _launch_counts("spd_inv", m) == {"launches": 1, "kernels": 1}
 
 
 @pytest.mark.parametrize("m", K2_M)
 def test_chol_inverse_lane_does_not_depend_on_its_block(dev, m):
     """A lane's inverse is bit-identical whatever lanes share its block and
-    however many warps share the block's columns: the whole batch, its
-    first 131 lanes, the batch shifted by one lane (a view that starts off
-    a 16-byte boundary), each at every width K2 is built for, and inside a
-    batch large enough for the narrow width. The upper triangle is never
-    read."""
+    however many threads share its work: the whole batch, its first 131
+    lanes, the batch shifted by one lane (a view that starts off a 16-byte
+    boundary), each at every launch shape K2 takes at m (the unrolled
+    design's widths; the runtime-m kernel a warp a matrix, 1, 4 or 8 to a
+    block, where they fit, and a block of 4, 16 or 32 warps a matrix),
+    and, for the unrolled design, inside a batch large enough for the
+    narrow width. The upper triangle is never read."""
     from neo_mpc_planner2_tpu_torch.kernels import binding
 
-    M = torch.as_tensor(_spd(np.random.default_rng(m), 4096, m), device=dev)
+    B = 4096 if m <= 64 else 512
+    M = torch.as_tensor(_spd(np.random.default_rng(m), B, m), device=dev)
     full = sqp.chol_inverse(M)
-    for warps in binding.K2_WIDTHS:
-        at = lambda A: binding._launch_spd_inv_at(A, warps)
+    if m in binding.K2_UNROLLED_M:
+        shapes = [(w, binding.K2_UNROLLED_MATRICES)
+                  for w in binding.K2_WIDTHS]
+    else:
+        shapes = [(w, w) for w in (1, 4, 8)
+                  if w * binding.k2_block_smem_bytes(m) <= binding.MAX_SMEM]
+        shapes += [(w, 1) for w in (4, 16, 32)]
+    for shape in shapes:
+        at = lambda A: binding._launch_spd_inv_at(A, shape)
         assert torch.equal(at(M), full)
         assert torch.equal(at(M[:131].contiguous()), full[:131])
         assert torch.equal(at(M[1:]), full[1:])
-    big = M.repeat(16, 1, 1)
-    assert binding.k2_launch_shape(big.shape[0], dev) == 1
-    assert torch.equal(sqp.chol_inverse(big)[-4096:], full)
+    if m in binding.K2_UNROLLED_M:
+        big = M.repeat(16, 1, 1)
+        assert binding.k2_launch_shape(big.shape[0], dev) == 1
+        assert torch.equal(sqp.chol_inverse(big)[-4096:], full)
     upper = torch.triu(torch.ones(m, m, dtype=torch.bool, device=dev), 1)
     garbage = M.masked_fill(upper, float("nan"))
     assert torch.equal(sqp.chol_inverse(garbage), full)

@@ -236,14 +236,21 @@ def test_qp_admm_plain_matches_jax_plain_at_m24():
 
 def test_every_k1_width_up_to_its_cap_has_a_design():
     """Every m = 3n up to K1's cap maps to a design: the warp team up to
-    m = 30, the block team above; m = 3 (cap + 1) raises, naming the
-    cap, as do widths that are not a multiple of 3."""
+    m = 30, the warp lane up to 63, the block lane above, with enough warps
+    for its rows; m = 3 (cap + 1) raises, naming the cap, as do widths that
+    are not a multiple of 3."""
     cap = binding.K1_MAX_M
     assert cap == 237 and binding.k1_block_smem_bytes(cap) <= binding.MAX_SMEM
     assert binding.k1_block_smem_bytes(cap + 3) > binding.MAX_SMEM
     for m in range(3, cap + 1, 3):
-        assert binding.qp_admm_variant(m) == (
-            "warp_team" if m <= binding.K1_WARP_TEAM_MAX_M else "block_team")
+        want = ("warp_team" if m <= binding.K1_WARP_TEAM_MAX_M else
+                "warp_lane" if m <= binding.K1_WARP_LANE_MAX_M else
+                "block_lane")
+        assert binding.qp_admm_variant(m) == want
+        warps = binding.k1_warps_per_lane(m)
+        assert warps == {"warp_team": 0, "warp_lane": 1}.get(want, warps)
+        if want == "block_lane":
+            assert 30 * warps >= m and warps <= 32
     for m in (cap + 3, 3 * 1000):
         with pytest.raises(ValueError, match=f"cap m={cap}"):
             binding.qp_admm_variant(m)
@@ -254,14 +261,19 @@ def test_every_k1_width_up_to_its_cap_has_a_design():
 
 def test_every_k2_width_up_to_its_cap_has_a_design():
     """Every m from 1 to K2's cap maps to a design: unrolled at m = 3, 6,
-    .., 18, the runtime-m kernel at every other m; the width above the cap
-    raises, naming it."""
+    .., 18, the runtime-m kernel at every other m, at a launch shape whose
+    block fits; the width above the cap raises, naming it."""
     cap = binding.K2_MAX_M
     assert cap == 240 and binding.k2_block_smem_bytes(cap) <= binding.MAX_SMEM
     assert binding.k2_block_smem_bytes(cap + 1) > binding.MAX_SMEM
     for m in range(1, cap + 1):
         assert binding.spd_inv_variant(m) == (
             "unrolled" if m in binding.K2_UNROLLED_M else "runtime_m")
+        if m not in binding.K2_UNROLLED_M:
+            warps, matrices = binding.k2_runtime_shape(m)
+            assert 1 <= warps <= 32 and matrices in (1, warps)
+            assert (matrices * binding.k2_block_smem_bytes(m)
+                    <= binding.MAX_SMEM)
     for m in (0, cap + 1):
         with pytest.raises(ValueError, match=f"1..{cap}"):
             binding.spd_inv_variant(m)

@@ -181,6 +181,66 @@ def test_chol_inverse_plain_equals_the_element_loop(m):
         assert torch.equal(tsqp.chol_inverse_plain(M), _chol_inverse_loop(M))
 
 
+def _team_order_inverse(M):
+    """The order of operations of csrc/spd_inverse.cuh's team_inverse (K1's
+    runtime-m designs, K2's runtime-m kernel), a step at a time over whole
+    tensors: a right-looking Cholesky (the pivot max(s, 1e-20), its
+    reciprocal square root d, L[i][k] = S[i][k] d, the trailing entries
+    less L[i][k] L[j][k], one term a step), a right-looking L^-1 (row k of
+    Y final at step k, subtracted from the rows below it), and X = Y^T Y
+    summed over k from 0 (the terms k < max(i, j) are exact zeros). The
+    kernel fuses each multiply-subtract into one rounding; here it takes
+    two."""
+    B, m = M.shape[0], M.shape[-1]
+    S = torch.tril(M).clone()
+    D = M.new_zeros(B, m)
+    for k in range(m):
+        d = torch.rsqrt(torch.clamp_min(S[:, k, k], 1e-20))
+        D[:, k] = d
+        col = S[:, k + 1:, k] * d[:, None]
+        S[:, k + 1:, k + 1:] -= col[:, :, None] * col[:, None, :]
+        S[:, k + 1:, k] = col
+    L = torch.tril(S, -1)
+    Y = M.new_zeros(B, m, m)
+    W = M.new_zeros(B, m, m)
+    for k in range(m):
+        yk = W[:, k, :k + 1] * D[:, k, None]
+        yk[:, k] = D[:, k]
+        Y[:, k, :k + 1] = yk
+        W[:, k + 1:, :k + 1] -= L[:, k + 1:, k, None] * yk[:, None, :]
+    X = M.new_zeros(B, m, m)
+    for k in range(m):
+        X += Y[:, k, :, None] * Y[:, k, None, :]
+    return torch.tril(X) + torch.tril(X, -1).transpose(-1, -2)
+
+
+@pytest.mark.parametrize("case", ["m4", "m24", "m36", "m240", "ill",
+                                  "zero_pivot", "negative_pivot"])
+def test_team_inverse_order_stays_in_the_gate(case):
+    """The runtime-m kernels sum in their own order, not _tree_sum's: that
+    order, on the CPU, within K1's and K2's gate (rtol 2e-4 / atol 2e-5) of
+    sqp.chol_inverse_plain at m = 4, 24, 36 and K2's cap 240, on
+    tests/test_solver.py's ill-conditioned diagonal, and where the 1e-20
+    clamp catches a zero or a negative pivot (inverses of ~1e20)."""
+    rng = np.random.default_rng(7)
+    if case.startswith("m"):
+        m = int(case[1:])
+        M = T(_spd(rng, 4 if m > 36 else 32, m))
+    elif case == "ill":
+        M = T(np.diag([1e4, 1e3, 1e2, 10, 1, 1, 0.1, 0.01, 1e-3])
+              .astype(np.float32)[None])
+    else:
+        off = 1.0 if case == "zero_pivot" else 2.0
+        M = T(np.array([[[1.0, off, 0.0], [off, 1.0, 0.0],
+                         [0.0, 0.0, 3.0]]], np.float32))
+    got = _team_order_inverse(M)
+    want = tsqp.chol_inverse_plain(M)
+    assert bool(torch.isfinite(got).all())
+    torch.testing.assert_close(got, want, rtol=RTOL, atol=ATOL)
+    if case.endswith("pivot"):
+        assert float(want.abs().max()) > 1e19
+
+
 def test_cpu_dispatch_takes_the_plain_versions():
     rng = np.random.default_rng(1)
     Bf, g, x, c, J, dxy, lo, hi, carry = _qp_inputs(rng, 8, 9)
@@ -610,12 +670,14 @@ def stub_library(monkeypatch):
     return lib
 
 
-@pytest.mark.parametrize("m", [9, 36])
-def test_launch_qp_admm_packs_operands_in_c_order(stub_library, m):
-    """binding.launch_qp_admm hands the batch-major operands, then the
-    outputs it allocates, in the order of neo_qp_admm_f32's parameters, at
-    a width of each design (the warp team at m = 9, the block team at
-    36)."""
+@pytest.mark.parametrize("m,warps", [(9, 0), (21, 1), (36, 1), (66, 3),
+                                     (237, 28)])
+def test_launch_qp_admm_packs_operands_in_c_order(stub_library, m, warps):
+    """binding.launch_qp_admm hands m, B, the warps a lane, the scalars,
+    the batch-major operands, then the outputs it allocates, in the order
+    of neo_qp_admm_f32's parameters, at a width of each design (the warp
+    team at m = 9, the warp lane at 21 and 36, the block lane at 66 and
+    the cap)."""
     B = 5
     rows = binding.qp_rows(m)
     ins = [torch.zeros(B, rows[n]) for n in binding.QP_INPUTS]
@@ -624,31 +686,76 @@ def test_launch_qp_admm_packs_operands_in_c_order(stub_library, m):
     assert name == "neo_qp_admm_f32"
     sig = _c_signature(name)
     assert len(args) == len(sig) == len(build.SIGNATURES[name][1])
-    assert args[:6] == (m, B, 7, 1.5, 0.25, 1.75)
-    assert [n for _, n in sig[6:-1]] == list(binding.QP_INPUTS
+    assert [n for _, n in sig[:7]] == ["m", "B", "warps_per_lane", "iters",
+                                       "rho", "sigma", "sigma_plus_rho"]
+    assert args[:7] == (m, B, warps, 7, 1.5, 0.25, 1.75)
+    assert [n for _, n in sig[7:-1]] == list(binding.QP_INPUTS
                                            + binding.QP_OUTPUTS)
-    assert list(args[6:18]) == [t.data_ptr() for t in ins]
-    assert list(args[18:25]) == [t.data_ptr() for t in outs]
+    assert list(args[7:19]) == [t.data_ptr() for t in ins]
+    assert list(args[19:26]) == [t.data_ptr() for t in outs]
     assert args[-1] == 1234
     for n, t in zip(binding.QP_OUTPUTS, outs):
         assert t.shape == (B, rows[n]) and t.dtype == torch.float32
 
 
-@pytest.mark.parametrize("m", [9, 4])
-def test_launch_spd_inv_packs_operands_in_c_order(stub_library, m):
-    """binding.launch_spd_inv hands m, B, the warps a block, the batch-major
-    (B, m, m) operand and the output it allocates, at a width of each
-    design (unrolled at m = 9, runtime-m at 4)."""
+@pytest.mark.parametrize("m,shape", [(9, (4, 32)), (4, (4, 4)),
+                                     (40, (4, 4)), (41, (2, 1)),
+                                     (240, (23, 1))])
+def test_launch_spd_inv_packs_operands_in_c_order(stub_library, m, shape):
+    """binding.launch_spd_inv hands m, B, the warps and the matrices a
+    block, the batch-major (B, m, m) operand and the output it allocates,
+    at a width of each plan (unrolled at m = 9, a warp a matrix at 4 and
+    40, a block a matrix at 41 and the cap)."""
     M = torch.zeros(5, m, m)
     X = binding.launch_spd_inv(M)
     (name, args), = stub_library.calls
     assert name == "neo_spd_inv_f32"
-    assert len(args) == len(_c_signature(name))
-    assert args[:3] == (m, 5, 4)
-    assert args[3:] == (M.data_ptr(), X.data_ptr(), 1234)
+    sig = _c_signature(name)
+    assert len(args) == len(sig) == len(build.SIGNATURES[name][1])
+    assert [n for _, n in sig[:4]] == ["m", "B", "warps_per_block",
+                                       "matrices_per_block"]
+    assert args[:4] == (m, 5, *shape)
+    assert args[4:] == (M.data_ptr(), X.data_ptr(), 1234)
     assert X.shape == (5, m, m) and X.dtype == torch.float32
     binding.launch_spd_inv(torch.zeros(65536, 6, 6))
-    assert stub_library.calls[-1][1][:3] == (6, 65536, 1)
+    assert stub_library.calls[-1][1][:4] == (6, 65536, 1, 32)
+
+
+@pytest.mark.parametrize("m,variant,warps", [
+    (3, "warp_team", 0), (18, "warp_team", 0), (21, "warp_lane", 1),
+    (36, "warp_lane", 1), (63, "warp_lane", 1), (66, "block_lane", 3),
+    (96, "block_lane", 5), (237, "block_lane", 28)])
+def test_k1_launch_shape_boundaries(m, variant, warps):
+    """K1's design and warps a lane at each boundary: the warp team up to
+    m = 18, the warp lane (two rows of M^-1 a thread in registers, 64
+    floats a row) up to 63, the block lane above with a warp per 30 rows,
+    or per 2048 entries of M where that is more (at most 32); every block
+    fits MAX_SMEM."""
+    assert binding.qp_admm_variant(m) == variant
+    assert binding.k1_warps_per_lane(m) == warps
+    if variant == "block_lane":
+        assert warps * binding.K1_BLOCK_LANE_ROWS_PER_WARP >= m
+        assert warps <= 32
+        assert binding.k1_block_smem_bytes(m) <= binding.MAX_SMEM
+    if variant == "warp_lane":
+        assert m <= 64
+
+
+@pytest.mark.parametrize("m,shape", [
+    (1, (4, 4)), (2, (4, 4)), (19, (4, 4)), (40, (4, 4)), (41, (2, 1)),
+    (64, (2, 1)), (96, (4, 1)), (128, (7, 1)), (240, (23, 1))])
+def test_k2_runtime_shape_boundaries(m, shape):
+    """K2's runtime-m kernel takes a warp a matrix, K2_WARP_MATRICES a
+    block, up to K2_WARP_MAX_M, and a block a matrix above, a warp per
+    2560 entries (at least 2, at most 32); the block's shared memory fits
+    MAX_SMEM at every m up to the cap."""
+    assert binding.spd_inv_variant(m) == "runtime_m"
+    assert binding.k2_runtime_shape(m) == shape
+    warps, matrices = shape
+    assert binding.k2_runtime_plan(shape) == (
+        "warp" if m <= binding.K2_WARP_MAX_M else "block")
+    assert matrices * binding.k2_block_smem_bytes(m) <= binding.MAX_SMEM
+    assert binding.spd_inv_shape(m, 4096, "cuda") == shape
 
 
 @pytest.mark.parametrize("sms,wide_up_to", [(132, 8448), (114, 7296)])
