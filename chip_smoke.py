@@ -108,9 +108,9 @@ KERNEL_KEYS = ("name", "route", "source", "replaces", "launches",
 TIMING = ("*_ms: the kernel's device time (torch.profiler, median of 3 x "
           "20 launches); *_wrapper_ms and *_plain_ms: one call between CUDA "
           "events, median of 20; *_library_ms: the device time of one "
-          "PyTorch call's kernels, mean of 20; from m = 36 on *_ms and "
-          "*_library_ms are one call between CUDA events too, the enqueue "
-          "included (median of 20, of 2 at the caps)")
+          "PyTorch call's kernels, mean of 20; from m = 96 on, where a call "
+          "takes over 1 ms, *_ms and *_library_ms are one call between CUDA "
+          "events too, the enqueue included (median of 20, of 2 at the caps)")
 
 SLICE_TICKS = 20
 # Each slice's warm-up run (the product and rolling slices' K3 calls are
@@ -433,17 +433,17 @@ K1_TIMED = (3, 9, 15, 18, 21, 24, 36, 63, 66, 96, "cap")
 
 
 def _reps(m: int) -> int:
-    """Timed calls a trace: fewer where one call takes tens of ms (the
-    caps' widths)."""
-    return 20 if m <= 36 else 2
+    """Timed calls a trace: fewer past m = 96, where one call takes tens
+    of ms (the caps)."""
+    return 20 if m <= 96 else 2
 
 
 # From this width on a K1 or K2 call's device time is one call between
-# CUDA events, the host's enqueue included: fewer profiler sessions after
-# the heavy plain versions. (The runtime-m designs take 0.1-0.2 ms at
-# m = 36, where the events read ~0.06 ms above the profiler's device
-# time.)
-EVENTS_FROM_M = 36
+# CUDA events, the host's enqueue included: the first timed width where a
+# call of either kernel takes over 1 ms on an H100 (PERF.md), so the
+# enqueue, which the events read ~0.06 ms above the profiler's device
+# time, is a few per cent of it. Below it, the profiler's device time.
+EVENTS_FROM_M = 96
 
 
 def _kernel_ms(call, kernel: str, m: int) -> float:
@@ -531,11 +531,11 @@ K2_SIZES = (1, 131, 4096, 65536)
 K2_TIMED = (4096, 65536)
 # K2's checked cases: (m, batch sizes). m = 6, 9, 15 at every size of
 # K2_SIZES; m = 3 (unrolled) and the runtime-m kernel's widths (a warp a
-# matrix at 1, 2, 4, 19, 24, 33, 36 and 40, its last; a block a matrix at
-# 41, its first, 64, 96 and K2's cap) at B = 1 and 4096.
+# matrix at 1, 2, 4, 19, 24, 33, 36, 40 and 41, its last; a block a matrix
+# at 42, its first, 64, 96 and K2's cap) at B = 1 and 4096.
 K2_CASES = tuple((m, K2_SIZES) for m in (6, 9, 15)) + tuple(
     (m, (1, 4096))
-    for m in (3, 1, 2, 4, 19, 24, 33, 36, 40, 41, 64, 96, "cap"))
+    for m in (3, 1, 2, 4, 19, 24, 33, 36, 40, 41, 42, 64, 96, "cap"))
 
 
 def phase_k2(device):
@@ -558,11 +558,12 @@ def phase_k2(device):
     worst_inv, worst_res = 0.0, 0.0
     cap = binding.K2_MAX_M
     # The ill-conditioned diagonal in each plan: unrolled at 9, a warp a
-    # matrix at 24, a block a matrix at 41 and the cap (padded with ones).
+    # matrix at 24 and 41, a block a matrix at 42 and the cap (padded with
+    # ones).
     diag = [1e4, 1e3, 1e2, 10, 1, 1, 0.1, 0.01, 1e-3]
     cases = [(m, torch.diag(torch.tensor(diag + [1.0] * (m - 9),
                                          device=device))[None])
-             for m in (9, 24, 41, cap)]
+             for m in (9, 24, 41, 42, cap)]
     for m, sizes in K2_CASES:
         m = cap if m == "cap" else m
         for B in sizes:

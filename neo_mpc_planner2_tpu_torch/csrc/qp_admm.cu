@@ -54,12 +54,11 @@
 //     functions take them: a block's lanes are contiguous rows, read with
 //     coalesced loads, and written back the same way, so the wrapper is
 //     one launch with no transposes.
-// The warp-team design is instantiated at every m = 3N <= 30 (N <= 10; at
-// m = 3 ten teams a warp, from m = 18 on one team a warp with idle threads)
-// and serves m <= 18: from m = 21 on the warp lane below ran faster on an
-// H100 (from 24 on the team spills 536-1,156 bytes). Above m = 30 a team no
-// longer fits a warp, and a thread's rows of m floats (five of them, and
-// the Cholesky's scratch) no longer fit its registers.
+// The warp-team design is instantiated at every m = 3N <= 18
+// (binding.K1_WARP_TEAM_MAX_M; at m = 3 ten teams a warp, at 18 one team a
+// warp with idle threads): from m = 21 on the warp lane below ran faster
+// on an H100, and from 24 on a team's rows of m floats (five of them, and
+// the Cholesky's scratch) spilled 536-1,156 bytes.
 //
 // The runtime-m designs (binding.qp_admm_variant: from m = 21, where the
 // warp lane ran ahead of the warp team on an H100, to the cap). What
@@ -123,7 +122,7 @@ __global__ void __launch_bounds__(kQpThreads) qp_admm_kernel(
   constexpr int LANES = WARPS * LPW;    // lanes a block
   constexpr int SLOTS = WARPS * (LPW + 1);
   constexpr int MP = (M + 3) / 4 * 4;   // rhs row, padded for float4 reads
-  static_assert(M >= 3 && M <= 30 && M % 3 == 0, "m = 3 N, N <= 10");
+  static_assert(M >= 3 && M <= 18 && M % 3 == 0, "m = 3 N, N <= 6");
   // Per team slot: M (in its lower triangle: E, overwritten by L, then X),
   // the reciprocal diagonal of L, and two rhs buffers. Each warp has one
   // slot more than it has lanes: its last 32 - LPW * M threads form a
@@ -656,7 +655,7 @@ static cudaError_t launch_qp_runtime(const QpArgs& args, int m, int B,
 // Every operand batch-major and contiguous: Bflat (B, m*m); g, x, lo, hi,
 // d0, zb0, wb0 (B, m); c, zc0, wc0 (B, m/3); dxy (B, 2m/3). Outputs d_out,
 // d, zb, wb (B, m); zc, wc, y_cone (B, m/3). warps_per_lane picks the
-// design: 0 the warp team (m <= 30, several lanes a warp), 1 the warp lane
+// design: 0 the warp team (m <= 18, several lanes a warp), 1 the warp lane
 // (m <= 64), 2 or more the block lane (at least one warp per 30 rows).
 // Returns cudaGetLastError().
 extern "C" int neo_qp_admm_f32(
@@ -688,8 +687,7 @@ extern "C" int neo_qp_admm_f32(
                                  sigma_plus_rho, s);
   switch (m) {
     NEO_QP_CASE(3) NEO_QP_CASE(6) NEO_QP_CASE(9) NEO_QP_CASE(12)
-    NEO_QP_CASE(15) NEO_QP_CASE(18) NEO_QP_CASE(21) NEO_QP_CASE(24)
-    NEO_QP_CASE(27) NEO_QP_CASE(30)
+    NEO_QP_CASE(15) NEO_QP_CASE(18)
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

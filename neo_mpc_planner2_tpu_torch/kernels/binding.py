@@ -38,20 +38,24 @@ def team_ld(m: int) -> int:
 
 
 # K1's designs (csrc/qp_admm.cu): the warp team (qp_admm_kernel<M>, several
-# lanes a warp, built at every m = 3N <= 30) serves m up to
+# lanes a warp, built at every m = 3N <= K1_WARP_TEAM_MAX_M) serves m up to
 # K1_WARP_TEAM_MAX_M; the warp lane (qp_admm_kernel_warp_lane, a warp a
 # lane, its rows of M^-1 in registers) up to K1_WARP_LANE_MAX_M; the block
 # lane (qp_admm_kernel_block_lane, a block a lane) above, up to K1_MAX_M.
-# Measured on an H100 (PERF.md, scripts/torch_kernel_turns.py): the warp
-# lane ran ahead of the warp team from m = 21 on, and of the block lane up
-# to m = 63 (a thread holds two rows of at most 64 floats).
+# Measured on an H100 (PERF.md, scripts/torch_kernel_turns.py --old and
+# --runtime-shapes): the warp team ran 2 % ahead of the warp lane at
+# m = 18; the warp lane ran ahead of the team from m = 21 on (against an
+# earlier build whose team served m = 21-30) and 25-35 % ahead of the
+# block lane at 48 and 63 (its last width: a thread holds two rows of at
+# most 64 floats).
 K1_WARP_TEAM_MAX_M = 18
 K1_WARP_LANE_MAX_M = 63
 # Rows a warp owns in the block lane: ten whole cone triples.
 K1_BLOCK_LANE_ROWS_PER_WARP = 30
 # The block lane's warps: one per 30 rows, and more at large m, one per
 # K1_BLOCK_LANE_ENTRIES_PER_WARP entries of M, up to 32: 3 at m = 66, 5 at
-# 96, 28 at 237 (each fastest or within 3 % of it, PERF.md).
+# 96, 28 at 237 (each fastest or within 2 % of it on an H100,
+# scripts/torch_kernel_turns.py --runtime-shapes, PERF.md).
 K1_BLOCK_LANE_ENTRIES_PER_WARP = 2048
 
 
@@ -68,9 +72,9 @@ K1_MAX_M = max(m for m in range(3, 400, 3)
 
 
 def qp_admm_variant(m: int) -> str:
-    """The K1 design that serves m: "warp_team" (m = 3N <= 30),
-    "warp_lane" (<= K1_WARP_LANE_MAX_M) or "block_lane" (<= K1_MAX_M).
-    Raises ValueError for any other m."""
+    """The K1 design that serves m: "warp_team" (m = 3N <=
+    K1_WARP_TEAM_MAX_M), "warp_lane" (<= K1_WARP_LANE_MAX_M) or
+    "block_lane" (<= K1_MAX_M). Raises ValueError for any other m."""
     if m < 3 or m % 3:
         raise ValueError(f"qp_admm: m={m} is not 3 x control_steps")
     if m <= K1_WARP_TEAM_MAX_M:
@@ -109,10 +113,12 @@ K2_UNROLLED_MATRICES = 32
 # warps) a block, up to K2_WARP_MAX_M (spd_inv_kernel_runtime_warp); a
 # block a matrix above (spd_inv_kernel_runtime_block), one warp per
 # K2_BLOCK_ENTRIES_PER_WARP entries of the matrix, at least 2 and at most
-# 32. Measured on an H100 at B = 4096 (PERF.md): a warp a matrix ran
-# ahead at m = 36, a block at 48 (2 warps), 64 (2), 96 (4), 128 (8) and
-# 240 (16-20, within 3 % of 23).
-K2_WARP_MAX_M = 40
+# 32. Measured on an H100 at B = 4096 (scripts/torch_kernel_turns.py
+# --runtime-shapes; PERF.md): a warp a matrix ran ahead of a block of 2 or
+# 4 warps a matrix up to m = 41 (4 % at 41), a block of 2 from m = 42 (5 %
+# at 42); the block's warps by this rule were fastest or within 3.5 % of
+# the fastest at m = 64, 96, 128 and 240.
+K2_WARP_MAX_M = 41
 K2_WARP_MATRICES = 4
 K2_BLOCK_ENTRIES_PER_WARP = 2560
 
@@ -271,11 +277,14 @@ def _stream(device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
 
 
-def launch_qp_admm(ins, m: int, iters: int, rho: float, sigma: float):
+def launch_qp_admm(ins, m: int, iters: int, rho: float, sigma: float,
+                   warps_per_lane: int | None = None):
     """ins: the 12 batch-major operands of QP_INPUTS, each (B, rows).
     Returns the 7 batch-major outputs of QP_OUTPUTS, from the design of
-    k1_warps_per_lane(m)."""
-    warps_per_lane = k1_warps_per_lane(m)
+    k1_warps_per_lane(m), or of `warps_per_lane` where given (to time the
+    designs against each other)."""
+    if warps_per_lane is None:
+        warps_per_lane = k1_warps_per_lane(m)
     lib = load_library()
     B = ins[0].shape[0]
     rows = qp_rows(m)

@@ -34,7 +34,13 @@ in turns (old, new, new, old).
 `--shapes` times K3 on the arguments of its calls in the product slice
 (4096 lanes, a 2-tick run) at each (lanes_per_block, warps_per_lane);
 `--k2-shapes` times K2 at each of its widths (warps a block), each held
-against the plain version first. Prints one JSON line per measurement and
+against the plain version first. `--runtime-shapes` times the runtime-m
+designs' launch shapes at B = 4096 around the boundaries that
+`kernels/binding.py` sets (RUNTIME_K2_SHAPES, RUNTIME_K1_WARPS): K2 a
+warp a matrix against a block a matrix and the warps of a block, K1 the
+warp team against the warp lane, the warp lane against the block lane and
+the block lane's warps; each held against the plain version, and K2's
+shapes bit for bit against each other. Prints one JSON line per measurement and
 the card's name and power limit. Needs one CUDA device; imports no JAX.
 """
 
@@ -141,8 +147,8 @@ def kernel_turn(which: str, fns: dict, device, ref: dict) -> dict:
     """One turn. K2's timed calls rotate over copies of their operands that
     together exceed twice the L2 (chip_smoke.rotating): every launch reads
     its input from, and writes its output to, memory the card's L2 does not
-    hold. From m = 36 on a call takes over 0.1 ms and is timed between CUDA
-    events (chip_smoke._kernel_ms)."""
+    hold. From chip_smoke.EVENTS_FROM_M on a call takes over 1 ms and is
+    timed between CUDA events (chip_smoke._kernel_ms)."""
     import numpy as np
     import torch
 
@@ -384,6 +390,92 @@ def k2_shapes(device):
             del ring, M, want
 
 
+# K2's runtime-m launch shapes (warps_per_block, matrices_per_block) at
+# each m: a warp a matrix, four to a block, against a block of 2 or 4 warps
+# a matrix around K2_WARP_MAX_M; the block's warps above it.
+RUNTIME_K2_SHAPES = {
+    **{m: ((4, 4), (2, 1), (4, 1))
+       for m in (32, 36, 38, 40, 41, 42, 43, 44, 48)},
+    64: ((4, 4), (2, 1), (3, 1), (4, 1), (8, 1)),
+    **{m: tuple((w, 1) for w in (2, 4, 6, 8, 12, 16)) for m in (96, 128)},
+    240: tuple((w, 1) for w in (8, 12, 16, 20, 23, 24, 28, 32)),
+}
+# K1's warps_per_lane at each m (0 the warp team, 1 the warp lane, more the
+# block lane): the team against the lane at 18, the lane against the block
+# lane at 48 and 63, the block lane's warps above.
+RUNTIME_K1_WARPS = {
+    18: (0, 1),
+    48: (1, 2, 3, 4),
+    63: (1, 3, 4, 6, 8),
+    66: (3, 4, 5, 6, 8),
+    96: (4, 5, 6, 8, 12),
+    237: (8, 16, 24, 28, 32),
+}
+
+
+def runtime_shapes(device):
+    """The device time (torch.profiler) of K2's runtime-m kernel at each
+    shape of RUNTIME_K2_SHAPES and of K1 at each warps_per_lane of
+    RUNTIME_K1_WARPS, B = 4096 (K1 60 iterations; K2's calls on copies of
+    M that exceed twice the L2), beside the shape binding picks and the
+    bound. One JSON line a width."""
+    import numpy as np
+    import torch
+
+    from neo_mpc_planner2_tpu_torch import sqp
+    from neo_mpc_planner2_tpu_torch.kernels import binding, bounds
+
+    rng = np.random.default_rng(2)
+    for m, shapes in RUNTIME_K2_SHAPES.items():
+        ring = spd_ring(spd_batch(rng, 4096, m, device))
+        want = sqp.chol_inverse_plain(ring[0][:256])
+        reps = 20 if m <= 64 else 3
+        out = {"kernel": "K2", "m": m,
+               "picked": list(binding.k2_runtime_shape(m)),
+               "bound_ms": bounds.spd_inv_work(4096, m)["bound_ms"]}
+        first = None
+        for shape in shapes:
+            at = lambda A: binding._launch_spd_inv_at(A, shape)
+            got = at(ring[0])
+            torch.cuda.synchronize()
+            ex = cs._excess(got[:256], want, 2e-4, 2e-5)
+            if ex > 0:
+                raise AssertionError(f"K2 m={m} at {shape}: off its plain "
+                                     f"version by {ex:.3g}")
+            first = got if first is None else first
+            if not torch.equal(got, first):
+                raise AssertionError(f"K2 m={m}: {shape} differs from "
+                                     f"{shapes[0]}")
+            plan = binding.k2_runtime_plan(shape)
+            out[f"{plan}_{shape[0]}x{shape[1]}_ms"] = cs._device_ms(
+                cs.rotating(at, ring), "spd_inv_kernel", reps=reps)
+        print(json.dumps(out), flush=True)
+        del ring, want, first, got
+    kw = dict(iters=60, rho=1.0, sigma=1e-6)
+    for m, warp_counts in RUNTIME_K1_WARPS.items():
+        args = cs._qp_inputs(rng, 4096, m, device)
+        J = sqp._cone_jacobian(args[4][:256], m)
+        want = sqp.qp_admm_plain(*(a[:256] for a in args[:4]), J,
+                                 *(a[:256] for a in args[5:]), **kw)
+        out = {"kernel": "K1", "m": m,
+               "picked": binding.k1_warps_per_lane(m),
+               "bound_ms": bounds.qp_admm_work(4096, m, 60)["bound_ms"]}
+        for warps in warp_counts:
+            call = lambda: binding.launch_qp_admm(
+                args, m, kw["iters"], kw["rho"], kw["sigma"],
+                warps_per_lane=warps)
+            d_out, d, zb, zc, wb, wc, y_cone = call()
+            torch.cuda.synchronize()
+            ex = max(cs._excess(g[:256], w, 2e-4, 2e-5) for g, w in
+                     zip((d_out, y_cone, d, zb, zc, wb, wc), want))
+            if ex > 0:
+                raise AssertionError(f"K1 m={m} at {warps} warps a lane: "
+                                     f"off its plain version by {ex:.3g}")
+            out[f"warps{warps}_ms"] = cs._device_ms(
+                call, "qp_admm_kernel", reps=20 if m <= 66 else 3)
+        print(json.dumps(out), flush=True)
+
+
 def main(argv=None) -> int:
     import torch
 
@@ -396,6 +488,8 @@ def main(argv=None) -> int:
                     help="time K3's launch shapes instead of the turns")
     ap.add_argument("--k2-shapes", action="store_true",
                     help="time K2's launch shapes instead of the turns")
+    ap.add_argument("--runtime-shapes", action="store_true",
+                    help="time the runtime-m designs' launch shapes")
     ap.add_argument("--k3-old", type=pathlib.Path,
                     help="directory with an earlier footprint_cost.cu")
     ap.add_argument("--batch", type=int, default=4096)
@@ -416,10 +510,12 @@ def main(argv=None) -> int:
         k3_shapes(device, args.batch)
     if args.k2_shapes:
         k2_shapes(device)
+    if args.runtime_shapes:
+        runtime_shapes(device)
     if args.k3_old is not None:
         k3_old(device, args.k3_old, args.turns, args.batch)
     if args.old is None and not (args.shapes or args.k2_shapes
-                                 or args.k3_old):
+                                 or args.runtime_shapes or args.k3_old):
         ap.error("--old is required for the turns")
     if args.old is not None:
         from neo_mpc_planner2_tpu_torch import sqp

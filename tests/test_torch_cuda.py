@@ -75,9 +75,10 @@ def _plain(args, m, **kw):
 # width 66, 96 and the cap.
 K1_M = [3, 6, 9, 15, 18, 21, 24, 33, 36, 63, 66, 96, 237]
 # K2's: unrolled at 3, 6, 9, 15; the runtime-m kernel a warp a matrix at 1,
-# 2, 4, 19, 21, 24, 32, 33, 36 and 40 (its last), a block a matrix at 41
-# (its first), 64, 65 and the cap.
-K2_M = [1, 2, 3, 4, 6, 9, 15, 19, 21, 24, 32, 33, 36, 40, 41, 64, 65, 240]
+# 2, 4, 19, 21, 24, 32, 33, 36, 40 and 41 (its last), a block a matrix at
+# 42 (its first), 64, 65 and the cap.
+K2_M = [1, 2, 3, 4, 6, 9, 15, 19, 21, 24, 32, 33, 36, 40, 41, 42, 64, 65,
+        240]
 # Batch sizes: 65536 lanes only up to m = 36 (at the cap one batch would
 # take 15 GB).
 K2_CASES = [(m, B) for m in K2_M for B in (1, 131, 4096, 65536)
@@ -196,11 +197,11 @@ def test_chol_inverse_kernel_matches_plain(dev, m, B):
     assert torch.equal(got, got.transpose(-1, -2))
 
 
-@pytest.mark.parametrize("m", [9, 4, 24, 40, 41, 240])
+@pytest.mark.parametrize("m", [9, 4, 24, 40, 41, 42, 240])
 def test_chol_inverse_ill_conditioned_matches_plain(dev, m):
     """tests/test_solver.py's ill-conditioned diagonal (1e4 down to 1e-3,
     cut or padded with ones to m) in each plan: unrolled (m = 9), a warp a
-    matrix (4, 24, 40), a block a matrix (41, 240)."""
+    matrix (4, 24, 40, 41), a block a matrix (42, 240)."""
     d = _ill(m).to(dev)
     M = torch.diag(d)[None].contiguous()
     got = sqp.chol_inverse(M)
@@ -237,8 +238,9 @@ def test_chol_inverse_lane_does_not_depend_on_its_block(dev, m):
     boundary), each at every launch shape K2 takes at m (the unrolled
     design's widths; the runtime-m kernel a warp a matrix, 1, 4 or 8 to a
     block, where they fit, and a block of 4, 16 or 32 warps a matrix),
-    and, for the unrolled design, inside a batch large enough for the
-    narrow width. The upper triangle is never read."""
+    and inside the batch repeated 16 times (65,536 lanes at m <= 64; for
+    the unrolled design, a batch large enough for the narrow width). The
+    upper triangle is never read."""
     from neo_mpc_planner2_tpu_torch.kernels import binding
 
     B = 4096 if m <= 64 else 512
@@ -256,10 +258,10 @@ def test_chol_inverse_lane_does_not_depend_on_its_block(dev, m):
         assert torch.equal(at(M), full)
         assert torch.equal(at(M[:131].contiguous()), full[:131])
         assert torch.equal(at(M[1:]), full[1:])
+    big = M.repeat(16, 1, 1)
     if m in binding.K2_UNROLLED_M:
-        big = M.repeat(16, 1, 1)
         assert binding.k2_launch_shape(big.shape[0], dev) == 1
-        assert torch.equal(sqp.chol_inverse(big)[-4096:], full)
+    assert torch.equal(sqp.chol_inverse(big)[-B:], full)
     upper = torch.triu(torch.ones(m, m, dtype=torch.bool, device=dev), 1)
     garbage = M.masked_fill(upper, float("nan"))
     assert torch.equal(sqp.chol_inverse(garbage), full)

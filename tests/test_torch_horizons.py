@@ -236,7 +236,7 @@ def test_qp_admm_plain_matches_jax_plain_at_m24():
 
 def test_every_k1_width_up_to_its_cap_has_a_design():
     """Every m = 3n up to K1's cap maps to a design: the warp team up to
-    m = 30, the warp lane up to 63, the block lane above, with enough warps
+    m = K1_WARP_TEAM_MAX_M (18), the warp lane up to 63, the block lane above, with enough warps
     for its rows; m = 3 (cap + 1) raises, naming the cap, as do widths that
     are not a multiple of 3."""
     cap = binding.K1_MAX_M

@@ -698,14 +698,28 @@ def test_launch_qp_admm_packs_operands_in_c_order(stub_library, m, warps):
         assert t.shape == (B, rows[n]) and t.dtype == torch.float32
 
 
+@pytest.mark.parametrize("m,warps", [(18, 1), (63, 4), (237, 32)])
+def test_launch_qp_admm_takes_a_given_warps_per_lane(stub_library, m, warps):
+    """launch_qp_admm(..., warps_per_lane=w) hands w to neo_qp_admm_f32 in
+    place of k1_warps_per_lane(m): the launch shapes that
+    scripts/torch_kernel_turns.py --runtime-shapes times."""
+    assert binding.k1_warps_per_lane(m) != warps
+    rows = binding.qp_rows(m)
+    ins = [torch.zeros(3, rows[n]) for n in binding.QP_INPUTS]
+    binding.launch_qp_admm(ins, m, iters=7, rho=1.5, sigma=0.25,
+                           warps_per_lane=warps)
+    (name, args), = stub_library.calls
+    assert args[:3] == (m, 3, warps)
+
+
 @pytest.mark.parametrize("m,shape", [(9, (4, 32)), (4, (4, 4)),
-                                     (40, (4, 4)), (41, (2, 1)),
-                                     (240, (23, 1))])
+                                     (40, (4, 4)), (41, (4, 4)),
+                                     (240, (23, 1)), (42, (2, 1))])
 def test_launch_spd_inv_packs_operands_in_c_order(stub_library, m, shape):
     """binding.launch_spd_inv hands m, B, the warps and the matrices a
     block, the batch-major (B, m, m) operand and the output it allocates,
-    at a width of each plan (unrolled at m = 9, a warp a matrix at 4 and
-    40, a block a matrix at 41 and the cap)."""
+    at a width of each plan (unrolled at m = 9, a warp a matrix at 4, 40
+    and 41, a block a matrix at 42 and the cap)."""
     M = torch.zeros(5, m, m)
     X = binding.launch_spd_inv(M)
     (name, args), = stub_library.calls
@@ -742,8 +756,9 @@ def test_k1_launch_shape_boundaries(m, variant, warps):
 
 
 @pytest.mark.parametrize("m,shape", [
-    (1, (4, 4)), (2, (4, 4)), (19, (4, 4)), (40, (4, 4)), (41, (2, 1)),
-    (64, (2, 1)), (96, (4, 1)), (128, (7, 1)), (240, (23, 1))])
+    (1, (4, 4)), (2, (4, 4)), (19, (4, 4)), (40, (4, 4)), (41, (4, 4)),
+    (64, (2, 1)), (96, (4, 1)), (128, (7, 1)), (240, (23, 1)),
+    (42, (2, 1))])
 def test_k2_runtime_shape_boundaries(m, shape):
     """K2's runtime-m kernel takes a warp a matrix, K2_WARP_MATRICES a
     block, up to K2_WARP_MAX_M, and a block a matrix above, a warp per
