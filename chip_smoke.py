@@ -7,7 +7,7 @@ Builds the CUDA kernels from `neo_mpc_planner2_tpu_torch/csrc/`, checks each
 horizons, each design and each kernel's cap) against its plain PyTorch
 version on the card, and drives the seven slices of the port through
 `batch_simulate`
-(4096 lanes, control_steps=3, 20 ticks each): on 64x64 maps the fleet
+(4096 lanes, control_steps=3, 10 ticks each): on 64x64 maps the fleet
 closed loop (parity objective), the
 product closed loop (smooth objective, candidate-wave line search, patch
 sampler) and the prox closed loop (the product point with the prox-FISTA
@@ -60,6 +60,10 @@ lane: each launch plan of `kernels.binding.k3_variant`, and the walk past
 32 vertices); and end to end, a server session with an MPO-500 on a
 0.015 m map (69 samples an edge) and the controller with a 20-vertex
 footprint, each against the CPU.
+Then the port's benchmark (`python -m neo_mpc_planner2_tpu_torch.bench`,
+every pass of bench.py) in a child process at 4096 lanes and 64x64 maps,
+its depth cut (BENCH_ARGS): it must exit 0 with one JSON line whose every
+field is set, on one card, having launched K1 and K3.
 Every phase prints a line; any failure exits non-zero. The `kernels` line
 lists every kernel with its launches, its time beside its bound
 (`kernels/bounds.py`) and, where one PyTorch call computes the same
@@ -112,7 +116,10 @@ TIMING = ("*_ms: the kernel's device time (torch.profiler, median of 3 x "
           "takes over 1 ms, *_ms and *_library_ms are one call between CUDA "
           "events too, the enqueue included (median of 20, of 2 at the caps)")
 
-SLICE_TICKS = 20
+# The timed run of each slice, SQP schedule arm and horizon loop: 20 ticks
+# until the bench phase joined the smoke, which then took 786 s on one
+# NVIDIA H100 80GB HBM3 (PERF.md); every number they give is per tick.
+SLICE_TICKS = 10
 # Each slice's warm-up run (the product and rolling slices' K3 calls are
 # captured there) and, per slice, the ticks that the launch count
 # profiles, as (first tick, ticks). Reading the profiler's records takes
@@ -1082,43 +1089,22 @@ def hold_k3_captured(recorder: K3Recorder, required=("wave", "gate"),
 
 
 def fleet_cfg():
-    """fleet_config() with the fleet benchmark's overrides (bench.py)."""
-    import neo_mpc_planner2_tpu_torch as tp
+    """fleet_config() with the fleet benchmark's overrides: the port's
+    bench module's (`bench.fleet_cfg`, bench.py's headline point)."""
+    from neo_mpc_planner2_tpu_torch import bench
 
-    return tp.fleet_config().replace(
-        prediction_horizon=0.8, control_steps=3, opt_tolerance=1e-3,
-        footprint_edge_samples=16, max_plan_points=64,
-        solver_compact_adaptive=False,
-        min_vel_x=-0.7, min_vel_y=-0.7, min_vel_theta=-0.7,
-        max_vel_x=0.7, max_vel_y=0.7, max_vel_trans=0.7, max_vel_theta=0.7,
-        w_trans=0.82, w_orient=0.5, w_control=0.05, w_terminal=0.05,
-        w_costmap=0.05, w_footprint=2000.0, costmap_sampling="onehot",
-        solver_costmap_u8=False,
-        lookahead_dist_min=0.4, lookahead_dist_max=0.4,
-        lookahead_dist_close_to_goal=0.4)
+    return bench.fleet_cfg()
 
 
 def product_cfg(base=None):
-    """The product-SQP point of the benchmark (bench.py) on the fleet
-    overrides (or on `base`): quirks off, the candidate-wave line search,
-    no quadratic interpolation, and the patch sampler sized for the
+    """The product-SQP point of the benchmark (`bench.product_cfg`) on the
+    fleet overrides (or on `base`): quirks off, the candidate-wave line
+    search, no quadratic interpolation, and the patch sampler sized for the
     MPO-700 footprint (0.46 m circumradius; 28 cells at 0.05 m at the
     fleet point's horizon)."""
-    import dataclasses
+    from neo_mpc_planner2_tpu_torch import bench
 
-    from neo_mpc_planner2_tpu_torch.ops.costmap import (
-        required_product_patch_halfwidth)
-
-    cfg = fleet_cfg() if base is None else base
-    cfg = cfg.replace(
-        parallel_line_search=True, solver_ls_quad_interp=False,
-        solver_patch_exact_picks=False,
-        compat=dataclasses.replace(
-            cfg.compat, buggy_odom_yaw=False, footprint_alias_noop=False,
-            lethal_1000x=False, unsquared_control_cost=False,
-            no_angle_wrap=False))
-    return cfg.replace(solver_costmap_patch=required_product_patch_halfwidth(
-        cfg, 0.05, 0.46))
+    return bench.product_cfg(fleet_cfg() if base is None else base)
 
 
 def exact_cfg():
@@ -1130,23 +1116,20 @@ def exact_cfg():
 
 def _wrappers():
     """Each wrapper that counts its kernel's launches, by the name the
-    phase lines give it: K1, K2, K3's sampled mode and K3's walk mode."""
-    from neo_mpc_planner2_tpu_torch import sqp
-    from neo_mpc_planner2_tpu_torch.ops import footprint
+    phase lines give it: K1, K2, K3's sampled mode and K3's walk mode
+    (`bench.kernel_wrappers`)."""
+    from neo_mpc_planner2_tpu_torch import bench
 
-    return {"qp_admm": sqp.qp_admm, "spd_inv": sqp.chol_inverse,
-            "footprint_cost": footprint.footprint_cost_batch,
-            "footprint_walk": footprint.footprint_walk_batch}
+    return bench.kernel_wrappers()
 
 
 def _launch_counts():
     """Each wrapper's launches by its name, and K3's by launch plan as
-    "footprint_cost:<plan>" / "footprint_walk:<plan>"."""
-    counts = {name: fn.launches for name, fn in _wrappers().items()}
-    for name, fn in _wrappers().items():
-        counts.update({f"{name}:{plan}": n
-                       for plan, n in getattr(fn, "plans", {}).items()})
-    return counts
+    "footprint_cost:<plan>" / "footprint_walk:<plan>"
+    (`bench.kernel_launches`)."""
+    from neo_mpc_planner2_tpu_torch import bench
+
+    return bench.kernel_launches()
 
 
 def _reset_launch_counts():
@@ -1157,10 +1140,11 @@ def _reset_launch_counts():
 
 
 def prox_solver(cfg):
-    """The prox slice's solver: prox-FISTA on the smooth objective."""
-    import neo_mpc_planner2_tpu_torch as tp
+    """The prox slice's solver (`bench.prox_solver`): prox-FISTA on the
+    smooth objective."""
+    from neo_mpc_planner2_tpu_torch import bench
 
-    return tp.make_solver_batched(cfg, tp.make_objective(cfg, parity=False))
+    return bench.prox_solver(cfg)
 
 
 # The live maps of bench.py's deployment regimes (bench.py:276-378), each
@@ -1190,22 +1174,12 @@ SLICES = {
 
 
 def obstacles(name: str, batch: int, device):
-    """A live map's moving obstacles, drawn as bench.py draws them:
-    centres U(-half + 0.8, half - 0.3), amplitudes U(0.3, 0.95), velocities
-    U(-0.25, 0.25) m/s, float32; (B, O, ...) for the dynamic map, (B, ...)
-    for the updates (one obstacle a lane)."""
-    import numpy as np
-    import torch
+    """A live map's moving obstacles (`bench.obstacles` on the slice's
+    map): (B, 6, ...) for the dynamic map, (B, ...) for the updates (one
+    obstacle a lane)."""
+    from neo_mpc_planner2_tpu_torch import bench
 
-    live = LIVE_MAPS[name]
-    rng = np.random.default_rng(live["obstacle_seed"])
-    half = live["map_size"] * 0.05 / 2
-    per = (live["obstacles"],) if name == "dynamic" else ()
-    draws = (rng.uniform(-half + 0.8, half - 0.3, (batch,) + per + (2,)),
-             rng.uniform(0.3, 0.95, (batch,) + per),
-             rng.uniform(-0.25, 0.25, (batch,) + per + (2,)))
-    return tuple(torch.as_tensor(a, dtype=torch.float32, device=device)
-                 for a in draws)
+    return bench.obstacles(name, batch, LIVE_MAPS[name]["map_size"], device)
 
 
 def slice_inputs(name: str, batch: int, device, seed: int | None = None):
@@ -1399,8 +1373,8 @@ def phase_card_vs_cpu(device, name: str, lanes: int = 256, cfg=None,
 # lockstep-tail compaction off (the slice's config), adaptive, and fixed
 # after 3 iterations; the K-wide wave at K = 1, 2, 4 (quadratic
 # interpolation off: a wave refuses it). Each group runs in turns (A B C C
-# B A), 20 ticks a run; its launches a tick are profiled over ARM_PROFILE =
-# (first tick, ticks) with the slices, at the end.
+# B A), SLICE_TICKS a run; its launches a tick are profiled over
+# ARM_PROFILE = (first tick, ticks) with the slices, at the end.
 COMPACT_ARMS = {
     "compact_plain": lambda: fleet_cfg(),
     "compact_adaptive": lambda: fleet_cfg().replace(
@@ -3080,10 +3054,76 @@ def phase_controller(device, smi: str) -> dict:
     return out_routes
 
 
+# The bench phase: the port's benchmark entry (`python -m
+# neo_mpc_planner2_tpu_torch.bench`) at bench.py's full width (4096 lanes,
+# 64x64 maps) with its depth cut: 2 ticks a run and of quality, 4 latency
+# steps, 2 traced steps (the device p99 reads the second). The deadline
+# stays the bench's default, so that every pass's budget rule lets it run;
+# the child's time limit is above it.
+BENCH_ARGS = ("--device", "cuda:0", "--batch", "4096", "--map-size", "64",
+              "--ticks", "2", "--quality-ticks", "2", "--latency-reps", "4",
+              "--trace-reps", "2", "--deadline", "560")
+BENCH_TIMEOUT_S = 620
+BENCH_LAUNCHES = "[bench] kernel launches "
+
+
+def check_bench_output(returncode: int, stdout: str, stderr: str) -> dict:
+    """The bench child's JSON line and its kernels' launches; raises unless
+    it exited 0, printed exactly one line on stdout, every field of it is
+    set (the device p99s and every quality field included), it ran on one
+    card at 4096 lanes, and it launched K1 and K3."""
+    if returncode != 0:
+        raise AssertionError(f"bench: exit {returncode}")
+    lines = stdout.splitlines()
+    if len(lines) != 1:
+        raise AssertionError(f"bench: {len(lines)} stdout lines, not one")
+    line = json.loads(lines[0])
+    unset = [k for k, v in line.items() if v is None]
+    if unset:
+        raise AssertionError(f"bench: fields left null: {unset}")
+    if line.get("devices") != 1 or line.get("batch") != 4096:
+        raise AssertionError(f"bench: devices {line.get('devices')}, "
+                             f"batch {line.get('batch')}: not 1 card at "
+                             "4096 lanes")
+    counts = [ln[len(BENCH_LAUNCHES):] for ln in stderr.splitlines()
+              if ln.startswith(BENCH_LAUNCHES)]
+    if len(counts) != 1:
+        raise AssertionError("bench: no kernel launches line on stderr")
+    launches = json.loads(counts[0])
+    for kernel in ("qp_admm", "footprint_cost"):
+        if launches.get(kernel, 0) <= 0:
+            raise AssertionError(f"bench: {kernel} was never launched")
+    return {"line": line, "launches": launches}
+
+
+def phase_bench(device, smi: str) -> dict:
+    """The port's benchmark in a child process on cuda:0 (BENCH_ARGS; a
+    fresh process, so its kernels' launch counts start at 0 and its
+    profiled passes run in a process of their own), its stderr relayed,
+    its output held by check_bench_output. Prints the bench's line beside
+    the card's name and power limit; returns its launches (its runs are at
+    control_steps 3)."""
+    import os
+
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "neo_mpc_planner2_tpu_torch.bench",
+         *BENCH_ARGS], capture_output=True, text=True,
+        timeout=BENCH_TIMEOUT_S,
+        cwd=os.path.dirname(os.path.abspath(__file__)))
+    wall = time.perf_counter() - t0
+    sys.stderr.write(proc.stderr)
+    got = check_bench_output(proc.returncode, proc.stdout, proc.stderr)
+    print(json.dumps({"phase": "bench", "nvidia_smi": smi, **got["line"],
+                      "args": list(BENCH_ARGS), "wall_s": wall,
+                      "launches": got["launches"]}), flush=True)
+    return {"launches": got["launches"], "control_steps": 3}
+
+
 def kernels_line(slices: dict, measured: dict) -> list:
     """The `kernels` line's entries, one per KERNELS entry, with the keys
     of KERNEL_KEYS. slices: name -> a timed run's output (its launches,
-    ticks and, where not 3, control_steps); measured: name ->
+    its ticks where it has a tick count and, where not 3, control_steps); measured: name ->
     {max_abs_err, ms, plain_ms, bound_ms, bound_by, library_ms} at the
     slices' width and, optionally, "variants": the same numbers at each
     timed width m, to which each gets the launches of the runs at m, or
@@ -3108,7 +3148,8 @@ def kernels_line(slices: dict, measured: dict) -> list:
             # Launches on the slices' timed runs, all together.
             "launches": sum(runs.values()),
             "launches_per_tick": {s: n / slices[s]["ticks"]
-                                  for s, n in runs.items()},
+                                  for s, n in runs.items()
+                                  if "ticks" in slices[s]},
             "max_abs_err": got["max_abs_err"], "ms": got["ms"],
             "plain_ms": got["plain_ms"], "bound_ms": got["bound_ms"],
             "bound_by": got["bound_by"],
@@ -3215,6 +3256,8 @@ def main() -> int:
     progress("wide footprints")
     horizons = phase_horizons(device, smi)
     progress("horizons")
+    bench_run = phase_bench(device, smi)
+    progress("bench")
     phase_launches_per_tick(device, slices)
     phase_arm_launches(device, {**compact, **waves})
     progress("launches a tick")
@@ -3242,10 +3285,10 @@ def main() -> int:
                                                     walk)),
     }
     # The launches of the timed runs: the slices, the SQP schedules' arms,
-    # the sharded engine, the controller routes, the wide footprints and
-    # the horizons' loops.
+    # the sharded engine, the controller routes, the wide footprints, the
+    # horizons' loops and the bench's passes.
     runs = {**slices, **compact, **waves, "sharded": sharded, **controller,
-            **wide, **horizons}
+            **wide, **horizons, "bench": bench_run}
     print(json.dumps({"kernels": kernels_line(runs, measured)}), flush=True)
     print(_nvidia_smi(), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,4 +1,4 @@
-"""Console entry point of the port (port of `cli.py`).
+"""Console entry points of the port (port of `cli.py`).
 
 - neo-mpc-server-torch: the standalone optimization server
   (`ros2 run neo_mpc_planner2 mpc_optimization_server.py --ros-args
@@ -6,9 +6,11 @@
   the reference's navigation.yaml layout, and --device: "cuda" (the
   default) shards the fleet ops over every visible card, "cuda:k" serves
   on that card, "cpu" on the CPU.
-
-The JAX package's `neo-mpc-bench` runs the JAX package's own bench.py, the
-benchmark of the earlier work, and has no counterpart here.
+- neo-mpc-bench-torch: the benchmark (`bench.main`, also
+  `python -m neo_mpc_planner2_tpu_torch.bench`), the counterpart of the
+  JAX package's `neo-mpc-bench`: every pass of the repository's bench.py,
+  its flags and its one JSON line, on one card (--device, default "cuda";
+  "cpu" only when asked).
 """
 
 from __future__ import annotations
@@ -118,3 +120,10 @@ def server_main(argv=None) -> None:
           checkpoint_dir=args.checkpoint_dir, max_slots=args.max_slots,
           slot_ttl=args.slot_ttl, parity=not args.product,
           fleet_chunk=args.fleet_chunk, device=args.device)
+
+
+def bench_main(argv=None) -> None:
+    """Run the port's benchmark (`bench.main`) with these arguments."""
+    from .bench import main
+
+    main(argv)

@@ -6,6 +6,9 @@
 - `device_module_durations_ms(logdir)` / `host_call_counts(logdir)`: read
   the newest such trace: each kernel's device durations, and the host's
   CUDA runtime calls (launches, synchronizations) by name.
+- `device_step_durations_ms(logdir, prefix)`: the device time of each
+  host range (`torch.profiler.record_function`) named `prefix...` in the
+  newest trace: the summed durations of the kernels it launched.
 - `Timer` / `RateTracker`: host-side phase timers exporting the solves/s
   and p50/p99 latency counters the benchmarks and the serving layer report
   (copied unchanged).
@@ -13,6 +16,7 @@
 
 from __future__ import annotations
 
+import bisect
 import contextlib
 import glob
 import json
@@ -24,7 +28,7 @@ from typing import Deque, Dict
 import numpy as np
 
 __all__ = ["device_trace", "device_module_durations_ms", "host_call_counts",
-           "Timer", "RateTracker"]
+           "device_step_durations_ms", "Timer", "RateTracker"]
 
 _TRACE_GLOB = "trace_*.json"
 
@@ -94,6 +98,45 @@ def host_call_counts(logdir: str) -> Dict[str, int]:
             name = str(e.get("name", ""))
             counts[name] = counts.get(name, 0) + 1
     return counts
+
+
+# The host calls that launch a kernel: CUDA runtime or driver API calls.
+_LAUNCH_CATEGORIES = ("cuda_runtime", "cuda_driver")
+
+
+def device_step_durations_ms(logdir: str, prefix: str) -> list:
+    """The device time of each step in the newest trace that `device_trace`
+    wrote to `logdir`, a step being a host range whose name starts with
+    `prefix` (a `torch.profiler.record_function` around it): the summed
+    device durations, in ms, of the kernels that the host calls inside the
+    range launched (the card's busy time for the step; a kernel belongs to
+    its launch by the trace's correlation id). One entry a range, in time
+    order; a range that launched no recorded kernel reads 0.0, as does
+    every range of a trace without a device lane (the CPU)."""
+    events = [e for e in _latest_trace_events(logdir) if e.get("ph") == "X"]
+    ranges = sorted((float(e.get("ts", 0.0)),
+                     float(e.get("ts", 0.0)) + float(e.get("dur", 0.0)))
+                    for e in events
+                    if str(e.get("cat", "")).lower() == "user_annotation"
+                    and str(e.get("name", "")).startswith(prefix))
+    launched_at = {}
+    for e in events:
+        corr = (e.get("args") or {}).get("correlation")
+        if (corr is not None
+                and str(e.get("cat", "")).lower() in _LAUNCH_CATEGORIES):
+            launched_at[corr] = float(e.get("ts", 0.0))
+    out = [0.0] * len(ranges)
+    starts = [lo for lo, _ in ranges]
+    for e in events:
+        if str(e.get("cat", "")).lower() != "kernel":
+            continue
+        ts = launched_at.get((e.get("args") or {}).get("correlation"))
+        if ts is None:
+            continue
+        i = bisect.bisect_right(starts, ts) - 1
+        if i >= 0 and ts <= ranges[i][1]:
+            out[i] += float(e.get("dur", 0.0)) / 1e3
+    return out
 
 
 class Timer:

@@ -3,7 +3,8 @@ every horizon (each design, and each kernel at its cap), K3
 (footprint_cost_batch, and its walk) on the card at each launch plan and
 past 16 vertices and 64 samples an edge, one step of each slice against the
 CPU, and the single-robot controller's ticks (both routes) against the
-CPU, with K1 and K3 read from a traced tick.
+CPU, with K1 and K3 read from a traced tick, and the benchmark
+(`neo_mpc_planner2_tpu_torch.bench`) at 64 lanes.
 
 Every test here needs an NVIDIA GPU: it carries the `cuda` marker and skips
 where `torch.cuda.is_available()` is false (decided inside the `dev`
@@ -762,3 +763,28 @@ def test_device_trace_reads_k1_and_k3_from_a_controller_tick(dev, tmp_path):
     assert min(traced["cuda_launches_per_tick"]) > 100
     assert min(traced["host_syncs_per_tick"]) >= 3
     assert profiling.device_module_durations_ms(str(tmp_path / "tick2"))
+
+
+def test_bench_runs_every_pass_on_the_card(dev):
+    """The port's benchmark at 64 lanes on the card, in a process of its
+    own (its profiled passes get a fresh torch.profiler): one JSON line,
+    every field set (both device p99s too), one card, K1 and K3 launched."""
+    import json
+    import subprocess
+
+    proc = subprocess.run(
+        [sys.executable, "-m", "neo_mpc_planner2_tpu_torch.bench",
+         "--device", "cuda:0", "--batch", "64", "--ticks", "3",
+         "--quality-ticks", "6", "--latency-reps", "4", "--trace-reps", "3"],
+        capture_output=True, text=True, timeout=900, cwd=ROOT)
+    assert proc.returncode == 0, proc.stderr
+    lines = proc.stdout.splitlines()
+    assert len(lines) == 1, proc.stdout
+    line = json.loads(lines[0])
+    assert [k for k, v in line.items() if v is None] == [], proc.stderr
+    assert line["devices"] == 1 and line["batch"] == 64
+    assert line["device_p99_ms"] > 0 and line["device_p99_default_ms"] > 0
+    tag = "[bench] kernel launches "
+    (launches,) = [json.loads(ln[len(tag):])
+                   for ln in proc.stderr.splitlines() if ln.startswith(tag)]
+    assert launches["qp_admm"] > 0 and launches["footprint_cost"] > 0

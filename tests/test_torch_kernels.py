@@ -578,6 +578,9 @@ def test_chip_smoke_last_lines_name_the_card(monkeypatch, capsys):
     monkeypatch.setattr(chip_smoke, "phase_server_shards",
                         lambda d, smi: {})
     monkeypatch.setattr(chip_smoke, "phase_arm_launches", lambda d, a: {})
+    monkeypatch.setattr(chip_smoke, "phase_bench", lambda d, smi: {
+        "launches": {k["name"]: 50 for k in chip_smoke.KERNELS},
+        "control_steps": 3})
     assert chip_smoke.main() == 0
     lines = capsys.readouterr().out.strip().splitlines()
     assert lines[-2] == "Card X, 700 W"
@@ -587,15 +590,17 @@ def test_chip_smoke_last_lines_name_the_card(monkeypatch, capsys):
     assert [k["name"] for k in kernels] == [k["name"]
                                             for k in chip_smoke.KERNELS]
     # The launches of the timed runs: the slices, the SQP schedules' arms,
-    # the sharded engine, the controller routes and the wide footprints.
+    # the sharded engine, the controller routes, the wide footprints and
+    # the bench (at control_steps 3; no tick count, so no per-tick rate).
     arms = len(chip_smoke.COMPACT_ARMS) + len(chip_smoke.WAVE_ARMS)
-    at_m9 = 40 * len(chip_smoke.SLICES) + 20 * arms + 5 + 60 + 20
+    at_m9 = 40 * len(chip_smoke.SLICES) + 20 * arms + 5 + 60 + 20 + 50
     assert [k["launches"] for k in kernels] == [
         at_m9 + 20 * len(horizons)] * len(kernels)
     assert kernels[0]["launches_per_tick"]["controller_native"] == 1.0
     assert kernels[0]["launches_per_tick"]["compact_adaptive"] == 0.5
     assert kernels[0]["launches_per_tick"]["sharded"] == 1.0
     assert kernels[0]["launches_per_tick"]["horizon_12"] == 1.0
+    assert "bench" not in kernels[0]["launches_per_tick"]
     # Each timed width gets the launches of the runs at that width.
     assert [(v["m"], v["launches"]) for v in kernels[0]["variants"]] == [
         (9, at_m9), (36, 20), (237, 0)]
@@ -606,6 +611,67 @@ def test_chip_smoke_last_lines_name_the_card(monkeypatch, capsys):
             for v in kernels[2]["variants"]] == [
         ("measured", 20, 3), ("lane", 0, 2), ("split", 0, 2),
         ("edge_a_thread", 0, 0), ("edges_a_thread", 0, 2)]
+
+
+def _bench_child(monkeypatch, stdout, returncode=0, launches=None):
+    """chip_smoke.phase_bench with its child process stubbed: the child
+    exits `returncode` with `stdout` and the launch line on stderr."""
+    import json
+    import subprocess
+
+    import chip_smoke
+
+    launches = ({"qp_admm": 40, "spd_inv": 0, "footprint_cost": 20}
+                if launches is None else launches)
+    calls = []
+
+    def run(cmd, **kw):
+        calls.append(cmd)
+        return subprocess.CompletedProcess(
+            cmd, returncode, stdout,
+            f"[bench] headline done\n{chip_smoke.BENCH_LAUNCHES}"
+            f"{json.dumps(launches)}\n")
+
+    monkeypatch.setattr(chip_smoke.subprocess, "run", run)
+    return chip_smoke.phase_bench(None, "Card X, 700 W"), calls
+
+
+def _bench_line(**over):
+    import json
+
+    line = {"metric": "m", "value": 1.0, "batch": 4096, "devices": 1,
+            "device_p99_ms": 3.0, "goal_reached_frac": 0.5}
+    line.update(over)
+    return json.dumps(line) + "\n"
+
+
+def test_chip_smoke_bench_phase_holds_the_child(monkeypatch, capsys):
+    """phase_bench passes with one complete line from the child, and fails
+    on a null field, a second stdout line, a non-zero exit, another batch
+    or device count, or K1 never launched."""
+    import json
+
+    import chip_smoke
+
+    got, calls = _bench_child(monkeypatch, _bench_line())
+    assert calls[0][1:3] == ["-m", "neo_mpc_planner2_tpu_torch.bench"]
+    assert "--device" in calls[0] and "4096" in calls[0]
+    assert got == {"launches": {"qp_admm": 40, "spd_inv": 0,
+                                "footprint_cost": 20}, "control_steps": 3}
+    printed = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert printed["phase"] == "bench" and printed["value"] == 1.0
+    assert printed["nvidia_smi"] == "Card X, 700 W"
+    for stdout, rc, launches, match in (
+            (_bench_line(device_p99_ms=None), 0, None, "null"),
+            (_bench_line(goal_reached_frac=None), 0, None, "null"),
+            (_bench_line() + _bench_line(), 0, None, "2 stdout lines"),
+            ("", 3, None, "exit 3"),
+            (_bench_line(batch=64), 0, None, "4096"),
+            (_bench_line(devices=2), 0, None, "1 card"),
+            (_bench_line(), 0, {"qp_admm": 0, "footprint_cost": 3},
+             "qp_admm was never launched")):
+        with pytest.raises(AssertionError, match=match):
+            _bench_child(monkeypatch, stdout, rc, launches)
 
 
 def test_chip_smoke_isolated_phases_need_a_card():

@@ -2,14 +2,16 @@
 without ROS: tests/test_nav2_plugin.py with the port's `serve` on the CPU
 in place of the JAX package's.
 
-The plugin's real (nav2) branch is compiled against the stub ROS headers
-(`neo_mpc_planner2_tpu/native/ros/stubs`) into a harness binary, with the
-g++ line of scripts/check_nav2_plugin.sh but into this test's temporary
-directory, and driven through configure → activate → setPlan → a
+The plugin's real (nav2) branch, from the port's own copy of the sources
+(`neo_mpc_planner2_tpu_torch/native/src`), is compiled against the port's
+copy of the stub ROS headers (`neo_mpc_planner2_tpu_torch/native/ros/stubs`)
+into a harness binary, with the g++ line of scripts/check_nav2_plugin.sh but
+into this test's temporary directory, and driven through configure → activate → setPlan → a
 closed loop of computeVelocityCommands over TCP. The harness asserts the
 empty-plan throw, finite and cone-bounded commands, progress to the plan
 goal, a working dynamic-parameter callback and the lethal exception text
-("MPC detected collision!")."""
+("MPC detected collision!"). The copies are held byte for byte to the JAX
+package's sources."""
 
 import dataclasses
 import re
@@ -26,8 +28,42 @@ import neo_mpc_planner2_tpu_torch as tp
 from neo_mpc_planner2_tpu_torch.serving import OptimizerClient, serve
 
 REPO = Path(__file__).resolve().parent.parent
-ROS = REPO / "neo_mpc_planner2_tpu/native/ros"
-SRC = REPO / "neo_mpc_planner2_tpu/native/src"
+ROS = REPO / "neo_mpc_planner2_tpu_torch/native/ros"
+SRC = REPO / "neo_mpc_planner2_tpu_torch/native/src"
+JAX_NATIVE = REPO / "neo_mpc_planner2_tpu/native"
+
+
+def _copied_files():
+    """The plugin source and the stub harness the port copies (the ament
+    files differ: the port's project has its own name)."""
+    yield "src/neo_mpc_nav2_plugin.cpp"
+    yield "ros/stubs_main.cpp"
+    for path in sorted((JAX_NATIVE / "ros/stubs").rglob("*")):
+        if path.is_file():
+            yield str(path.relative_to(JAX_NATIVE))
+
+
+@pytest.mark.parametrize("rel", list(_copied_files()))
+def test_plugin_sources_are_the_jax_packages(rel):
+    """The port's copy of each plugin and stub source is the JAX package's,
+    byte for byte."""
+    port = REPO / "neo_mpc_planner2_tpu_torch/native" / rel
+    assert port.read_bytes() == (JAX_NATIVE / rel).read_bytes()
+
+
+def test_ament_package_has_the_ports_own_name():
+    """The port's ament project and package carry the port's name, the
+    plugin class stays the source's, and no stub is missing from the copy."""
+    cmake = (ROS / "CMakeLists.txt").read_text()
+    assert "project(neo_mpc_torch_nav2_plugin)" in cmake
+    assert "<name>neo_mpc_torch_nav2_plugin</name>" in (
+        ROS / "package.xml").read_text()
+    xml = (ROS / "neo_mpc_tpu_plugin.xml").read_text()
+    assert '<library path="neo_mpc_torch_nav2_plugin">' in xml
+    assert 'type="neo_mpc_planner2_tpu::NeoMpcTpuController"' in xml
+    stubs = lambda root: sorted(p.relative_to(root) for p in root.rglob("*")
+                                if p.is_file())
+    assert stubs(ROS / "stubs") == stubs(JAX_NATIVE / "ros/stubs")
 
 
 @pytest.fixture(scope="module")

@@ -14,16 +14,23 @@ parameter of its twin by the same name; a parameter only the port has
 members and parameters that differ on purpose are listed in
 MEMBER_DIVERGENCES, each with its line under ROADMAP.md's deliberate
 divergences.
+
+The console scripts: every `[project.scripts]` entry of pyproject.toml
+that points into the JAX package has a `<name>-torch` twin pointing at the
+port's function of the same path.
 """
 
 import importlib
 import inspect
+import pathlib
 import pkgutil
 import shutil
+import tomllib
 
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 
 import neo_mpc_planner2_tpu
@@ -55,6 +62,38 @@ def _jax_modules():
         spec = importlib.util.find_spec(info.name)
         if spec.origin and spec.origin.endswith(".py"):
             yield info.name
+
+
+def _scripts() -> dict:
+    pyproject = pathlib.Path(__file__).resolve().parent.parent / "pyproject.toml"
+    with open(pyproject, "rb") as f:
+        return tomllib.load(f)["project"]["scripts"]
+
+
+def _jax_scripts():
+    return sorted(name for name, target in _scripts().items()
+                  if target.startswith("neo_mpc_planner2_tpu."))
+
+
+def test_the_jax_package_has_console_scripts():
+    assert _jax_scripts() == ["neo-mpc-bench", "neo-mpc-server"]
+
+
+@pytest.mark.parametrize("name", _jax_scripts())
+def test_every_jax_console_script_has_a_torch_twin(name):
+    """`<name>-torch` points at the port's module of the same path, and
+    the function it names exists there and takes argv as JAX's does."""
+    scripts = _scripts()
+    assert f"{name}-torch" in scripts, name
+    target = scripts[f"{name}-torch"]
+    assert target == scripts[name].replace(
+        "neo_mpc_planner2_tpu.", "neo_mpc_planner2_tpu_torch.", 1)
+    mod, fn = target.split(":")
+    jmod, jfn = scripts[name].split(":")
+    port_fn = getattr(importlib.import_module(mod), fn)
+    assert callable(port_fn)
+    assert not _signature_gap(getattr(importlib.import_module(jmod), jfn),
+                              port_fn)
 
 
 def test_every_jax_module_name_has_a_port_counterpart():

@@ -267,7 +267,7 @@ def test_importing_the_port_leaves_jax_out():
         "shells = {p.__name__ + '.' + m for m in ('serving', 'checkpoint',\n"
         "          'controller', 'ros_adapter', 'cli', 'native.host',\n"
         "          'utils.viz', 'utils.se2_np', 'utils.profiling',\n"
-        "          'parallel.smoke')}\n"
+        "          'parallel.smoke', 'bench')}\n"
         "sys.exit(1 if bad or 'neo_mpc_planner2_tpu' in sys.modules\n"
         "         or not shells <= set(sys.modules) else 0)\n")
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
