@@ -63,7 +63,14 @@ footprint, each against the CPU.
 Then the port's benchmark (`python -m neo_mpc_planner2_tpu_torch.bench`,
 every pass of bench.py) in a child process at 4096 lanes and 64x64 maps,
 its depth cut (BENCH_ARGS): it must exit 0 with one JSON line whose every
-field is set, on one card, having launched K1 and K3.
+field is set, on one card, having launched K1 and K3. Then the port's
+demos and studies, each group in a process of its own: the seven examples
+(`neo_mpc_planner2_tpu_torch.examples`) at 30 ticks each on the card, their
+first 3 ticks' commands against the CPU, and serving_demo's own child
+server; the six studies (`neo_mpc_planner2_tpu_torch.scripts`) at a cut
+depth (STUDY_ARGS: 4096 lanes, 1-2 ticks, the parity study's gate and
+sequence suites at n = 16),
+their outputs checked; each launching K1 and K3.
 Every phase prints a line; any failure exits non-zero. The `kernels` line
 lists every kernel with its launches, its time beside its bound
 (`kernels/bounds.py`) and, where one PyTorch call computes the same
@@ -3120,6 +3127,238 @@ def phase_bench(device, smi: str) -> dict:
     return {"launches": got["launches"], "control_steps": 3}
 
 
+# The port's demos and studies (neo_mpc_planner2_tpu_torch.examples /
+# .scripts),
+# each phase in a process of its own (isolated): every example at
+# EXAMPLE_TICKS ticks on the card, its first EXAMPLE_CPU_TICKS ticks'
+# commands held against the same example on the CPU; every study at a cut
+# depth (STUDY_ARGS), its output checked. The launch counts are set to 0
+# just before each and read just after.
+EXAMPLE_TICKS = 30
+EXAMPLE_CPU_TICKS = 3
+STUDY_ARGS = {
+    "iters_hist": [("--batch", "4096", "--ticks", "2"),
+                   ("--batch", "4096", "--ticks", "2", "--regime",
+                    "dynamic")],
+    "trace_headline": [("--batch", "4096", "--ticks", "1", "--top", "12")],
+    "dyn_decompose": [("--batch", "4096", "--ticks", "1", "--reps", "1",
+                       "--launch-ticks", "1")],
+    "scaling_bench": [("--ticks", "2", "--repeats", "1")],
+    "product_decompose": [("--batch", "4096", "--ticks", "1",
+                           "--quality-ticks", "1")],
+    # The gate's suite and the stateful one: each suite's oracle pool
+    # spawns its workers anew (all five suites took 75 s of the phase).
+    "parity_study": [("--n", "16", "--suites", "mpo700,sequence",
+                      "--perturb-reps", "1", "--sequence-n", "8",
+                      "--sequence-ticks", "2", "--workers", "4")],
+}
+
+# The kernels each study must launch: K1 and K3, but the product study's
+# prox-FISTA solver has no QP (K3 only).
+STUDY_KERNELS = {"product_decompose": ("footprint_cost",)}
+
+
+def _example_runs(name: str, device, ticks: int) -> dict:
+    """One example's run on `device`; serving_demo's client loops go to a
+    `serve` thread of this process on `device` (the demo's own child
+    server keeps its launches in its own process)."""
+    import importlib
+
+    mod = importlib.import_module(
+        f"neo_mpc_planner2_tpu_torch.examples.{name}")
+    if name != "serving_demo":
+        return mod.run(ticks=ticks, device=device)
+    import threading
+
+    from neo_mpc_planner2_tpu_torch.serving import OptimizerClient, serve
+
+    if str(device) == "cpu":
+        from neo_mpc_planner2_tpu_torch.serving import OptimizerSession
+
+        return mod.run(ticks, call=OptimizerSession(device="cpu").handle,
+                       fleet_ticks=ticks)
+    port, ready = _free_port(), threading.Event()
+    threading.Thread(target=serve, daemon=True, kwargs=dict(
+        host="127.0.0.1", port=port, ready_event=ready,
+        device=str(device))).start()
+    ready.wait(30)
+    client = OptimizerClient(port=port, wait_timeout=30)
+    try:
+        return mod.run(ticks, call=client.call, fleet_ticks=ticks)
+    finally:
+        client.close()
+
+
+def _example_cmds(name: str, out: dict, ticks: int):
+    """An example's commands of its first `ticks` ticks as (lanes, -1)."""
+    import numpy as np
+
+    if name == "fleet_demo":
+        return np.moveaxis(out["cmds"][:ticks], 1, 0).reshape(
+            out["cmds"].shape[1], -1)
+    if name == "product_mode_demo":
+        return np.concatenate([out[m]["cmds"][:, :ticks].reshape(
+            out[m]["cmds"].shape[0], -1) for m in ("product", "parity")])
+    if name == "serving_demo":
+        return np.concatenate([out["cmds"][:ticks].reshape(1, -1),
+                               np.moveaxis(out["fleet_cmds"][:ticks], 1,
+                                           0).reshape(3, -1)])
+    return out["cmds"][:ticks].reshape(1, -1)
+
+
+def _example_outcome(name: str, out: dict) -> dict:
+    """The numbers an example's docstring promises, at this run's length."""
+    import numpy as np
+
+    if name == "product_mode_demo":
+        return {m: {"goals_within_10cm": int(
+            (out[m]["goal_dist"][:, -1] < 0.10).sum()),
+            "mean_iters": float(out[m]["solver_iters"].mean())}
+            for m in ("product", "parity")}
+    if name == "fleet_demo":
+        return {"solves_per_sec": out["solves_per_sec"],
+                "mean_cmd_speed_last": float(out["mean_cmd_speed"][-1])}
+    keys = ("reached_tick", "fleet_reached_tick", "latch_first",
+            "latch_last", "lethal_first", "lethal_last", "latched_en_route")
+    res = {k: out[k] for k in keys if k in out}
+    if "goal_dist" in out:
+        res["goal_dist_last"] = float(np.asarray(out["goal_dist"])[-1])
+    return res
+
+
+def phase_examples(device) -> dict:
+    """Every example (`neo_mpc_planner2_tpu_torch.examples.NAMES`) on the
+    card at EXAMPLE_TICKS ticks (a run that reaches its goal stops there),
+    its launch counts set to 0 just before and read just after; its
+    commands finite; its first EXAMPLE_CPU_TICKS ticks' commands against
+    the same example on the CPU (at least 99 % of lanes within 1e-3, as
+    phase_card_vs_cpu); K1 and K3 launched. Then serving_demo as a user
+    runs it: the console script in a child process on cuda:0, 2 ticks.
+    Prints a line an example; returns the launches summed."""
+    import numpy as np
+
+    from neo_mpc_planner2_tpu_torch import examples
+    from neo_mpc_planner2_tpu_torch.examples import serving_demo
+
+    total = collections.Counter()
+    for name in examples.NAMES:
+        _reset_launch_counts()
+        t0 = time.perf_counter()
+        out = _example_runs(name, device, EXAMPLE_TICKS)
+        wall = time.perf_counter() - t0
+        launches = _launch_counts()
+        card = _example_cmds(name, out, EXAMPLE_TICKS)
+        if not np.isfinite(card).all():
+            raise AssertionError(f"{name}: non-finite commands on the card")
+        cpu = _example_cmds(name, _example_runs(name, "cpu",
+                                                EXAMPLE_CPU_TICKS),
+                            EXAMPLE_CPU_TICKS)
+        diff = np.abs(_example_cmds(name, out, EXAMPLE_CPU_TICKS)
+                      - cpu).max(-1)
+        frac = float((diff <= 1e-3).mean())
+        line = {"phase": f"example {name}", "device": str(device),
+                "ticks": EXAMPLE_TICKS, "wall_s": wall,
+                "cpu_ticks": EXAMPLE_CPU_TICKS,
+                "max_cmd_diff_vs_cpu": float(diff.max()),
+                "frac_within_1e-3": frac, "launches": launches,
+                **_example_outcome(name, out)}
+        print(json.dumps(line, default=float), flush=True)
+        if frac < 0.99:
+            raise AssertionError(f"{name} card vs CPU: only {frac:.4f} of "
+                                 "lanes within 1e-3")
+        for kernel in ("qp_admm", "footprint_cost"):
+            if launches[kernel] <= 0:
+                raise AssertionError(f"{name}: {kernel} never launched")
+        total.update(launches)
+    t0 = time.perf_counter()
+    wire = serving_demo.run(2, device=str(device), fleet_ticks=2)
+    if wire["ping"].get("backend") != "gpu" or not np.isfinite(
+            wire["cmds"]).all():
+        raise AssertionError(f"serving_demo's child server: {wire['ping']}")
+    print(json.dumps({"phase": "example serving_demo (child server)",
+                      "ping": wire["ping"], "ticks": 2,
+                      "wall_s": time.perf_counter() - t0}), flush=True)
+    out = {"phase": "examples", "launches": dict(total), "control_steps": 3}
+    print(json.dumps(out), flush=True)
+    return out
+
+
+def _check_study(name: str, text: str) -> None:
+    """Raises unless a study's output at its cut depth is what it must
+    be on a card."""
+    lines = text.splitlines()
+    recs = [json.loads(ln) for ln in lines if ln.startswith("{")]
+    if name == "iters_hist":
+        alive = [float(ln.split(":")[1].split()[0]) for ln in lines[1:]]
+        if (not lines[0].startswith("warm solves: 4096") or alive[0] != 1.0
+                or any(b > a for a, b in zip(alive, alive[1:]))):
+            raise AssertionError(f"iters_hist: {lines[:3]}")
+    elif name == "trace_headline":
+        top = [ln for ln in lines if ln.startswith("top ")]
+        if (len(top) != 2 or top[0].startswith("top 0 ")
+                or top[1].startswith("top 0 ")):
+            raise AssertionError(f"trace_headline saw no device lane or "
+                                 f"no launches: {top}")
+    elif name == "dyn_decompose":
+        if (len(recs) != 4
+                or min(r["launches_per_tick"] for r in recs) <= 0):
+            raise AssertionError(f"dyn_decompose: {recs}")
+    elif name == "scaling_bench":
+        if not recs or recs[0]["devices"] != 1 or not (
+                0 < recs[0]["efficiency"] < 2):
+            raise AssertionError(f"scaling_bench: {recs}")
+    elif name == "product_decompose":
+        if [r["pass"] for r in recs] != ["map64", "map128", "map128_cap16",
+                                         "embed_lethal"]:
+            raise AssertionError(f"product_decompose: {recs}")
+    elif name == "parity_study":
+        if not lines[-1].startswith("wrote "):
+            raise AssertionError(f"parity_study: {lines[-3:]}")
+
+
+def phase_studies(device) -> dict:
+    """Every study (`neo_mpc_planner2_tpu_torch.scripts.NAMES`) through
+    its main() on the card at STUDY_ARGS (a cut depth), its launch counts
+    set to 0 just before and read just after, its output checked
+    (_check_study), K1 and K3 launched (STUDY_KERNELS): a line a run with
+    its wall and launches. The parity study's report goes under
+    build/chip_smoke/. Returns the launches summed."""
+    import contextlib
+    import importlib
+    import io
+    import os
+
+    total = collections.Counter()
+    report = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                          "build", "chip_smoke", "parity_report.json")
+    for name, runs in STUDY_ARGS.items():
+        mod = importlib.import_module(
+            f"neo_mpc_planner2_tpu_torch.scripts.{name}")
+        for args in runs:
+            argv = ["--device", str(device), *args] + (
+                ["--out", report] if name == "parity_study" else [])
+            _reset_launch_counts()
+            buf = io.StringIO()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(buf):
+                mod.main(argv)
+            wall = time.perf_counter() - t0
+            launches = _launch_counts()
+            _check_study(name, buf.getvalue())
+            print(json.dumps({"phase": f"study {name}", "args": list(args),
+                              "wall_s": wall, "launches": launches,
+                              "output": buf.getvalue().splitlines()[-14:]}),
+                  flush=True)
+            for kernel in STUDY_KERNELS.get(name, ("qp_admm",
+                                                   "footprint_cost")):
+                if launches[kernel] <= 0:
+                    raise AssertionError(f"{name}: {kernel} never launched")
+            total.update(launches)
+    out = {"phase": "studies", "launches": dict(total), "control_steps": 3}
+    print(json.dumps(out), flush=True)
+    return out
+
+
 def kernels_line(slices: dict, measured: dict) -> list:
     """The `kernels` line's entries, one per KERNELS entry, with the keys
     of KERNEL_KEYS. slices: name -> a timed run's output (its launches,
@@ -3258,6 +3497,10 @@ def main() -> int:
     progress("horizons")
     bench_run = phase_bench(device, smi)
     progress("bench")
+    examples_run = isolated("phase_examples")
+    progress("examples")
+    studies_run = isolated("phase_studies")
+    progress("studies")
     phase_launches_per_tick(device, slices)
     phase_arm_launches(device, {**compact, **waves})
     progress("launches a tick")
@@ -3286,9 +3529,10 @@ def main() -> int:
     }
     # The launches of the timed runs: the slices, the SQP schedules' arms,
     # the sharded engine, the controller routes, the wide footprints, the
-    # horizons' loops and the bench's passes.
+    # horizons' loops, the bench's passes, the examples and the studies.
     runs = {**slices, **compact, **waves, "sharded": sharded, **controller,
-            **wide, **horizons, "bench": bench_run}
+            **wide, **horizons, "bench": bench_run,
+            "examples": examples_run, "studies": studies_run}
     print(json.dumps({"kernels": kernels_line(runs, measured)}), flush=True)
     print(_nvidia_smi(), flush=True)
     print(json.dumps({"ok": True, "device": {
@@ -3298,7 +3542,8 @@ def main() -> int:
 
 
 # The phases that isolated() runs in a process of their own.
-ISOLATED = ("phase_kernels", "phase_k2")
+ISOLATED = ("phase_kernels", "phase_k2", "phase_examples",
+            "phase_studies")
 
 
 def isolated(name: str) -> dict:

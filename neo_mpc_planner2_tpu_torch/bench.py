@@ -42,7 +42,6 @@ import argparse
 import dataclasses
 import json
 import os
-import socket
 import sys
 import tempfile
 import threading
@@ -50,6 +49,8 @@ import time
 
 import numpy as np
 import torch
+
+from .utils.entrypoints import free_port, resolve_device
 
 __all__ = ["main", "fleet_cfg", "default_cfg", "product_cfg", "prox_solver",
            "obstacles", "QUALITY_SCENARIO", "chain", "quality",
@@ -254,26 +255,6 @@ def _parser() -> argparse.ArgumentParser:
     return ap
 
 
-def _device(name: str) -> torch.device:
-    """The run's one device; a CUDA name without a card raises."""
-    dev = torch.device(name)
-    if dev.type == "cuda":
-        if not torch.cuda.is_available():
-            raise RuntimeError("no CUDA device: the bench runs on the card "
-                               "unless it is asked for the CPU "
-                               "(--device cpu)")
-        if dev.index is None:
-            dev = torch.device("cuda", torch.cuda.current_device())
-        torch.cuda.set_device(dev)
-    return dev
-
-
-def _free_port() -> int:
-    with socket.socket() as sk:
-        sk.bind(("127.0.0.1", 0))
-        return sk.getsockname()[1]
-
-
 def main(argv=None) -> None:
     """Run the benchmark and print its one JSON line (see the module
     docstring); argv defaults to sys.argv[1:]."""
@@ -290,7 +271,7 @@ def main(argv=None) -> None:
 def _main(args, line: _Line) -> None:
     results = line.results
     costmap_u8 = {"false": False, "true": True, "auto": "auto"}[args.costmap_u8]
-    device = _device(args.device)
+    device = resolve_device(args.device)
 
     t_start = time.monotonic()
     threading.Thread(target=line.watchdog, args=(args.deadline, t_start),
@@ -560,7 +541,7 @@ def _main(args, line: _Line) -> None:
             raise TimeoutError("skipped: <150 s of budget left")
         from .serving import OptimizerClient, serve
 
-        port = _free_port()
+        port = free_port()
         ready = threading.Event()
         threading.Thread(target=serve, daemon=True, kwargs=dict(
             host="127.0.0.1", port=port, cfg=cfg, ready_event=ready,

@@ -131,7 +131,9 @@ class Costmap:
                device="cuda") -> "Costmap":
         if isinstance(resolution, (int, float)) and resolution <= 0:
             raise ValueError(f"resolution must be positive: {resolution}")
-        f = lambda a: torch.as_tensor(a, dtype=torch.float32, device=device)
+        # Contiguous, as K3 reads it: a transposed grid arrives as a view.
+        f = lambda a: torch.as_tensor(a, dtype=torch.float32,
+                                      device=device).contiguous()
         return Costmap(data=f(data), origin=f(origin), resolution=f(resolution))
 
     @staticmethod

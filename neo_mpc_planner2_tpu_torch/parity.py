@@ -30,7 +30,7 @@ from .scenarios import MPO700_LENGTH, MPO700_WIDTH, make_scenario_batch
 from .sqp import make_sqp_solver_batched
 
 __all__ = ["MATCH_TOL", "MATCH_FRAC_GATE", "UNMATCHED_GAP_TOL",
-           "suite_config", "run_suite"]
+           "suite_config", "device_solves", "run_suite"]
 
 MATCH_TOL = 1e-2           # m/s, a command's largest component
 MATCH_FRAC_GATE = 0.9
@@ -51,6 +51,41 @@ def suite_config() -> MpcConfig:
         lookahead_dist_close_to_goal=0.4)
 
 
+def device_solves(cfg: MpcConfig, sb, device, state=None, start=None,
+                  slow=None, pose=None, vel=None, solve=None):
+    """The device half of the gate on a scenario batch `sb` of n lanes:
+    the batched pursuit, then ONE batched solve (by default the SQP at
+    ftol 1e-8 and 300 iterations). By default from a fresh plan window
+    and the initial state at the batch's poses and velocities; a stateful
+    sequence passes its state, window start, slow-down latch, poses and
+    velocities. Returns the PursuitResult, the StepResult and the plans'
+    goals (n, 3)."""
+    n = sb.robot_pose.shape[0]
+    if state is None:
+        state = batch_state(init_state(cfg, device), n)
+    if start is None:
+        start = torch.zeros(n, dtype=torch.int32, device=device)
+    if slow is None:
+        slow = torch.zeros(n, dtype=torch.bool, device=device)
+    pose = sb.robot_pose if pose is None else pose
+    vel = sb.current_vel if vel is None else vel
+    if solve is None:
+        solve = make_sqp_solver_batched(cfg, make_objective(cfg), ftol=1e-8,
+                                        max_iters=300)
+    with torch.no_grad():
+        pr = pursuit_tick(cfg, sb.plan, start, slow, pose, sb.costmap,
+                          sb.footprint)
+        goal = sb.plan.goal()
+        scen = Scenario(
+            current_pose=pose, carrot_pose=pr.carrot_pose,
+            goal_pose=goal, current_vel=vel,
+            footprint=sb.footprint, costmap=sb.costmap,
+            switch_opt=pr.closer_to_goal,
+            control_interval=torch.full((n,), 1 / 30, device=device))
+    dt = torch.full((n,), 1 / 30, device=device)
+    return pr, _solve_lanes(cfg, state, scen, dt, solve), goal
+
+
 def run_suite(cfg: MpcConfig, n: int, seed: int, device="cuda") -> dict:
     """Drive n suite scenarios through the port on `device` and the oracle
     on the host. Scenarios with an empty plan window or a lethal footprint
@@ -69,22 +104,7 @@ def run_suite(cfg: MpcConfig, n: int, seed: int, device="cuda") -> dict:
     fp_np = np.array([[hl, hw], [-hl, hw], [-hl, -hw], [hl, -hw]])
 
     t0 = time.perf_counter()
-    with torch.no_grad():
-        start = torch.zeros(n, dtype=torch.int32, device=device)
-        pr = pursuit_tick(cfg, sb.plan, start, start.bool(), sb.robot_pose,
-                          sb.costmap, sb.footprint)
-        goal = sb.plan.goal()
-        scen = Scenario(
-            current_pose=sb.robot_pose, carrot_pose=pr.carrot_pose,
-            goal_pose=goal, current_vel=sb.current_vel,
-            footprint=sb.footprint, costmap=sb.costmap,
-            switch_opt=pr.closer_to_goal,
-            control_interval=torch.full((n,), 1 / 30, device=device))
-    solve = make_sqp_solver_batched(cfg, make_objective(cfg), ftol=1e-8,
-                                    max_iters=300)
-    dt = torch.full((n,), 1 / 30, device=device)
-    out = _solve_lanes(cfg, batch_state(init_state(cfg, device), n), scen,
-                       dt, solve)
+    pr, out, goal = device_solves(cfg, sb, device)
     cmd_dev = out.cmd_vel.double().cpu().numpy()
     seconds = time.perf_counter() - t0
     fun_dev = out.fun.double().cpu().numpy()

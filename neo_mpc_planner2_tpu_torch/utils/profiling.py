@@ -9,6 +9,8 @@
 - `device_step_durations_ms(logdir, prefix)`: the device time of each
   host range (`torch.profiler.record_function`) named `prefix...` in the
   newest trace: the summed durations of the kernels it launched.
+- `host_launches_by_op(logdir)`: the newest trace's kernel launches by
+  the host op (a torch op or a named range) that made them.
 - `Timer` / `RateTracker`: host-side phase timers exporting the solves/s
   and p50/p99 latency counters the benchmarks and the serving layer report
   (copied unchanged).
@@ -28,7 +30,8 @@ from typing import Deque, Dict
 import numpy as np
 
 __all__ = ["device_trace", "device_module_durations_ms", "host_call_counts",
-           "device_step_durations_ms", "Timer", "RateTracker"]
+           "device_step_durations_ms", "host_launches_by_op", "LAUNCH_CALLS",
+           "SYNC_CALLS", "Timer", "RateTracker"]
 
 _TRACE_GLOB = "trace_*.json"
 
@@ -102,6 +105,43 @@ def host_call_counts(logdir: str) -> Dict[str, int]:
 
 # The host calls that launch a kernel: CUDA runtime or driver API calls.
 _LAUNCH_CATEGORIES = ("cuda_runtime", "cuda_driver")
+# Their names, and those of the host calls that wait for the card.
+LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
+                "cuLaunchKernelEx")
+SYNC_CALLS = ("cudaStreamSynchronize", "cudaDeviceSynchronize")
+
+
+def host_launches_by_op(logdir: str) -> Dict[str, int]:
+    """The kernel launches (LAUNCH_CALLS) in the newest trace that
+    `device_trace` wrote to `logdir`, by the innermost host op around each
+    on its thread: a torch op ("aten::add_", category "cpu_op") or a named
+    range (`record_function`, "user_annotation"); "(no op)" where none
+    holds it. {} without a card."""
+    events = [e for e in _latest_trace_events(logdir) if e.get("ph") == "X"]
+    marks = []  # (ts, kind, end, name): ops open before the launches at ts
+    for e in events:
+        cat = str(e.get("cat", "")).lower()
+        ts, tid = float(e.get("ts", 0.0)), e.get("tid")
+        if cat in ("cpu_op", "user_annotation"):
+            marks.append((tid, ts, 0, ts + float(e.get("dur", 0.0)),
+                          str(e.get("name", ""))))
+        elif (cat in _LAUNCH_CATEGORIES
+              and str(e.get("name", "")) in LAUNCH_CALLS):
+            marks.append((tid, ts, 1, ts, None))
+    marks.sort(key=lambda m: (str(m[0]), m[1], m[2], -m[3]))
+    counts: Dict[str, int] = {}
+    stack, tid = [], object()
+    for t, ts, kind, end, name in marks:
+        if t != tid:
+            stack, tid = [], t
+        while stack and stack[-1][0] < ts:
+            stack.pop()
+        if kind == 0:
+            stack.append((end, name))
+        else:
+            op = stack[-1][1] if stack else "(no op)"
+            counts[op] = counts.get(op, 0) + 1
+    return counts
 
 
 def device_step_durations_ms(logdir: str, prefix: str) -> list:

@@ -581,6 +581,10 @@ def test_chip_smoke_last_lines_name_the_card(monkeypatch, capsys):
     monkeypatch.setattr(chip_smoke, "phase_bench", lambda d, smi: {
         "launches": {k["name"]: 50 for k in chip_smoke.KERNELS},
         "control_steps": 3})
+    for phase, n in (("phase_examples", 7), ("phase_studies", 6)):
+        monkeypatch.setattr(chip_smoke, phase, lambda d, n=n: {
+            "launches": {k["name"]: n for k in chip_smoke.KERNELS},
+            "control_steps": 3})
     assert chip_smoke.main() == 0
     lines = capsys.readouterr().out.strip().splitlines()
     assert lines[-2] == "Card X, 700 W"
@@ -590,10 +594,12 @@ def test_chip_smoke_last_lines_name_the_card(monkeypatch, capsys):
     assert [k["name"] for k in kernels] == [k["name"]
                                             for k in chip_smoke.KERNELS]
     # The launches of the timed runs: the slices, the SQP schedules' arms,
-    # the sharded engine, the controller routes, the wide footprints and
-    # the bench (at control_steps 3; no tick count, so no per-tick rate).
+    # the sharded engine, the controller routes, the wide footprints, the
+    # bench, the examples and the studies (at control_steps 3; no tick
+    # count, so no per-tick rate).
     arms = len(chip_smoke.COMPACT_ARMS) + len(chip_smoke.WAVE_ARMS)
-    at_m9 = 40 * len(chip_smoke.SLICES) + 20 * arms + 5 + 60 + 20 + 50
+    at_m9 = (40 * len(chip_smoke.SLICES) + 20 * arms + 5 + 60 + 20 + 50
+             + 7 + 6)
     assert [k["launches"] for k in kernels] == [
         at_m9 + 20 * len(horizons)] * len(kernels)
     assert kernels[0]["launches_per_tick"]["controller_native"] == 1.0
@@ -675,12 +681,14 @@ def test_chip_smoke_bench_phase_holds_the_child(monkeypatch, capsys):
 
 
 def test_chip_smoke_isolated_phases_need_a_card():
-    """The child side of chip_smoke.isolated runs only the kernel phases,
-    and only on a card: without one, or for any other name, it exits 2."""
+    """The child side of chip_smoke.isolated runs only the kernel phases
+    and the demos' and studies' phases, and only on a card: without one, or for any
+    other name, it exits 2."""
     sys.path.insert(0, str(ROOT))
     import chip_smoke
 
-    assert chip_smoke.ISOLATED == ("phase_kernels", "phase_k2")
+    assert chip_smoke.ISOLATED == ("phase_kernels", "phase_k2",
+                                   "phase_examples", "phase_studies")
     for name in chip_smoke.ISOLATED + ("phase_serving",):
         assert chip_smoke.run_isolated(name) == 2
 

@@ -18,6 +18,11 @@ divergences.
 The console scripts: every `[project.scripts]` entry of pyproject.toml
 that points into the JAX package has a `<name>-torch` twin pointing at the
 port's function of the same path.
+
+The demos and studies: every `examples/*.py` and `scripts/*.py` (and
+`scripts/*.sh`) of the repository maps to a port module of the same name
+under `neo_mpc_planner2_tpu_torch/examples` or `/scripts`, or to an entry
+of NOT_CARRIED with its reason.
 """
 
 import importlib
@@ -273,3 +278,69 @@ def test_native_host_available_and_plan_replace(monkeypatch):
     moved = plan.replace(px=plan.px + 1.0)
     assert torch.equal(moved.px, plan.px + 1.0)
     assert moved.py is plan.py and int(moved.n_valid) == 2
+
+
+# ---- the runnable programs: examples/ and scripts/ ---------------------------
+
+# Each program of the repository's examples/ and scripts/ that has no port
+# module of the same name under neo_mpc_planner2_tpu_torch/examples or
+# /scripts, and why (ROADMAP.md, Queue 1).
+NOT_CARRIED = {
+    "scripts/dump_hlo.py": "maps XLA HLO fusion names to source; the port "
+                           "has no HLO, its record_function ranges name the "
+                           "source",
+    "scripts/gather_bench.py": "times XLA formulations of the TPU gather "
+                               "workaround (the one-hot contractions), which "
+                               "do not carry over",
+    "scripts/record_golden.py": "the goldens are the reference's; the port "
+                                "never re-records them",
+    "scripts/round3_batch.sh": "a TPU round's batch file",
+    "scripts/round4_batch.sh": "a TPU round's batch file",
+    "scripts/round5_batch.sh": "a TPU round's batch file",
+    "scripts/multihost_smoke.py": "its counterpart is parallel/smoke.py",
+    "scripts/multihost_smoke.sh": "its counterpart is parallel/smoke.py",
+    "scripts/check_native.sh": "the port's tests build its own copy of the "
+                               "host library (tests/test_torch_controller.py)",
+    "scripts/build_native.sh": "the port builds its host library at first "
+                               "use (native/host.py)",
+    "scripts/check_nav2_plugin.sh": "tests/test_torch_nav2_plugin.py builds "
+                                    "the port's copy of the plugin",
+    "scripts/sweep_ls.py": "queued: the next slice (the knob sweeps)",
+    "scripts/sweep_product_ls.py": "queued: the next slice (the knob sweeps)",
+    "scripts/sweep_compact.py": "queued: the next slice (the knob sweeps)",
+}
+# The port's own script in scripts/, not one of the JAX package's.
+PORT_SCRIPTS = {"scripts/torch_kernel_turns.py"}
+
+
+def _programs():
+    root = pathlib.Path(__file__).resolve().parent.parent
+    return sorted(str(p.relative_to(root)) for pattern in (
+        "examples/*.py", "scripts/*.py", "scripts/*.sh")
+        for p in root.glob(pattern)
+        if str(p.relative_to(root)) not in PORT_SCRIPTS)
+
+
+def test_the_programs_are_walked():
+    programs = _programs()
+    assert len(programs) == 27, programs
+    assert set(NOT_CARRIED) <= set(programs)
+
+
+@pytest.mark.parametrize("path", _programs())
+def test_every_program_has_a_port_module_or_a_reason(path):
+    """examples/<name>.py -> neo_mpc_planner2_tpu_torch.examples.<name>,
+    scripts/<name>.py -> ...scripts.<name>, each with main(argv) and its
+    --device flag; or an entry of NOT_CARRIED. A program both ported and
+    listed fails."""
+    folder, stem = pathlib.PurePath(path).parent.name, pathlib.PurePath(
+        path).stem
+    module = f"neo_mpc_planner2_tpu_torch.{folder}.{stem}"
+    spec = importlib.util.find_spec(module)
+    if path in NOT_CARRIED:
+        assert spec is None, f"{path} is ported and listed as not carried"
+        return
+    assert path.endswith(".py") and spec is not None, path
+    mod = importlib.import_module(module)
+    assert list(inspect.signature(mod.main).parameters) == ["argv"]
+    assert "add_device_arg(ap)" in inspect.getsource(mod.main)
