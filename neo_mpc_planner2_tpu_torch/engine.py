@@ -23,6 +23,7 @@ from .ops.objective import Scenario, make_objective
 from .ops.pursuit import Plan, pursuit_tick
 from .ops.rollout import rollout
 from .tree import tree_map
+from .utils.profiling import span
 
 __all__ = ["ControlState", "StepResult", "init_state", "batch_state",
            "solve_step", "controller_step", "make_batched_controller_step",
@@ -180,7 +181,7 @@ def _solve_lanes(cfg: MpcConfig, state: ControlState, scen: Scenario,
     with torch.no_grad():
         guess, last_control, waiting_time = _pre_solve(cfg, state, scen)
     res = solve_batch(guess, scen)
-    with torch.no_grad():
+    with torch.no_grad(), span("engine.post_solve"):
         return _post_solve(cfg, state, scen, delta_t, res, last_control,
                            waiting_time, fp_cost=fp_cost)
 
@@ -296,7 +297,7 @@ def make_batched_controller_step(cfg: MpcConfig, parity: bool = True,
 
     def step(state, plan, robot_pose, current_vel, costmap, footprint,
              delta_t, limits=None):
-        with torch.no_grad():
+        with torch.no_grad(), span("engine.pre"):
             u8 = u8_source_enabled(
                 cfg.solver_costmap_u8,
                 costmap.data.shape[-2] * costmap.data.shape[-1])
@@ -304,9 +305,10 @@ def make_batched_controller_step(cfg: MpcConfig, parity: bool = True,
                 costmap = costmap.with_flat(u8=u8)
             pr, scen, st2 = _tick_pre(cfg, state, plan, robot_pose,
                                       current_vel, costmap, footprint, limits)
-        out = _solve_lanes(cfg, st2, scen, delta_t, solver_batch,
-                           fp_cost=pr.footprint_cost)
-        with torch.no_grad():
+        with span("engine.solve_lanes"):
+            out = _solve_lanes(cfg, st2, scen, delta_t, solver_batch,
+                               fp_cost=pr.footprint_cost)
+        with torch.no_grad(), span("engine.post"):
             return _tick_post(pr, st2, out)
 
     return step

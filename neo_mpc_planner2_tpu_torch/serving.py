@@ -98,6 +98,7 @@ from .ops.objective import Limits, Scenario, Weights, make_objective
 from .ops.pursuit import Plan
 from .sqp import make_sqp_solver_batched
 from .tree import tree_map
+from .utils.profiling import span
 
 # Parameters the reference's cb_params updates in place (py:405-439): weights
 # and velocity/acceleration bounds. They reach the solve as per-lane
@@ -689,31 +690,37 @@ class OptimizerSession:
             return {"error": "no costmap set"}
         if self.footprint is None:
             return {"error": "no footprint set"}
-        # Validate the whole request, delta_t included, before the slot is
-        # looked up: a rejected request neither moves the slot's clock nor
-        # creates a slot (which could LRU-evict another robot).
-        req = self._pack_req(msg, 0.0)
-        if "delta_t" in msg:
-            delta_t = float(msg["delta_t"])
-            if not np.isfinite(delta_t):
-                return {"error": "delta_t is not finite"}
-        slot = self._slot(msg)
-        if "delta_t" not in msg:
-            now = time.time()
-            delta_t = now - slot["last_time"]
-            slot["last_time"] = now
-        req[14] = delta_t
-        packed, st = self._solve_requests(
-            tree_map(lambda x: x[None], slot["state"]),
-            self._to_device(req[None]))
-        slot["state"] = tree_map(lambda x: x[0], st)
-        packed = packed[0]
-        if self.pipelined:
-            prev, slot["pending"] = slot["pending"], packed
-            if prev is None:
-                return self._warmup_resp()
-            packed = prev
-        return self._resp_from_vec(packed.cpu().numpy())
+        with span("serve.pack"):
+            # Validate the whole request, delta_t included, before the slot
+            # is looked up: a rejected request neither moves the slot's
+            # clock nor creates a slot (which could LRU-evict another
+            # robot).
+            req = self._pack_req(msg, 0.0)
+            if "delta_t" in msg:
+                delta_t = float(msg["delta_t"])
+                if not np.isfinite(delta_t):
+                    return {"error": "delta_t is not finite"}
+            slot = self._slot(msg)
+            if "delta_t" not in msg:
+                now = time.time()
+                delta_t = now - slot["last_time"]
+                slot["last_time"] = now
+            req[14] = delta_t
+            reqs = self._to_device(req[None])
+        # The solve span ends with the device-to-host copy of the answer.
+        with span("serve.solve"):
+            packed, st = self._solve_requests(
+                tree_map(lambda x: x[None], slot["state"]), reqs)
+            slot["state"] = tree_map(lambda x: x[0], st)
+            packed = packed[0]
+            if self.pipelined:
+                prev, slot["pending"] = slot["pending"], packed
+                if prev is None:
+                    return self._warmup_resp()
+                packed = prev
+            vec = packed.cpu().numpy()
+        with span("serve.unpack"):
+            return self._resp_from_vec(vec)
 
     # ---- full-tick mode ----
     def op_set_plan(self, msg: dict) -> dict:
@@ -944,19 +951,31 @@ def serve(host: str = "127.0.0.1", port: int = 7180,
 
     class Handler(socketserver.StreamRequestHandler):
         def handle(self) -> None:
+            seq = 0  # the request's number on this connection
             for line in self.rfile:
                 line = line.strip()
                 if not line:
                     continue
-                try:
-                    msg = json.loads(line)
-                except json.JSONDecodeError as e:
-                    resp = {"error": f"bad json: {e}"}
-                else:
-                    with lock:
-                        resp = session.handle(msg)
-                self.wfile.write(json.dumps(resp).encode() + b"\n")
-                self.wfile.flush()
+                with span("serve.request", trace=seq) as request:
+                    with span("serve.decode"):
+                        try:
+                            msg, resp = json.loads(line), None
+                        except json.JSONDecodeError as e:
+                            resp = {"error": f"bad json: {e}"}
+                    if resp is None:
+                        request.set(op=msg.get("op")
+                                    if isinstance(msg, dict) else None)
+                        with span("serve.lock_wait"):
+                            lock.acquire()
+                        try:
+                            with span("serve.handle"):
+                                resp = session.handle(msg)
+                        finally:
+                            lock.release()
+                    with span("serve.encode"):
+                        self.wfile.write(json.dumps(resp).encode() + b"\n")
+                        self.wfile.flush()
+                seq += 1
 
     class Server(socketserver.ThreadingMixIn, socketserver.TCPServer):
         allow_reuse_address = True  # must be set before bind

@@ -25,6 +25,7 @@ from .ops.costmap import (Costmap, extract_window, u8_source_enabled,
 from .ops.rollout import rollout
 from .scenarios import BLOB_SIGMA2, ScenarioBatch, blob_maps
 from .tree import tree_map
+from .utils.profiling import span
 
 __all__ = ["SimResult", "simulate_follow_path", "batch_simulate",
            "rolling_window", "rolling_view", "dynamic_obstacle_map",
@@ -251,28 +252,35 @@ def batch_simulate(cfg: MpcConfig, scenario_batch, n_ticks: int,
 
     outs = []
     for t in range(n_ticks):
-        if carry is not None:
-            block, lo = obstacle_update(carry, costmap.data, costmap_updates,
-                                        t, dt, int(update_cells),
-                                        obstacle_lethal_threshold)
-            write_window_(carry, block, lo)
-            cm = (carry if window_cells is None
-                  else rolling_view(carry, pose, window_cells))
-        elif dynamic_obstacles is not None:
-            cm = dynamic_obstacle_map(sb.costmap, dynamic_obstacles, t, dt,
-                                      obstacle_lethal_threshold, u8)
-        elif window_cells is None:
-            cm = costmap
-        elif window_view:
-            cm = rolling_view(costmap, pose, window_cells)
-        else:
-            cm = rolling_window(costmap, pose, window_cells).with_flat(u8=u8)
-        out = step(state, sb.plan, pose, vel, cm, sb.footprint, dts)
-        cmd = out.cmd_vel
-        with torch.no_grad():
-            pose = rollout(cmd[:, None, :], dt, pose)[:, 0]
-            dg = pose[:, :2] - goals[:, :2]
-            gd = torch.sqrt((dg * dg).sum(-1))
+        with span("tick", trace=t):
+            # "tick.map": a tick that makes or writes a map.
+            if carry is not None:
+                with span("tick.map"):
+                    block, lo = obstacle_update(
+                        carry, costmap.data, costmap_updates, t, dt,
+                        int(update_cells), obstacle_lethal_threshold)
+                    write_window_(carry, block, lo)
+                    cm = (carry if window_cells is None
+                          else rolling_view(carry, pose, window_cells))
+            elif dynamic_obstacles is not None:
+                with span("tick.map"):
+                    cm = dynamic_obstacle_map(sb.costmap, dynamic_obstacles,
+                                              t, dt,
+                                              obstacle_lethal_threshold, u8)
+            elif window_cells is None:
+                cm = costmap
+            elif window_view:
+                cm = rolling_view(costmap, pose, window_cells)
+            else:
+                with span("tick.map"):
+                    cm = rolling_window(costmap, pose,
+                                        window_cells).with_flat(u8=u8)
+            out = step(state, sb.plan, pose, vel, cm, sb.footprint, dts)
+            cmd = out.cmd_vel
+            with torch.no_grad(), span("tick.plant"):
+                pose = rollout(cmd[:, None, :], dt, pose)[:, 0]
+                dg = pose[:, :2] - goals[:, :2]
+                gd = torch.sqrt((dg * dg).sum(-1))
         state, vel = out.state, cmd
         outs.append((pose, cmd, out.collision, out.lethal, gd,
                      out.solver_converged, out.solver_iters))

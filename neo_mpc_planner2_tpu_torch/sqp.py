@@ -37,6 +37,7 @@ from .ops.costmap import ProductPatchSampler, _lane, make_point_sampler
 from .ops.objective import parity_footprint_term
 from .solver import SolveResult
 from .tree import tree_map
+from .utils.profiling import count, span
 
 __all__ = ["qp_admm", "qp_admm_plain", "chol_inverse", "chol_inverse_plain",
            "sqp_solve", "make_sqp_solver", "make_sqp_solver_batched"]
@@ -346,10 +347,13 @@ def _make_sqp(f: Callable[[torch.Tensor], torch.Tensor], cfg: MpcConfig,
                  * torch.pow(torch.tensor(coarse, **f32), jf - fine))
 
     def body(s: _SqpState, active: torch.Tensor) -> _SqpState:
+        count("sqp.trips")
+        count("sqp.lane_slots", batch)
         c, dxy = _cone_constraints(s.x, cfg, max_trans)
-        d, y_cone, *qp = qp_admm(
-            s.B.reshape(batch, m * m), s.grad, s.x, c, dxy, lo, hi, *s.qp,
-            iters=qp_iters)
+        with span("sqp.qp"):
+            d, y_cone, *qp = qp_admm(
+                s.B.reshape(batch, m * m), s.grad, s.x, c, dxy, lo, hi,
+                *s.qp, iters=qp_iters)
 
         # Exact-penalty weight: dominate the largest multiplier estimate.
         mu = torch.maximum(s.mu, 1.5 * y_cone.abs().amax(-1) + 1e-3)
@@ -361,78 +365,88 @@ def _make_sqp(f: Callable[[torch.Tensor], torch.Tensor], cfg: MpcConfig,
         else:
             alpha = torch.ones_like(s.f)
 
-        if parallel_ls:
-            # The fused wave: every candidate of the schedule in one merit
-            # evaluation of (B, K, m); the first accepted one in schedule
-            # order is the alpha sequential backtracking would take.
-            alphas = alpha[:, None] * ls_alphas                   # (B, K)
-            cands = s.x[:, None, :] + alphas[..., None] * d[:, None, :]
-            phis, fs = merit(cands, mu)
-            ok_mask = (phis <= phi0[:, None] + 1e-4 * alphas * dphi[:, None]
-                       + 1e-12)
-            ls_ok = ok_mask.any(-1)
-            # argmax returns the first maximum; it takes no bool.
-            sel = torch.argmax(ok_mask.to(torch.int32), dim=-1, keepdim=True)
-            alpha = alphas.gather(-1, sel)[:, 0]
-            f_ls = fs.gather(-1, sel)[:, 0]
-        elif ls_wave > 1:
-            # The K-wide wave: each trip evaluates K consecutive candidates
-            # of the schedule in one merit call of (B, K, m) and accepts the
-            # first one in schedule order, so it takes the alpha sequential
-            # backtracking takes, in ceil(trips / K) trips at the slowest
-            # lane. Done (and inactive) lanes accept at once.
-            K = ls_wave
-            ok = s.done | ~active
-            f_ls = s.f
-            a_init = alpha
-            j = 0
-            while j < max_backtracks:
-                go = ~ok
-                if not bool(go.any()):
-                    break
-                alphas = a_init[:, None] * ls_alphas[j:j + K]     # (B, K)
+        with span("sqp.ls"):
+            if parallel_ls:
+                # The fused wave: every candidate of the schedule in one
+                # merit evaluation of (B, K, m); the first accepted one in
+                # schedule order is the alpha sequential backtracking would
+                # take.
+                alphas = alpha[:, None] * ls_alphas               # (B, K)
                 cands = s.x[:, None, :] + alphas[..., None] * d[:, None, :]
                 phis, fs = merit(cands, mu)
-                okm = (phis <= phi0[:, None] + 1e-4 * alphas * dphi[:, None]
-                       + 1e-12)
-                if j + K > max_backtracks:
-                    okm[:, max_backtracks - j:] = False
-                hit = go & okm.any(-1)
-                sel = torch.argmax(okm.to(torch.int32), dim=-1, keepdim=True)
-                alpha = torch.where(hit, alphas.gather(-1, sel)[:, 0], alpha)
-                f_ls = torch.where(hit, fs.gather(-1, sel)[:, 0], f_ls)
-                ok = ok | hit
-                j += K
-            ls_ok = ok
-        else:
-            # Sequential Armijo backtracking, masked per lane. Done (and
-            # inactive) lanes accept at once, so they cost no merit
-            # evaluation.
-            j = torch.zeros_like(s.k)
-            ok = s.done | ~active
-            f_ls = s.f
-            while True:
-                go = ~ok & (j < max_backtracks)
-                if not bool(go.any()):
-                    break
-                phi, fv = merit(s.x + alpha[:, None] * d, mu)
-                ok_new = phi <= phi0 + 1e-4 * alpha * dphi + 1e-12
-                if quad_ls:
-                    # Minimizer of the quadratic through phi(0), phi'(0)
-                    # and phi(alpha), safeguarded to [0.1, 0.5]·alpha
-                    # (N&W §3.5).
-                    denom = 2.0 * (phi - phi0 - dphi * alpha)
-                    a_q = -dphi * alpha * alpha / torch.where(
-                        denom.abs() > 1e-20, denom, 1e-20)
-                    a_next = torch.minimum(torch.maximum(a_q, 0.1 * alpha),
-                                           0.5 * alpha)
-                else:
-                    a_next = alpha * ls_factor(j)
-                alpha = torch.where(go & ~ok_new, a_next, alpha)
-                f_ls = torch.where(go & ok_new, fv, f_ls)
-                j = torch.where(go, j + 1, j)
-                ok = torch.where(go, ok_new, ok)
-            ls_ok = ok
+                count("sqp.ls_evals")
+                ok_mask = (phis <= phi0[:, None]
+                           + 1e-4 * alphas * dphi[:, None] + 1e-12)
+                ls_ok = ok_mask.any(-1)
+                # argmax returns the first maximum; it takes no bool.
+                sel = torch.argmax(ok_mask.to(torch.int32), dim=-1,
+                                   keepdim=True)
+                alpha = alphas.gather(-1, sel)[:, 0]
+                f_ls = fs.gather(-1, sel)[:, 0]
+            elif ls_wave > 1:
+                # The K-wide wave: each trip evaluates K consecutive
+                # candidates of the schedule in one merit call of (B, K, m)
+                # and accepts the first one in schedule order, so it takes
+                # the alpha sequential backtracking takes, in
+                # ceil(trips / K) trips at the slowest lane. Done (and
+                # inactive) lanes accept at once.
+                K = ls_wave
+                ok = s.done | ~active
+                f_ls = s.f
+                a_init = alpha
+                j = 0
+                while j < max_backtracks:
+                    go = ~ok
+                    if not bool(go.any()):
+                        break
+                    alphas = a_init[:, None] * ls_alphas[j:j + K]  # (B, K)
+                    cands = (s.x[:, None, :]
+                             + alphas[..., None] * d[:, None, :])
+                    phis, fs = merit(cands, mu)
+                    count("sqp.ls_evals")
+                    okm = (phis <= phi0[:, None]
+                           + 1e-4 * alphas * dphi[:, None] + 1e-12)
+                    if j + K > max_backtracks:
+                        okm[:, max_backtracks - j:] = False
+                    hit = go & okm.any(-1)
+                    sel = torch.argmax(okm.to(torch.int32), dim=-1,
+                                       keepdim=True)
+                    alpha = torch.where(hit, alphas.gather(-1, sel)[:, 0],
+                                        alpha)
+                    f_ls = torch.where(hit, fs.gather(-1, sel)[:, 0], f_ls)
+                    ok = ok | hit
+                    j += K
+                ls_ok = ok
+            else:
+                # Sequential Armijo backtracking, masked per lane. Done (and
+                # inactive) lanes accept at once, so they cost no merit
+                # evaluation.
+                j = torch.zeros_like(s.k)
+                ok = s.done | ~active
+                f_ls = s.f
+                while True:
+                    go = ~ok & (j < max_backtracks)
+                    if not bool(go.any()):
+                        break
+                    phi, fv = merit(s.x + alpha[:, None] * d, mu)
+                    count("sqp.ls_evals")
+                    ok_new = phi <= phi0 + 1e-4 * alpha * dphi + 1e-12
+                    if quad_ls:
+                        # Minimizer of the quadratic through phi(0), phi'(0)
+                        # and phi(alpha), safeguarded to [0.1, 0.5]·alpha
+                        # (N&W §3.5).
+                        denom = 2.0 * (phi - phi0 - dphi * alpha)
+                        a_q = -dphi * alpha * alpha / torch.where(
+                            denom.abs() > 1e-20, denom, 1e-20)
+                        a_next = torch.minimum(
+                            torch.maximum(a_q, 0.1 * alpha), 0.5 * alpha)
+                    else:
+                        a_next = alpha * ls_factor(j)
+                    alpha = torch.where(go & ~ok_new, a_next, alpha)
+                    f_ls = torch.where(go & ok_new, fv, f_ls)
+                    j = torch.where(go, j + 1, j)
+                    ok = torch.where(go, ok_new, ok)
+                ls_ok = ok
 
         step_vec = torch.where(ls_ok[:, None], alpha[:, None] * d, 0.0)
         x_new = s.x + step_vec
@@ -491,7 +505,8 @@ def _make_sqp(f: Callable[[torch.Tensor], torch.Tensor], cfg: MpcConfig,
             alive = ~s.done & (s.k < upto_k)
             if not bool(alive.any()):
                 return s
-            s = _select(alive, body(s, alive), s)
+            with span("sqp.iter", lanes=batch):
+                s = _select(alive, body(s, alive), s)
 
     return init, run, body
 
@@ -587,6 +602,11 @@ def make_sqp_solver_batched(cfg: MpcConfig, objective,
 
     def solve_batch(x0s, scens):
         batch = x0s.shape[0]
+        count("sqp.solves")
+        with span("sqp.solve", lanes=batch):
+            return _solve_batch(x0s, scens, batch)
+
+    def _solve_batch(x0s, scens, batch):
         k1 = cfg.solver_compact_after
         frac = cfg.solver_compact_frac
         compact_n = math.ceil(batch * frac) if frac > 0 else batch
@@ -598,7 +618,8 @@ def make_sqp_solver_batched(cfg: MpcConfig, objective,
         fp_term = _batch_hoist(cfg, objective, scens)
         init, run, body = machinery(scens, fp_term, batch, x0s.device)
         with torch.no_grad():
-            st = init(x0s)
+            with span("sqp.init"):
+                st = init(x0s)
             if adaptive:
                 # Masked full-batch iterations while more than compact_n
                 # lanes are alive: one host read a trip (the alive lanes'
@@ -608,16 +629,20 @@ def make_sqp_solver_batched(cfg: MpcConfig, objective,
                     idx = alive.nonzero()[:, 0]
                     if idx.numel() <= compact_n:
                         break
-                    st = _select(alive, body(st, alive), st)
-                st = finish(st, scens, fp_term, idx)
+                    with span("sqp.iter", lanes=batch):
+                        st = _select(alive, body(st, alive), st)
+                with span("sqp.compact"):
+                    st = finish(st, scens, fp_term, idx)
             else:
                 st = run(st, k1 if use else max_iters_)
                 if use:
                     alive = ~st.done & (st.k < max_iters_)
                     idx = alive.nonzero()[:, 0]
-                    st = (finish(st, scens, fp_term, idx)
-                          if idx.numel() <= compact_n
-                          else run(st, max_iters_))
+                    if idx.numel() <= compact_n:
+                        with span("sqp.compact"):
+                            st = finish(st, scens, fp_term, idx)
+                    else:
+                        st = run(st, max_iters_)
         return SolveResult(x=st.x, fun=st.f, converged=st.done, iters=st.k)
 
     return solve_batch

@@ -3,9 +3,11 @@
 Walks each Python module of `neo_mpc_planner2_tpu` that declares
 `__all__` and requires the module of the same path under
 `neo_mpc_planner2_tpu_torch` to export each name (in its own `__all__`,
-bound in the module). The one listed exception: `ops.pallas_kernels`,
+bound in the module). The listed exceptions: `ops.pallas_kernels`,
 whose one name, `footprint_cost_batch_pallas`, is the TPU kernel that the
-port's `ops.footprint.footprint_cost_batch` launches as CUDA kernel K3.
+port's `ops.footprint.footprint_cost_batch` launches as CUDA kernel K3;
+and `utils.profiling.Timer`, a phase timer with no caller in the port,
+whose work the port's spans (`utils.profiling.span`) do.
 
 Below module level: each exported class has every public member of its
 JAX twin, and each function, method and constructor takes every
@@ -55,6 +57,8 @@ EXCEPTIONS = {
     "neo_mpc_planner2_tpu.ops.pallas_kernels": (
         {"footprint_cost_batch_pallas"},
         "neo_mpc_planner2_tpu_torch.ops.footprint.footprint_cost_batch"),
+    "neo_mpc_planner2_tpu.utils.profiling": (
+        {"Timer"}, "neo_mpc_planner2_tpu_torch.utils.profiling.span"),
 }
 
 

@@ -15,8 +15,9 @@ adapter (`ros_adapter`), the server CLI (`cli`) and the numpy helpers
 - `cli._load_params_file` on the navigation.yaml layout and on a flat dict;
   `cli.server_main` on a free port with --device cpu answers an
   `optimizer` request as an in-process session does.
-- `Timer` / `RateTracker` stats, the viz messages and the se2 helpers equal
-  to JAX's; the trace readers of `utils.profiling`.
+- `RateTracker` stats (the port has no `Timer`: its spans time its
+  phases), the viz messages and the se2 helpers equal to JAX's; the trace
+  readers of `utils.profiling`.
 """
 
 import json
@@ -390,13 +391,8 @@ def test_timer_and_rate_tracker_match_jax():
             t.record(float(s))
     assert trackers[0].stats() == trackers[1].stats()
     assert trackers[0].stats()["count"] == 512
-    timers = [tprof.Timer(), jprof.Timer()]
-    for t in timers:
-        t.totals, t.counts = {"solve": 1.5, "io": 0.25}, {"solve": 3, "io": 1}
-    assert timers[0].summary() == timers[1].summary()
-    with timers[0].phase("solve"):
-        pass
-    assert timers[0].counts["solve"] == 4
+    # The port has no Timer (no caller): spans time its phases.
+    assert not hasattr(tprof, "Timer") and hasattr(jprof, "Timer")
     with trackers[0].measure():
         pass
     assert trackers[0].samples[-1] >= 0.0
