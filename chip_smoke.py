@@ -105,6 +105,11 @@ KERNELS = [
          source="neo_mpc_planner2_tpu_torch/csrc/footprint_cost.cu",
          replaces="neo_mpc_planner2_tpu/ops/pallas_kernels.py:44",
          launcher="launch_footprint_cost"),
+    # Not a TPU kernel: it replaces the port's masked Armijo loop.
+    dict(name="parity_line_search", route="cuda",
+         source="neo_mpc_planner2_tpu_torch/csrc/parity_line_search.cu",
+         replaces="neo_mpc_planner2_tpu_torch/sqp.py:288",
+         launcher="launch_parity_line_search"),
 ]
 
 
@@ -151,16 +156,16 @@ def _nvidia_smi() -> str:
 def _ptxas_report(log: str) -> dict:
     """Registers, stack and spill bytes per kernel instance from nvcc's
     `-Xptxas -v` output, keyed like "qp_admm_m15", "spd_inv_m9_w4",
-    "footprint_cost_S16", "footprint_walk", or, for the kernels that take m
-    at run time, "qp_admm_warp_lane_64" (its row capacity),
-    "qp_admm_block_lane", "spd_inv_runtime_warp" and
+    "footprint_cost_S16", "footprint_walk", "parity_line_search", or, for
+    the kernels that take m at run time, "qp_admm_warp_lane_64" (its row
+    capacity), "qp_admm_block_lane", "spd_inv_runtime_warp" and
     "spd_inv_runtime_block"."""
     import re
 
     report, name = {}, None
     for line in log.splitlines():
         walk = re.search(r"Compiling entry function '\w*?"
-                         r"footprint_walk_kernel", line)
+                         r"(footprint_walk|parity_line_search)_kernel", line)
         runtime_m = re.search(r"Compiling entry function '\w*?"
                               r"(qp_admm|spd_inv)_kernel_"
                               r"(warp_lane|block_lane|runtime_warp|"
@@ -169,7 +174,7 @@ def _ptxas_report(log: str) -> dict:
                         r"(qp_admm|spd_inv|footprint_cost)_kernelILi(\d+)E"
                         r"(?:Li(\d+)E)?(?:Lb(\d)E)?", line)
         if walk:
-            name = "footprint_walk"
+            name = walk.group(1)
             report[name] = {}
         elif runtime_m:
             name = f"{runtime_m.group(1)}_{runtime_m.group(2)}"
@@ -1018,6 +1023,127 @@ class K3Recorder:
         return False
 
 
+class ParityLsRecorder:
+    """While active, each parity line-search kernel that
+    sqp.make_sqp_solver_batched builds also runs the masked loop
+    (sqp._masked_armijo) on each trip's operands and keeps the operands,
+    both results and the loop's merit evaluations; the solve goes on with
+    the masked loop's result, so that every trip's operands are the masked
+    loop's and the two are held on the same inputs. It wraps
+    `sqp._fused_line_search`, which the solver looks up at every solve, and
+    restores it on exit."""
+
+    def __init__(self):
+        self.trips = []
+
+    def __enter__(self):
+        from neo_mpc_planner2_tpu_torch import sqp
+
+        self._factory = sqp._fused_line_search
+
+        def factory(cfg, objective, scens, fp_term, parallel_ls):
+            kernel = self._factory(cfg, objective, scens, fp_term,
+                                   parallel_ls)
+            if kernel is None:
+                return None
+            limits = scens.limits
+            merit = sqp._merit_fn(
+                sqp._batch_fobj(cfg, objective, scens, fp_term), cfg,
+                None if limits is None else limits.max_vel_trans.float())
+
+            def line_search(*args, **schedule):
+                got = kernel(*args, **schedule)
+                record = {}
+                want = sqp._masked_armijo(merit, *args, **schedule,
+                                          record=record)
+                self.trips.append(dict(
+                    args=tuple(a.clone() for a in args), schedule=schedule,
+                    kernel=got, loop=want, evals=record["evals"],
+                    line_search=kernel, merit=merit,
+                    solve=(cfg, objective, scens, fp_term, parallel_ls)))
+                return want
+
+            return line_search
+
+        sqp._fused_line_search = factory
+        return self
+
+    def __exit__(self, *exc):
+        from neo_mpc_planner2_tpu_torch import sqp
+
+        sqp._fused_line_search = self._factory
+        return False
+
+    def differing(self) -> dict:
+        """Lanes whose alpha, f or acceptance differs between the kernel
+        and the masked loop (bit for bit), over every recorded trip:
+        {"lane_trips", "differing", "first": (trip, lane) of the first}."""
+        import torch
+
+        out = {"lane_trips": 0, "differing": 0, "first": None}
+        for k, trip in enumerate(self.trips):
+            same = torch.ones_like(trip["loop"][2])
+            for got, want in zip(trip["kernel"], trip["loop"]):
+                same &= got == want
+            bad = (~same).nonzero()[:, 0]
+            out["lane_trips"] += same.numel()
+            out["differing"] += bad.numel()
+            if bad.numel() and out["first"] is None:
+                out["first"] = (k, int(bad[0]))
+        return out
+
+
+def phase_parity_line_search(device, batch: int = 4096) -> dict:
+    """The parity line-search kernel against the masked loop it replaces
+    on the fleet slice's first tick (`batch` lanes, each sequential branch:
+    the fleet preset's quadratic interpolation and the two-phase factor):
+    every trip's alpha, f and acceptance bit for bit, differing lanes
+    counted; its device time alone on the first trip's operands at B =
+    `batch` and at B = 1 (lane 0), the masked loop's time on the same
+    operands (one call between CUDA events), the bound from the loop's
+    merit evaluations (kernels/bounds.py)."""
+    import torch
+
+    from neo_mpc_planner2_tpu_torch import sqp
+    from neo_mpc_planner2_tpu_torch.kernels import bounds
+    from neo_mpc_planner2_tpu_torch.simulation import batch_simulate
+    from neo_mpc_planner2_tpu_torch.tree import tree_map
+
+    out = {"phase": "parity line search", "batch": batch}
+    for branch, quad in (("quad_interp", True), ("two_phase", False)):
+        cfg, sb, run = slice_inputs("fleet", batch, device)
+        cfg = cfg.replace(solver_ls_quad_interp=quad)
+        with ParityLsRecorder() as rec:
+            batch_simulate(cfg, sb, 1, **run)
+        torch.cuda.synchronize()
+        diff = rec.differing()
+        out[branch] = {"trips": len(rec.trips), **diff}
+        if not rec.trips or diff["differing"]:
+            raise AssertionError(f"parity line search, {branch}: {diff}")
+    trip = rec.trips[0]
+    args, sched = trip["args"], trip["schedule"]
+    cfg, objective, scens, fp_term, wave = trip["solve"]
+    one = sqp._fused_line_search(cfg, objective,
+                                 tree_map(lambda t: t[:1], scens),
+                                 fp_term[:1], wave)
+    args1 = tuple(a[:1].contiguous() for a in args)
+    work = bounds.parity_line_search_work(batch, cfg.control_steps,
+                                          trip["evals"],
+                                          scens.costmap.flat_u8 is not None)
+    ms = _device_ms(lambda: trip["line_search"](*args, **sched),
+                    "parity_line_search_kernel")
+    out.update(
+        ms=ms, ms_b1=_device_ms(lambda: one(*args1, **sched),
+                                "parity_line_search_kernel"),
+        plain_ms=_time_ms(lambda: sqp._masked_armijo(trip["merit"], *args,
+                                                     **sched)),
+        bound_ms=work["bound_ms"], bound_by=work["bound_by"],
+        evals=work["evals"], share_of_bound=work["bound_ms"] / ms,
+        max_abs_err=0.0)
+    print(json.dumps(out), flush=True)
+    return out
+
+
 def captured_k3_cases(recorder: K3Recorder, required=("wave", "gate"),
                       steps: int = 3) -> dict:
     """A slice's K3 calls to hold and time: label -> args. A walk-mode call
@@ -1170,7 +1296,8 @@ LIVE_MAPS = {
 # its closed loop must launch). A slice named in LIVE_MAPS runs on that
 # live map, the others on static 64x64 maps.
 SLICES = {
-    "fleet": (fleet_cfg, True, None, ("qp_admm", "footprint_cost")),
+    "fleet": (fleet_cfg, True, None, ("qp_admm", "footprint_cost",
+                                      "parity_line_search")),
     "product": (product_cfg, False, None, ("qp_admm", "footprint_cost")),
     "prox": (product_cfg, False, prox_solver, ("footprint_cost",)),
     "rolling": (fleet_cfg, True, None, ("qp_admm", "footprint_cost")),
@@ -3455,6 +3582,7 @@ def main() -> int:
     k2 = isolated("phase_k2")
     k3 = phase_k3(device)
     walk_report = phase_k3_walk(device)
+    pls = phase_parity_line_search(device)
     progress("kernel phases")
     slices = {}
     # K3's calls are captured in the product slice's warm-up (the gate, the
@@ -3526,6 +3654,12 @@ def main() -> int:
                                bound_by=wave["bound_by"], library_ms=None,
                                variants=k3_variants(k3, walk_report, wave,
                                                     walk)),
+        # On the fleet slice's first trip, bit for bit against the loop.
+        "parity_line_search": dict(max_abs_err=pls["max_abs_err"],
+                                   ms=pls["ms"], plain_ms=pls["plain_ms"],
+                                   bound_ms=pls["bound_ms"],
+                                   bound_by=pls["bound_by"],
+                                   library_ms=None),
     }
     # The launches of the timed runs: the slices, the SQP schedules' arms,
     # the sharded engine, the controller routes, the wide footprints, the

@@ -172,14 +172,15 @@ def quality(run) -> tuple:
 
 def kernel_wrappers() -> dict:
     """Each wrapper that counts its kernel's launches, by name: qp_admm
-    (K1), spd_inv (K2), footprint_cost (K3) and footprint_walk (K3's walk
-    mode)."""
+    (K1), spd_inv (K2), footprint_cost (K3), footprint_walk (K3's walk
+    mode) and parity_line_search (the parity line search)."""
     from . import sqp
     from .ops import footprint
 
     return {"qp_admm": sqp.qp_admm, "spd_inv": sqp.chol_inverse,
             "footprint_cost": footprint.footprint_cost_batch,
-            "footprint_walk": footprint.footprint_walk_batch}
+            "footprint_walk": footprint.footprint_walk_batch,
+            "parity_line_search": sqp.parity_line_search}
 
 
 def kernel_launches() -> dict:

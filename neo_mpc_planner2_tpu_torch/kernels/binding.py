@@ -25,7 +25,10 @@ __all__ = ["MAX_SMEM", "team_ld", "K1_WARP_TEAM_MAX_M", "K1_WARP_LANE_MAX_M",
            "K3_MAX_CHUNKS", "k3_max_samples", "k3_variant",
            "K3_WALK_WARP_VERTICES", "k3_walk_variant",
            "K2_WIDTHS", "K2_WIDE_BLOCKS_PER_SM", "k2_launch_shape",
-           "launch_qp_admm", "launch_spd_inv", "launch_footprint_cost"]
+           "PARITY_LS_MAX_STEPS", "PARITY_LS_QUIRKS",
+           "PARITY_LS_LANE_COLUMNS", "parity_ls_sum_width",
+           "launch_qp_admm", "launch_spd_inv", "launch_footprint_cost",
+           "launch_parity_line_search"]
 
 # The most shared memory a block may take on an H100 (227 KB).
 MAX_SMEM = 232448
@@ -386,3 +389,63 @@ def launch_footprint_cost(data, origin, res, bounds, verts, n_valid, t,
         out.data_ptr(), _stream(data.device))
     _check(rc, "footprint_cost")
     return out
+
+
+# The parity line search (csrc/parity_line_search.cu): the most control
+# steps it takes (K1's cap of 79, rounded up), the compat quirks it takes
+# as bits of `quirks` (bit i: PARITY_LS_QUIRKS[i]) and a lane's row of its
+# per-lane table, (name, floats) in order.
+PARITY_LS_MAX_STEPS = 80
+PARITY_LS_QUIRKS = ("buggy_odom_yaw", "footprint_alias_noop", "lethal_1000x",
+                    "unsquared_control_cost", "no_angle_wrap")
+PARITY_LS_LANE_COLUMNS = (
+    ("current_pose", 3), ("carrot_pose", 3), ("goal_pose", 3),
+    ("current_vel", 3), ("w_trans", 1), ("w_orient", 1), ("w_control", 1),
+    ("w_terminal", 1), ("w_costmap", 1), ("max_vel_trans", 1),
+    ("fp_term", 1), ("origin", 2), ("resolution", 1))
+
+
+def _last_pow2(n: int) -> int:
+    return 1 << (int(n).bit_length() - 1)
+
+
+def parity_ls_sum_width(n: int, rows: int) -> int:
+    """The threads over which PyTorch's CUDA reduction splits each of
+    `rows` contiguous rows of n floats (Reduce.cuh's setReduceConfig, 512
+    threads a block): a block is as wide as the row's largest power of two,
+    at most a warp, as many rows high as fit, then as wide as fits. The
+    parity line search sums each row of N step terms in that order: 2 at
+    N = 3; 32 from N = 32 on, but 64 from N = 64 on at fewer than 16
+    rows."""
+    p0 = _last_pow2(n) if n < 512 else 512
+    p1 = _last_pow2(rows) if rows < 512 else 512
+    height = min(p1, 512 // min(p0, 32))
+    return min(p0, 512 // height)
+
+
+def launch_parity_line_search(flat, flat_u8, H: int, W: int, lane, x, d,
+                              alpha, phi0, dphi, mu, f, done, active, *,
+                              n: int, dt: float, quirks: int,
+                              max_backtracks: int, quad_interp: bool,
+                              backtrack: float, coarse_after: int,
+                              coarse: float):
+    """flat (Bm, H*W) or (H*W,) float32, flat_u8 its uint8 companion or
+    None, lane (B, 22) (PARITY_LS_LANE_COLUMNS), x and d (B, 3n), alpha,
+    phi0, dphi, mu, f (B,) float32, done and active (B,) bool, all
+    contiguous. Returns (alpha, f_ls, ls_ok), each (B,)."""
+    lib = load_library()
+    B = x.shape[0]
+    map_lanes = 1 if flat.dim() == 1 else flat.shape[0]
+    alpha_out = torch.empty_like(alpha)
+    f_out = torch.empty_like(f)
+    ok_out = torch.empty_like(done)
+    rc = lib.neo_parity_line_search_f32(
+        B, n, parity_ls_sum_width(n, B), quirks, max_backtracks,
+        int(quad_interp), coarse_after, H, W, map_lanes, float(dt),
+        float(backtrack), float(coarse), flat.data_ptr(),
+        None if flat_u8 is None else flat_u8.data_ptr(),
+        *(t.data_ptr() for t in (lane, x, d, alpha, phi0, dphi, mu, f, done,
+                                 active, alpha_out, f_out, ok_out)),
+        _stream(x.device))
+    _check(rc, "parity_line_search")
+    return alpha_out, f_out, ok_out

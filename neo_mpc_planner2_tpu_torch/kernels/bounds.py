@@ -20,7 +20,9 @@ __all__ = ["H100_BYTES_PER_S", "H100_F32_OPS_PER_S", "bound",
            "inverse_ops", "qp_admm_work", "spd_inv_work",
            "K3_OPS_PER_SAMPLE", "footprint_cost_work",
            "footprint_cells_touched", "K3_WALK_OPS_PER_EDGE",
-           "K3_WALK_OPS_PER_STEP", "footprint_walk_work"]
+           "K3_WALK_OPS_PER_STEP", "footprint_walk_work",
+           "PARITY_LS_OPS_PER_STEP", "PARITY_LS_OPS_PER_EVAL",
+           "PARITY_LS_OPS_PER_LANE", "parity_line_search_work"]
 
 H100_BYTES_PER_S = 3.35e12
 H100_F32_OPS_PER_S = 67e12
@@ -167,4 +169,38 @@ def footprint_walk_work(data, origin, res, bounds, verts, n_valid,
            + record["steps"] * K3_WALK_OPS_PER_STEP)
     out = bound(ops, nbytes)
     out.update(edges=edges, steps=record["steps"], cells=cells)
+    return out
+
+
+# A step of one merit evaluation of the parity line search: the candidate
+# (3 multiplies, 3 adds), the yaw increment (1), the body and the odom
+# rollouts (13 each: the yaw, its cosine and sine, 5 in x and 5 in y), the
+# tracking terms (10), the control term (10: 3 differences, 3 squares, 2
+# adds, the test and the square root), the map read (15: 2 differences, 2
+# divisions, 2 floors, the 4 bounds tests, the index, the square, the
+# lethal test and the weight), the cone (6) and the five sums' adds (5).
+# A transcendental counts as one operation.
+PARITY_LS_OPS_PER_STEP = 82
+# An evaluation's own: the five means, the control weight, the terminal
+# term (9), the merit (2), the Armijo test (4) and the next alpha (8).
+PARITY_LS_OPS_PER_EVAL = 29
+# A lane's set-up: the buggy odom yaw (8).
+PARITY_LS_OPS_PER_LANE = 8
+
+
+def parity_line_search_work(B: int, n: int, evals: int,
+                            u8: bool = False) -> dict:
+    """The parity line search on B lanes of n steps that take `evals` merit
+    evaluations in all (the masked loop's count on the same operands,
+    _masked_armijo's `record`): the operations above; the bytes of each
+    lane's iterate and step (2 x 3n floats), its table row (22 floats),
+    its alpha, phi0, dphi, mu and f, its done and active flags, its three
+    outputs (9 bytes), and one map read a step of each evaluation (4 bytes,
+    1 from the u8 companion)."""
+    ops = (evals * (n * PARITY_LS_OPS_PER_STEP + PARITY_LS_OPS_PER_EVAL)
+           + B * PARITY_LS_OPS_PER_LANE)
+    nbytes = (B * (F32 * (6 * n + 22 + 5) + 2 + 9)
+              + evals * n * (1 if u8 else F32))
+    out = bound(ops, nbytes)
+    out.update(evals=evals)
     return out

@@ -28,7 +28,8 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 CUDA_HOME = os.environ.get("CUDA_HOME", "/usr/local/cuda")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-SOURCES = ("qp_admm.cu", "spd_inv.cu", "footprint_cost.cu")
+SOURCES = ("qp_admm.cu", "spd_inv.cu", "footprint_cost.cu",
+           "parity_line_search.cu")
 HEADERS = ("spd_inverse.cuh",)
 
 _vp, _i, _f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
@@ -45,6 +46,9 @@ SIGNATURES = {
     "neo_footprint_cost_f32": (_i, [_i] * 9 + [_vp] * 10),
     # Bm, R, H, W, V, threads; 8 arrays; stream.
     "neo_footprint_walk_f32": (_i, [_i] * 6 + [_vp] * 9),
+    # B, n, sum_width, quirks, max_backtracks, quad_interp, coarse_after, H,
+    # W, map_lanes; dt, backtrack, coarse; 12 arrays, 3 outputs; stream.
+    "neo_parity_line_search_f32": (_i, [_i] * 10 + [_f] * 3 + [_vp] * 16),
 }
 
 # What the last build_library call did: {"path", "built", "seconds", "log"}.

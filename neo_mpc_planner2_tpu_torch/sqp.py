@@ -21,6 +21,14 @@ tensors and runs `qp_admm_plain` for CPU tensors. `chol_inverse` does the
 same with K2 and `chol_inverse_plain`: it is the batched SPD inverse on its
 own. K1 computes the QP's inverse itself, with a team inverse of its own,
 so the solver never launches K2.
+
+The sequential line search on the parity objective, read through its flat
+gather, runs on the card as one kernel a trip
+(csrc/parity_line_search.cu): each thread backtracks one lane to its own
+end, with the masked loop's arithmetic, so it takes the same alpha without
+the loop's launches and host `any()` a backtrack. `_fused_line_search_rule`
+says where; everywhere else (the CPU, the product objective, the waves, the
+parity patch, a rolling-window view) the masked loop `_masked_armijo` runs.
 """
 
 from __future__ import annotations
@@ -34,7 +42,7 @@ import torch
 from .config import MpcConfig
 from .kernels import binding
 from .ops.costmap import ProductPatchSampler, _lane, make_point_sampler
-from .ops.objective import parity_footprint_term
+from .ops.objective import parity_footprint_term, resolve_weights
 from .solver import SolveResult
 from .tree import tree_map
 from .utils.profiling import count, span
@@ -266,12 +274,68 @@ def _select(mask: torch.Tensor, new, old):
     return _SqpState(**out)
 
 
+def _merit_fn(f, cfg: MpcConfig, max_trans=None):
+    """merit(x, mu) -> (phi, f) at x (B, *cand, m): the L1 merit
+    f + mu·Σ max(−c, 0) over the cone and the objective."""
+    def merit(x, mu):
+        c, _ = _cone_constraints(x, cfg, max_trans)
+        fv = f(x)
+        return fv + _lane(mu, fv) * torch.clamp_min(-c, 0.0).sum(-1), fv
+
+    return merit
+
+
+def _masked_armijo(merit, x, d, alpha, phi0, dphi, mu, f, done, active, *,
+                   max_backtracks: int, quad_interp: bool, backtrack: float,
+                   coarse_after: int, coarse: float, record=None):
+    """Sequential Armijo backtracking from x along d, masked per lane: each
+    lane tries alpha, then backtracks until phi <= phi0 + 1e-4·alpha·dphi +
+    1e-12 or max_backtracks merit evaluations, by the safeguarded
+    quadratic interpolation (quad_interp) or the two-phase factor
+    (backtrack before coarse_after evaluations, coarse after; single-phase
+    when coarse_after <= 0). Done (and inactive) lanes accept at once, so
+    they cost no merit evaluation. One merit call and one host read a
+    backtrack. Returns (alpha, f at the accepted candidate, or f where none
+    was, accepted); record, a dict, gets the merit evaluations the lanes
+    took ("evals")."""
+    j = torch.zeros(x.shape[0], dtype=torch.int32, device=x.device)
+    ok = done | ~active
+    f_ls = f
+    while True:
+        go = ~ok & (j < max_backtracks)
+        if not bool(go.any()):
+            break
+        phi, fv = merit(x + alpha[:, None] * d, mu)
+        count("sqp.ls_evals")
+        ok_new = phi <= phi0 + 1e-4 * alpha * dphi + 1e-12
+        if quad_interp:
+            # Minimizer of the quadratic through phi(0), phi'(0) and
+            # phi(alpha), safeguarded to [0.1, 0.5]·alpha (N&W §3.5).
+            denom = 2.0 * (phi - phi0 - dphi * alpha)
+            a_q = -dphi * alpha * alpha / torch.where(
+                denom.abs() > 1e-20, denom, 1e-20)
+            a_next = torch.minimum(torch.maximum(a_q, 0.1 * alpha),
+                                   0.5 * alpha)
+        elif coarse_after <= 0:
+            a_next = alpha * backtrack
+        else:
+            a_next = alpha * torch.where(j < coarse_after, backtrack, coarse)
+        alpha = torch.where(go & ~ok_new, a_next, alpha)
+        f_ls = torch.where(go & ok_new, fv, f_ls)
+        j = torch.where(go, j + 1, j)
+        ok = torch.where(go, ok_new, ok)
+    if record is not None:
+        record["evals"] = int(j.sum())
+    return alpha, f_ls, ok
+
+
 def _make_sqp(f: Callable[[torch.Tensor], torch.Tensor], cfg: MpcConfig,
               batch: int, device, ftol: float | None = None,
               qp_iters: int | None = None,
               max_backtracks: int | None = None,
               parallel_ls: bool = False, ls_wave: int = 1,
-              ls_backtrack: float | None = None, limits=None):
+              ls_backtrack: float | None = None, limits=None,
+              line_search=None):
     """Build the SQP machinery for a batched objective f: (B, m) -> (B,).
     Returns (init, run, body): init(x0) evaluates the warm start,
     run(state, upto_k) iterates while any lane is not done and below upto_k,
@@ -280,7 +344,9 @@ def _make_sqp(f: Callable[[torch.Tensor], torch.Tensor], cfg: MpcConfig,
     parallel_ls: the fused candidate wave instead of sequential
     backtracking; f must then take (B, K, m) candidates, K the backtrack
     budget. ls_wave = K > 1 (without parallel_ls): K candidates a trip, f
-    taking (B, K, m)."""
+    taking (B, K, m). line_search: the sequential branch's search in place
+    of the masked loop, called as _masked_armijo is without its merit
+    (_fused_line_search's kernel)."""
     ftol = cfg.opt_tolerance if ftol is None else ftol
     qp_iters = cfg.qp_iters if qp_iters is None else qp_iters
     max_backtracks = (cfg.solver_max_backtracks if max_backtracks is None
@@ -322,16 +388,9 @@ def _make_sqp(f: Callable[[torch.Tensor], torch.Tensor], cfg: MpcConfig,
             (g,) = torch.autograd.grad(fv.sum(), xr)
         return fv.detach(), g.contiguous()
 
-    def merit(x, mu):
-        """(phi, f) at x (B, *cand, m): the L1 merit and the objective."""
-        c, _ = _cone_constraints(x, cfg, max_trans)
-        fv = f(x)
-        return fv + _lane(mu, fv) * torch.clamp_min(-c, 0.0).sum(-1), fv
-
-    def ls_factor(j):
-        if coarse_after <= 0:
-            return bt
-        return torch.where(j < coarse_after, bt, coarse)
+    merit = _merit_fn(f, cfg, max_trans)
+    schedule = dict(max_backtracks=max_backtracks, quad_interp=quad_ls,
+                    backtrack=bt, coarse_after=coarse_after, coarse=coarse)
 
     # The candidate schedule: candidate j is bt^min(j, F) · coarse^max(j−F, 0)
     # (single-phase when F = coarse_after is 0), as float32 powers like the
@@ -418,35 +477,15 @@ def _make_sqp(f: Callable[[torch.Tensor], torch.Tensor], cfg: MpcConfig,
                     j += K
                 ls_ok = ok
             else:
-                # Sequential Armijo backtracking, masked per lane. Done (and
-                # inactive) lanes accept at once, so they cost no merit
-                # evaluation.
-                j = torch.zeros_like(s.k)
-                ok = s.done | ~active
-                f_ls = s.f
-                while True:
-                    go = ~ok & (j < max_backtracks)
-                    if not bool(go.any()):
-                        break
-                    phi, fv = merit(s.x + alpha[:, None] * d, mu)
-                    count("sqp.ls_evals")
-                    ok_new = phi <= phi0 + 1e-4 * alpha * dphi + 1e-12
-                    if quad_ls:
-                        # Minimizer of the quadratic through phi(0), phi'(0)
-                        # and phi(alpha), safeguarded to [0.1, 0.5]·alpha
-                        # (N&W §3.5).
-                        denom = 2.0 * (phi - phi0 - dphi * alpha)
-                        a_q = -dphi * alpha * alpha / torch.where(
-                            denom.abs() > 1e-20, denom, 1e-20)
-                        a_next = torch.minimum(
-                            torch.maximum(a_q, 0.1 * alpha), 0.5 * alpha)
-                    else:
-                        a_next = alpha * ls_factor(j)
-                    alpha = torch.where(go & ~ok_new, a_next, alpha)
-                    f_ls = torch.where(go & ok_new, fv, f_ls)
-                    j = torch.where(go, j + 1, j)
-                    ok = torch.where(go, ok_new, ok)
-                ls_ok = ok
+                # Sequential Armijo backtracking: the parity kernel where
+                # make_sqp_solver_batched built one, else the masked loop.
+                args = (s.x, d, alpha, phi0, dphi, mu, s.f, s.done, active)
+                if line_search is None:
+                    alpha, f_ls, ls_ok = _masked_armijo(merit, *args,
+                                                        **schedule)
+                else:
+                    count("sqp.ls_fused")
+                    alpha, f_ls, ls_ok = line_search(*args, **schedule)
 
         step_vec = torch.where(ls_ok[:, None], alpha[:, None] * d, 0.0)
         x_new = s.x + step_vec
@@ -556,6 +595,91 @@ def _batch_fobj(cfg: MpcConfig, objective, scens, fp_term):
     return lambda u: objective(u, scens)
 
 
+def _fused_line_search_rule(cfg: MpcConfig, objective, costmap, device,
+                            parallel_ls: bool) -> bool:
+    """Whether the sequential line search runs as the parity line-search
+    kernel: on CUDA operands, on the sequential branch (no fused wave, no
+    K-wide wave), on the parity objective of make_objective (its `parity`
+    and its `cfg`, at the solver's horizon, at most PARITY_LS_MAX_STEPS
+    steps) read through make_point_sampler's flat gather of a float32 map:
+    no parity patch (solver_costmap_patch 0) and no rolling-window view."""
+    ocfg = getattr(objective, "cfg", None)
+    return (torch.device(device).type == "cuda"
+            and not parallel_ls and cfg.solver_ls_wave == 1
+            and getattr(objective, "parity", None) is True
+            and ocfg is not None and ocfg.control_steps == cfg.control_steps
+            and cfg.control_steps <= binding.PARITY_LS_MAX_STEPS
+            and cfg.solver_costmap_patch == 0
+            and costmap.win_cells is None
+            and costmap.data.dtype == torch.float32)
+
+
+def _parity_lane_table(cfg: MpcConfig, objective, scens, fp_term):
+    """The kernel's per-lane table (B, 22) in binding.PARITY_LS_LANE_COLUMNS
+    order: the scenario's poses and velocity, its weights or the
+    objective's configuration's, the cone radius of its limits or of cfg,
+    the hoisted footprint term, the map's origin and resolution."""
+    B = scens.current_pose.shape[0]
+    cm = scens.costmap
+    vals = dict(resolve_weights(scens, objective.cfg),
+                current_pose=scens.current_pose,
+                carrot_pose=scens.carrot_pose, goal_pose=scens.goal_pose,
+                current_vel=scens.current_vel, fp_term=fp_term,
+                max_vel_trans=(cfg.max_vel_trans if scens.limits is None
+                               else scens.limits.max_vel_trans),
+                origin=cm.origin, resolution=cm.resolution)
+    table = torch.empty(B, sum(k for _, k in binding.PARITY_LS_LANE_COLUMNS),
+                        dtype=torch.float32, device=scens.current_pose.device)
+    c = 0
+    for name, k in binding.PARITY_LS_LANE_COLUMNS:
+        v = vals[name]
+        table[:, c:c + k] = v.reshape(-1, k) if torch.is_tensor(v) else v
+        c += k
+    return table
+
+
+def _fused_line_search(cfg: MpcConfig, objective, scens, fp_term,
+                       parallel_ls: bool):
+    """The parity line-search kernel over the lanes of `scens`, called as
+    _masked_armijo is without its merit, one launch a trip; None where
+    _fused_line_search_rule does not hold. The per-lane table and the map
+    are taken once a solve."""
+    cm = scens.costmap
+    if not _fused_line_search_rule(cfg, objective, cm,
+                                   scens.current_pose.device, parallel_ls):
+        return None
+    ocfg = objective.cfg
+    lane = _parity_lane_table(cfg, objective, scens, fp_term)
+    H, W = cm.data.shape[-2], cm.data.shape[-1]
+    flat = cm._flat().contiguous()
+    flat_u8 = None if cm.flat_u8 is None else cm.flat_u8.contiguous()
+    quirks = sum(1 << i for i, q in enumerate(binding.PARITY_LS_QUIRKS)
+                 if getattr(ocfg.compat, q))
+
+    def line_search(*args, **schedule):
+        return parity_line_search(flat, flat_u8, H, W, lane, *args,
+                                  n=cfg.control_steps, dt=ocfg.dt,
+                                  quirks=quirks, **schedule)
+
+    return line_search
+
+
+def parity_line_search(flat, flat_u8, H: int, W: int, lane, x, d, alpha,
+                       phi0, dphi, mu, f, done, active, **kw):
+    """One launch of the parity line-search kernel
+    (binding.launch_parity_line_search's arguments; the per-trip operands
+    made contiguous): (alpha, f_ls, ls_ok), each (B,)."""
+    out = binding.launch_parity_line_search(
+        flat, flat_u8, H, W, lane,
+        *(t.contiguous() for t in (x, d, alpha, phi0, dphi, mu, f, done,
+                                   active)), **kw)
+    parity_line_search.launches += 1
+    return out
+
+
+parity_line_search.launches = 0
+
+
 def make_sqp_solver_batched(cfg: MpcConfig, objective,
                             ftol: float | None = None,
                             max_iters: int | None = None,
@@ -585,7 +709,9 @@ def make_sqp_solver_batched(cfg: MpcConfig, objective,
         fobj = _batch_fobj(cfg, objective, scens, fp_term)
         return _make_sqp(fobj, cfg, batch, device, ftol=ftol,
                          qp_iters=qp_iters, parallel_ls=pls,
-                         ls_wave=cfg.solver_ls_wave, limits=scens.limits)
+                         ls_wave=cfg.solver_ls_wave, limits=scens.limits,
+                         line_search=_fused_line_search(
+                             cfg, objective, scens, fp_term, pls))
 
     def finish(st, scens, fp_term, idx):
         """Gather the lanes `idx` of st and scens, run them to the end as

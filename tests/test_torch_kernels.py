@@ -469,9 +469,11 @@ def test_footprint_cost_batch_refuses_other_devices():
 def test_chip_smoke_kernels_line_covers_every_kernel():
     """chip_smoke.py's module-level KERNELS (the entries of its `kernels`
     line) name every launcher of kernels/binding.py, each with a source that
-    exists and the `def` of the TPU kernel it replaces; every entry the line
-    prints carries the time, the bound, the launches a tick and the library
-    call's time."""
+    exists and the `def` of the TPU kernel it replaces (K1, K2, K3), or,
+    for the parity line search, which replaces no TPU kernel, the `def` of
+    the port's masked loop it replaces; every entry the line prints carries
+    the time, the bound, the launches a tick and the library call's
+    time."""
     sys.path.insert(0, str(ROOT))
     import chip_smoke
 
@@ -479,11 +481,19 @@ def test_chip_smoke_kernels_line_covers_every_kernel():
     assert launchers <= {k["launcher"] for k in chip_smoke.KERNELS}
     assert {s for s in build.SOURCES} == {
         pathlib.Path(k["source"]).name for k in chip_smoke.KERNELS}
+    tpu = {"qp_admm", "spd_inv", "footprint_cost"}
+    assert {k["name"] for k in chip_smoke.KERNELS} == tpu | {
+        "parity_line_search"}
     for k in chip_smoke.KERNELS:
         assert k["route"] == "cuda" and (ROOT / k["source"]).is_file()
         path, line = k["replaces"].rsplit(":", 1)
         text = (ROOT / path).read_text().splitlines()[int(line) - 1]
-        assert text.startswith("def _") and "kernel" in text, text
+        if k["name"] in tpu:
+            assert path.startswith("neo_mpc_planner2_tpu/"), path
+            assert text.startswith("def _") and "kernel" in text, text
+        else:
+            assert path == "neo_mpc_planner2_tpu_torch/sqp.py", path
+            assert text.startswith("def _masked_armijo("), text
     slice_ = {"launches": {k["name"]: 40 for k in chip_smoke.KERNELS},
               "ticks": 20}
     measured = {k["name"]: dict(max_abs_err=0.0, ms=0.01, plain_ms=1.0,
@@ -548,6 +558,9 @@ def test_chip_smoke_last_lines_name_the_card(monkeypatch, capsys):
         "plan_split": one, "plans": {"measured": 3, "lane": 2, "split": 2}})
     monkeypatch.setattr(chip_smoke, "phase_k3_walk", lambda d: {
         "walk_V40": one, "plans": {"edges_a_thread": 2}})
+    monkeypatch.setattr(chip_smoke, "phase_parity_line_search", lambda d: {
+        "max_abs_err": 0.0, "ms": 0.01, "plain_ms": 1.0, "bound_ms": 0.002,
+        "bound_by": "operations"})
     monkeypatch.setattr(chip_smoke, "phase_serving", lambda d, smi: {})
     monkeypatch.setattr(chip_smoke, "phase_slice", lambda *a, **kw: {
         "launches": {k["name"]: 40 for k in chip_smoke.KERNELS},

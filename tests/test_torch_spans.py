@@ -14,7 +14,8 @@
   masked loop's trips a tick are the tick's most iterations, each trip
   holds every lane, and the line search evaluates the merit at least once
   a trip. Commands and states are bit-identical with recording on and
-  off.
+  off. On the card the line search is the parity kernel, one
+  `sqp.ls_fused` a trip (a `cuda`-marked case, skipped without a card).
 - One `optimizer` request through `serve` on loopback is one trace of
   nested server spans.
 """
@@ -288,6 +289,30 @@ def test_sqp_counters_agree_with_the_loop_and_change_nothing():
             "engine.post", "engine.post_solve", "sqp.solve", "sqp.init",
             "sqp.iter", "sqp.qp", "sqp.ls"} <= names
     assert "tick.map" not in names  # a static map is neither made nor written
+
+
+@pytest.mark.parametrize("device", [
+    "cpu", pytest.param("cuda", marks=pytest.mark.cuda)])
+def test_the_line_search_is_counted_where_it_runs(device):
+    """A parity closed loop on the card runs its line search as the parity
+    kernel: one `sqp.ls_fused` a trip and no masked merit call
+    (`sqp.ls_evals`); on the CPU the masked loop: at least one merit call
+    a trip and no `sqp.ls_fused`."""
+    if device == "cuda" and not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel runs only on the card")
+    cfg = _cfg()
+    sb = tp.make_scenario_batch(cfg, LANES, seed=3, map_size=48,
+                                plan_points=64, device=device)
+    with profiling.recording() as log:
+        tp.batch_simulate(cfg, sb, TICKS)
+    c = log.counts
+    assert c["sqp.trips"] > 0
+    if device == "cuda":
+        assert c["sqp.ls_fused"] == c["sqp.trips"]
+        assert "sqp.ls_evals" not in c
+    else:
+        assert c["sqp.ls_evals"] >= c["sqp.trips"]
+        assert "sqp.ls_fused" not in c
 
 
 def test_a_served_request_is_one_trace_of_nested_spans():
