@@ -108,7 +108,7 @@ KERNELS = [
     # Not a TPU kernel: it replaces the port's masked Armijo loop.
     dict(name="parity_line_search", route="cuda",
          source="neo_mpc_planner2_tpu_torch/csrc/parity_line_search.cu",
-         replaces="neo_mpc_planner2_tpu_torch/sqp.py:288",
+         replaces="neo_mpc_planner2_tpu_torch/sqp.py:298",
          launcher="launch_parity_line_search"),
 ]
 
@@ -988,7 +988,25 @@ def phase_k3(device):
     return report
 
 
-class K3Recorder:
+class EagerSolves:
+    """Base of the recorders below. While one is active the SQP runs its
+    eager loop (`sqp._graph_rule` off), so that the functions it wraps run,
+    and see each call's operands, at every solve: a CUDA graph's replay
+    runs only what its capture saw, once."""
+
+    def _eager(self) -> None:
+        from neo_mpc_planner2_tpu_torch import sqp
+
+        self._graph_rule = sqp._graph_rule
+        sqp._graph_rule = lambda *a, **kw: False
+
+    def _graphs_back(self) -> None:
+        from neo_mpc_planner2_tpu_torch import sqp
+
+        sqp._graph_rule = self._graph_rule
+
+
+class K3Recorder(EagerSolves):
     """While active, counts K3's launches by R and keeps a copy of the
     arguments of the first call for each (R, whole grid or bounds, shift or
     none, sampled or walk mode): it wraps `binding.launch_footprint_cost`,
@@ -1014,16 +1032,18 @@ class K3Recorder:
             return self._launch(*args, **kw)
 
         binding.launch_footprint_cost = launch
+        self._eager()
         return self
 
     def __exit__(self, *exc):
         from neo_mpc_planner2_tpu_torch.kernels import binding
 
         binding.launch_footprint_cost = self._launch
+        self._graphs_back()
         return False
 
 
-class ParityLsRecorder:
+class ParityLsRecorder(EagerSolves):
     """While active, each parity line-search kernel that
     sqp.make_sqp_solver_batched builds also runs the masked loop
     (sqp._masked_armijo) on each trip's operands and keeps the operands,
@@ -1066,12 +1086,14 @@ class ParityLsRecorder:
             return line_search
 
         sqp._fused_line_search = factory
+        self._eager()
         return self
 
     def __exit__(self, *exc):
         from neo_mpc_planner2_tpu_torch import sqp
 
         sqp._fused_line_search = self._factory
+        self._graphs_back()
         return False
 
     def differing(self) -> dict:
@@ -1540,7 +1562,7 @@ class TripCounter:
         return self.objective(*args, **kw)
 
 
-class SolveRecorder:
+class SolveRecorder(EagerSolves):
     """While active, counts the batched solves of `batch` lanes and keeps
     the size of each sub-batch that lockstep-tail compaction finishes: both
     build their SQP machinery through `sqp._make_sqp`, which the batched
@@ -1565,12 +1587,14 @@ class SolveRecorder:
             return self._make(f, cfg, batch, *args, **kw)
 
         sqp._make_sqp = make
+        self._eager()
         return self
 
     def __exit__(self, *exc):
         from neo_mpc_planner2_tpu_torch import sqp
 
         sqp._make_sqp = self._make
+        self._graphs_back()
         return False
 
 
@@ -2639,7 +2663,7 @@ CONTROLLER_CHECK_TICKS = 10
 CONTROLLER_TRACED_TICKS = 3
 
 
-class K1Recorder:
+class K1Recorder(EagerSolves):
     """While active, counts K1's launches and keeps a copy of the arguments
     of its first call for each (B, m): it wraps `binding.launch_qp_admm`,
     which `sqp.qp_admm` looks up at every call, and restores it on exit."""
@@ -2662,12 +2686,14 @@ class K1Recorder:
             return self._launch(ins, m, iters, rho, sigma)
 
         binding.launch_qp_admm = launch
+        self._eager()
         return self
 
     def __exit__(self, *exc):
         from neo_mpc_planner2_tpu_torch.kernels import binding
 
         binding.launch_qp_admm = self._launch
+        self._graphs_back()
         return False
 
 

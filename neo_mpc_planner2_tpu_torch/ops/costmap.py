@@ -385,7 +385,7 @@ def make_point_sampler(cm: Costmap, cx=None, cy=None,
     flat = cm._flat()
     flat_q = cm.flat_u8
     w = cm.data.shape[-1]
-    inv255 = flat.new_tensor(255.0)
+    inv255 = flat.new_full((), 255.0)
 
     def sample(wx, wy):
         mx, my = world_to_map(cm, wx, wy)

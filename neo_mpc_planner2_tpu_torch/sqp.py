@@ -29,12 +29,21 @@ end, with the masked loop's arithmetic, so it takes the same alpha without
 the loop's launches and host `any()` a backtrack. `_fused_line_search_rule`
 says where; everywhere else (the CPU, the product objective, the waves, the
 parity patch, a rolling-window view) the masked loop `_masked_armijo` runs.
+
+Where a trip never reads the device (that kernel, or the fused wave) and a
+solve runs the whole batch on the card, the solve is CUDA graph replays
+(`_graph_rule`, `_SolveGraphs`): one graph of the per-solve hoists and
+init, one of a masked trip, captured once per solver signature for the
+process and replayed from static buffers, one host read a trip as in the
+eager loop. `_make_sqp`'s eager loop is the reference they are held to.
 """
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 import math
+import threading
 from typing import Callable
 
 import torch
@@ -42,10 +51,11 @@ import torch
 from .config import MpcConfig
 from .kernels import binding
 from .ops.costmap import ProductPatchSampler, _lane, make_point_sampler
+from .ops.footprint import footprint_cost_batch, footprint_walk_batch
 from .ops.objective import parity_footprint_term, resolve_weights
 from .solver import SolveResult
-from .tree import tree_map
-from .utils.profiling import count, span
+from .tree import tree_flatten, tree_map, tree_unflatten
+from .utils.profiling import count, span, tally
 
 __all__ = ["qp_admm", "qp_admm_plain", "chol_inverse", "chol_inverse_plain",
            "sqp_solve", "make_sqp_solver", "make_sqp_solver_batched"]
@@ -368,12 +378,16 @@ def _make_sqp(f: Callable[[torch.Tensor], torch.Tensor], cfg: MpcConfig,
     m = 3 * n
     f32 = dict(dtype=torch.float32, device=device)
     if limits is None:
-        lo1 = torch.tensor([cfg.min_vel_x, cfg.min_vel_y, cfg.min_vel_theta],
-                           **f32).repeat(n)
-        hi1 = torch.tensor([cfg.max_vel_x, cfg.max_vel_y, cfg.max_vel_theta],
-                           **f32).repeat(n)
-        lo = lo1.expand(batch, m).contiguous()
-        hi = hi1.expand(batch, m).contiguous()
+        # Filled on the device, not copied from the host: a CUDA graph's
+        # capture takes no host-to-device copy.
+        def per_step(*v):
+            t = torch.empty(batch, n, 3, **f32)
+            for i, vi in enumerate(v):
+                t[..., i] = vi
+            return t.reshape(batch, m)
+
+        lo = per_step(cfg.min_vel_x, cfg.min_vel_y, cfg.min_vel_theta)
+        hi = per_step(cfg.max_vel_x, cfg.max_vel_y, cfg.max_vel_theta)
         max_trans = None
     else:
         lo = limits.vel_lo.to(**f32).repeat(1, n).contiguous()
@@ -402,8 +416,8 @@ def _make_sqp(f: Callable[[torch.Tensor], torch.Tensor], cfg: MpcConfig,
                else -(-max_backtracks // ls_wave) * ls_wave)
     jf = torch.arange(n_sched, **f32)
     fine = jf if coarse_after <= 0 else jf.clamp(max=float(coarse_after))
-    ls_alphas = (torch.pow(torch.tensor(bt, **f32), fine)
-                 * torch.pow(torch.tensor(coarse, **f32), jf - fine))
+    ls_alphas = (torch.pow(torch.full((), bt, **f32), fine)
+                 * torch.pow(torch.full((), coarse, **f32), jf - fine))
 
     def body(s: _SqpState, active: torch.Tensor) -> _SqpState:
         count("sqp.trips")
@@ -680,6 +694,180 @@ def parity_line_search(flat, flat_u8, H: int, W: int, lane, x, d, alpha,
 parity_line_search.launches = 0
 
 
+# The most solver signatures whose CUDA graphs the process keeps; past it
+# the least recently used are dropped.
+GRAPH_CACHE_SIZE = 8
+_GRAPHS: "collections.OrderedDict" = collections.OrderedDict()
+_GRAPHS_LOCK = threading.Lock()
+
+
+def _graph_rule(cfg: MpcConfig, objective, costmap, device,
+                parallel_ls: bool, whole_batch: bool) -> bool:
+    """Whether a solve runs as CUDA graph replays (_SolveGraphs): on CUDA
+    operands, over the whole batch (no compaction), on an objective of
+    make_objective (its `parity` and `cfg` say all it computes), with a
+    trip that never reads the device: the fused wave, or the parity
+    line-search kernel (_fused_line_search_rule). Everywhere else (the CPU,
+    the masked Armijo loop and the K-wide wave, which read the device a
+    backtrack or a block, compaction's sub-batches) the eager loop runs."""
+    return (whole_batch and torch.device(device).type == "cuda"
+            and getattr(objective, "parity", None) in (True, False)
+            and getattr(objective, "cfg", None) is not None
+            and (parallel_ls or _fused_line_search_rule(
+                cfg, objective, costmap, device, parallel_ls)))
+
+
+# The kernel wrappers whose launch counters (and launches by plan) a
+# replay adds again, as the capture counted them.
+_LAUNCHERS = (qp_admm, chol_inverse, parity_line_search,
+              footprint_cost_batch, footprint_walk_batch)
+
+
+class _Captured:
+    """What one capture counted: the program's counters (count()) and the
+    kernel wrappers' launches, added again by each replay's `add()`."""
+
+    def __init__(self):
+        self.counts = {}
+        self.launches = {}
+
+    def add(self) -> None:
+        for name, n in self.counts.items():
+            count(name, n)
+        for f, (n, plans) in self.launches.items():
+            f.launches += n
+            if plans:
+                f.plans.update(plans)
+
+
+def _capture(graph, pool, fn):
+    """fn() captured into `graph` (PyTorch's torch.cuda.graph, on its side
+    stream, sharing `pool`): returns (fn's result, _Captured). Other
+    threads may use the device meanwhile."""
+    rec = _Captured()
+    before = {f: (f.launches, collections.Counter(getattr(f, "plans", {})))
+              for f in _LAUNCHERS}
+    with tally() as counts, torch.cuda.graph(
+            graph, pool=pool, capture_error_mode="thread_local"):
+        out = fn()
+    rec.counts = counts
+    # Nothing ran: the counters go back to where they were.
+    for f, (n, plans) in before.items():
+        if f.launches == n:
+            continue
+        grown = None
+        if hasattr(f, "plans"):
+            grown = f.plans.copy()
+            grown.subtract(plans)
+            f.plans.clear()
+            f.plans.update(plans)
+        rec.launches[f] = (f.launches - n, grown)
+        f.launches = n
+    return out, rec
+
+
+class _SolveGraphs:
+    """One solver signature's two CUDA graphs over static buffers: G_init,
+    the per-solve hoists (the parity footprint term, the samplers, the
+    parity lane table, the bounds) and init from the input buffers, and
+    G_trip, one masked trip (alive, body, _select) written in place into
+    the state buffers, which also leaves in `flag` whether a lane is alive
+    for the next trip. A solve copies its inputs into the buffers, replays
+    G_init, then G_trip while the flag says a lane is alive (the eager
+    loop's one host read a trip), and copies the state out. The graphs
+    launch the eager loop's kernels (K1, K3, the parity line search) and
+    ops in its order, so the result is the eager solve's.
+
+    prepare(scens, batch, device) -> (init, run, body) is the solver's
+    machinery, hoists included; upto_k the iteration cap."""
+
+    def __init__(self, prepare, x0s, leaves, treedef, upto_k: int):
+        device = x0s.device
+        self.batch = x0s.shape[0]
+        self.lock = threading.Lock()
+        self.inputs = [torch.empty_like(t) for t in (x0s, *leaves)]
+        torch._foreach_copy_(self.inputs, [x0s, *leaves])
+        x0 = self.inputs[0]
+        scens = tree_unflatten(treedef, self.inputs[1:])
+
+        def start():
+            init, _, body = prepare(scens, self.batch, device)
+            # init's fields share tensors (k and small_count, ...): each
+            # state buffer is written in place, so each gets its own.
+            return tree_map(torch.clone, init(x0)), body
+
+        def alive(s):
+            return ~s.done & (s.k < upto_k)
+
+        def trip(s, body):
+            a = alive(s)
+            new = _select(a, body(s, a), s)
+            torch._foreach_copy_(tree_flatten(s)[0], tree_flatten(new)[0])
+
+        # PyTorch's recipe: a warm-up on a side stream, so that lazy
+        # set-up (autograd's threads, cuBLAS, the kernels' library) is done
+        # before the capture. It is no solve: its counts are dropped.
+        side = torch.cuda.Stream(device)
+        side.wait_stream(torch.cuda.current_stream(device))
+        with torch.cuda.stream(side), tally():
+            trip(*start())
+        torch.cuda.current_stream(device).wait_stream(side)
+
+        pool = torch.cuda.graph_pool_handle()
+        self.g_init, self.g_trip = torch.cuda.CUDAGraph(), torch.cuda.CUDAGraph()
+
+        def first():
+            st, body = start()
+            return st, body, alive(st).any()
+
+        # body closes over the tensors G_init computes (the bounds, the
+        # samplers, the lane table), which G_trip reads: kept with the
+        # graphs, their memory is never handed to another tensor.
+        (self.state, self.body, self.flag), self.init_counts = _capture(
+            self.g_init, pool, first)
+
+        def next_trip():
+            trip(self.state, self.body)
+            self.flag.copy_(alive(self.state).any())
+
+        _, self.trip_counts = _capture(self.g_trip, pool, next_trip)
+        count("sqp.graph_captures")
+
+    def solve(self, x0s, leaves) -> SolveResult:
+        with self.lock, torch.cuda.device(x0s.device):
+            torch._foreach_copy_(self.inputs, [x0s, *leaves])
+            with span("sqp.init", graph=True):
+                self.g_init.replay()
+            self.init_counts.add()
+            count("sqp.graph_inits")
+            while bool(self.flag):
+                with span("sqp.iter", lanes=self.batch, graph=True):
+                    self.g_trip.replay()
+                self.trip_counts.add()
+                count("sqp.graph_replays")
+            s = self.state
+            return SolveResult(x=s.x.clone(), fun=s.f.clone(),
+                               converged=s.done.clone(), iters=s.k.clone())
+
+
+def _solve_graphs(key, prepare, x0s, leaves, treedef,
+                  upto_k: int) -> _SolveGraphs:
+    """The process's graphs for `key`, captured at its first solve."""
+    with _GRAPHS_LOCK:
+        g = _GRAPHS.get(key)
+        if g is None:
+            # The capture and its side stream are on the operands' device,
+            # whatever the thread's current one is.
+            with torch.cuda.device(x0s.device):
+                g = _GRAPHS[key] = _SolveGraphs(prepare, x0s, leaves,
+                                                treedef, upto_k)
+            while len(_GRAPHS) > GRAPH_CACHE_SIZE:
+                _GRAPHS.popitem(last=False)
+        else:
+            _GRAPHS.move_to_end(key)
+        return g
+
+
 def make_sqp_solver_batched(cfg: MpcConfig, objective,
                             ftol: float | None = None,
                             max_iters: int | None = None,
@@ -701,9 +889,17 @@ def make_sqp_solver_batched(cfg: MpcConfig, objective,
     The sub-batch holds exactly the alive lanes (the JAX package pads it to
     compact_n with lane 0 for a static shape). A lane's iterations are the
     same in every grouping; only an `improved < ftol` tie within ~1 ulp of
-    `fun` could move its termination by one iteration."""
+    `fun` could move its termination by one iteration.
+
+    The plain path on the card, where `_graph_rule` holds, replays the
+    process's CUDA graphs of this solver's signature (`_SolveGraphs`,
+    captured at its first solve)."""
     max_iters_ = cfg.solver_max_iters if max_iters is None else max_iters
     pls = cfg.parallel_line_search if parallel_ls is None else parallel_ls
+    # What a CUDA graph of this solver bakes in besides its inputs' shapes.
+    graph_key = (cfg, getattr(objective, "parity", None),
+                 getattr(objective, "cfg", None), ftol, max_iters_, qp_iters,
+                 pls)
 
     def machinery(scens, fp_term, batch, device):
         fobj = _batch_fobj(cfg, objective, scens, fp_term)
@@ -712,6 +908,10 @@ def make_sqp_solver_batched(cfg: MpcConfig, objective,
                          ls_wave=cfg.solver_ls_wave, limits=scens.limits,
                          line_search=_fused_line_search(
                              cfg, objective, scens, fp_term, pls))
+
+    def prepare(scens, batch, device):
+        return machinery(scens, _batch_hoist(cfg, objective, scens), batch,
+                         device)
 
     def finish(st, scens, fp_term, idx):
         """Gather the lanes `idx` of st and scens, run them to the end as
@@ -741,6 +941,14 @@ def make_sqp_solver_batched(cfg: MpcConfig, objective,
         adaptive = (cfg.solver_compact_adaptive and eligible
                     and max_iters_ > 1 and cfg.solver_costmap_patch == 0)
         use = eligible and 0 < k1 < max_iters_
+        if _graph_rule(cfg, objective, scens.costmap, x0s.device, pls,
+                       whole_batch=not (adaptive or use)):
+            leaves, treedef = tree_flatten(scens)
+            key = (graph_key, x0s.device, x0s.shape, x0s.dtype, treedef,
+                   tuple((t.shape, t.dtype) for t in leaves))
+            with torch.no_grad():
+                return _solve_graphs(key, prepare, x0s, leaves, treedef,
+                                     max_iters_).solve(x0s, leaves)
         fp_term = _batch_hoist(cfg, objective, scens)
         init, run, body = machinery(scens, fp_term, batch, x0s.device)
         with torch.no_grad():

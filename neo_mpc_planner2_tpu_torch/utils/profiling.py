@@ -11,11 +11,15 @@ torch.profiler trace:
 - `recording()`: records the spans and counts of every thread of the
   process while it is open, and yields the log they are merged into on
   exit (`SpanLog`: `.spans`, `.counts`, `.dropped`, `.offset_us`).
+- `tally()`: the calling thread's counts go into the dict it yields, and
+  not into a recording, while it is open: a CUDA graph's capture runs the
+  program's host code without doing its work, and each replay adds what
+  the capture counted.
 
-Outside `recording()` (and `device_trace`) nothing is recorded: `span()`
-returns one shared no-op object after one read of a module global, and
-`count()` returns after the same read; neither takes a lock nor calls
-torch.
+Outside `recording()` (and `device_trace`) and `tally()` nothing is
+recorded: `span()` returns one shared no-op object after one read of a
+module global, and `count()` returns after two such reads; neither takes
+a lock nor calls torch.
 
 Device traces:
 
@@ -56,7 +60,7 @@ from typing import Deque, Dict, NamedTuple, Optional
 
 import numpy as np
 
-__all__ = ["span", "count", "recording", "SpanLog", "SpanRecord",
+__all__ = ["span", "count", "tally", "recording", "SpanLog", "SpanRecord",
            "device_trace", "device_module_durations_ms", "host_call_counts",
            "device_step_durations_ms", "host_launches_by_op", "LAUNCH_CALLS",
            "SYNC_CALLS", "RateTracker"]
@@ -72,6 +76,7 @@ ANCHOR_TOLERANCE_US = 100.0
 SPAN_CATEGORY = "program_span"
 
 _ON = False          # recording, for every thread
+_TALLY = None        # (thread ident, counts) while tally() is open
 _SESSION = None      # the current (or last) recording's _Session
 _IDS = itertools.count()
 _TLS = threading.local()
@@ -212,7 +217,12 @@ def span(name: str, **attrs):
 
 def count(name: str, n: int = 1) -> None:
     """Add n, a host-known number, to the counter `name` while
-    `recording()` is open; nothing otherwise."""
+    `recording()` is open, or to the calling thread's `tally()`; nothing
+    otherwise."""
+    tally_ = _TALLY
+    if tally_ is not None and tally_[0] == threading.get_ident():
+        tally_[1][name] = tally_[1].get(name, 0) + n
+        return
     if not _ON:
         return
     counts = _SESSION.buffer().counts
@@ -298,6 +308,22 @@ def _anchors(session: _Session) -> list:
                               threading.get_native_id(), {}, next(_IDS),
                               threading.get_ident()))
     return out
+
+
+@contextlib.contextmanager
+def tally():
+    """Yield a dict {name: total} that takes the calling thread's counts
+    while open, in place of the recording (other threads count as
+    before). Not nested."""
+    global _TALLY
+    if _TALLY is not None:
+        raise RuntimeError("tally() is already open")
+    counts: Dict[str, int] = {}
+    _TALLY = (threading.get_ident(), counts)
+    try:
+        yield counts
+    finally:
+        _TALLY = None
 
 
 @contextlib.contextmanager

@@ -125,7 +125,13 @@ def test_bench_py_keys_are_read_from_its_literals():
     assert keys[-1] == "serving_fleet64_per_robot_ms"
 
 
-def test_small_cpu_run_prints_bench_py_line(capsys):
+def test_small_cpu_run_prints_bench_py_line(capsys, monkeypatch):
+    # The launch counters are the process's: other tests in this worker
+    # may have counted launches before. Start them at zero for this run.
+    for fn in bench.kernel_wrappers().values():
+        monkeypatch.setattr(fn, "launches", 0)
+        if hasattr(fn, "plans"):
+            monkeypatch.setattr(fn, "plans", type(fn.plans)())
     bench.main(SMALL_RUN)
     out, err = capsys.readouterr()
     lines = out.strip().splitlines()
